@@ -5,7 +5,9 @@ The package imports torch and numpy only; kernels are CUDA C++ sources
 under `csrc/`, compiled with nvcc at first use (`kernels/build.py`).
 
 Entry points run on the card (`device="cuda"`) unless the caller passes
-`device="cpu"`; with no card and no explicit CPU they raise.
+`device="cpu"`; with no card and no explicit CPU they raise. Training:
+`models.init_model`, `optim.init_optim`, `make_train_step` (below, from
+`engine.trainer`); serving: `engine.export.FeatureExtractor`.
 """
 
 from __future__ import annotations
@@ -28,3 +30,8 @@ def resolve_device(device: str | torch.device | None = "cuda") -> torch.device:
     if dev.type not in ("cuda", "cpu"):
         raise ValueError(f"unsupported device {dev}")
     return dev
+
+
+from agrl_torch.engine.trainer import make_train_step  # noqa: E402  (needs resolve_device first)
+
+__all__ = ["make_train_step", "resolve_device"]

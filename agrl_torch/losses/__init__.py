@@ -1,0 +1,70 @@
+"""Training losses (counterpart of agrl_tpu/losses/__init__.py).
+
+Parity targets in the reference:
+  * cross_entropy_label_smooth — torchreid/losses/cross_entropy_loss.py:8-37:
+    targets (1 - eps) * onehot + eps / K, loss
+    (-targets * log_softmax(logits)).mean(0).sum().
+  * batch-hard triplet — torchreid/losses/hard_mine_triplet_loss.py:8-50:
+    per anchor the hardest positive and hardest negative distance; soft
+    margin softplus(d_ap - d_an).mean() or margin ranking
+    max(0, margin + d_ap - d_an).mean().
+  * deep_supervision — torchreid/losses/__init__.py:9-19: mean of the
+    criterion over a list of heads.
+
+The distance + mining step is `ops.triplet.hard_mine_fused`: the CUDA
+kernel on the card, its plain version (`pairwise_euclidean` +
+`hard_mine`, re-exported here where agrl_tpu keeps them) on the CPU.
+"""
+
+from __future__ import annotations
+
+import torch
+import torch.nn.functional as F
+
+from agrl_torch.ops.triplet import hard_mine, hard_mine_fused, pairwise_euclidean
+
+__all__ = [
+    "cross_entropy_label_smooth",
+    "batch_hard_triplet",
+    "pairwise_euclidean",
+    "hard_mine",
+    "deep_supervision",
+]
+
+
+def cross_entropy_label_smooth(
+    logits: torch.Tensor,
+    labels: torch.Tensor,
+    num_classes: int | None = None,
+    epsilon: float = 0.1,
+) -> torch.Tensor:
+    """logits (B, K); labels (B,) ints. Returns the scalar loss."""
+    if num_classes is None:
+        num_classes = logits.shape[-1]
+    log_probs = F.log_softmax(logits, dim=1)
+    onehot = F.one_hot(labels.long(), num_classes).to(log_probs.dtype)
+    targets = (1.0 - epsilon) * onehot + epsilon / num_classes
+    return (-targets * log_probs).mean(dim=0).sum()
+
+
+def batch_hard_triplet(
+    features: torch.Tensor,
+    labels: torch.Tensor,
+    margin: float = 0.3,
+    soft: bool = True,
+) -> torch.Tensor:
+    """Batch-hard triplet loss. features (B, D); labels (B,)."""
+    d_ap, d_an = hard_mine_fused(features, labels)
+    if soft:
+        return F.softplus(d_ap - d_an).mean()
+    return torch.clamp(margin + d_ap - d_an, min=0.0).mean()
+
+
+def deep_supervision(criterion, xs, y, **kwargs) -> torch.Tensor:
+    """Mean of `criterion(x, y)` over a list/tuple of head outputs."""
+    if not isinstance(xs, (list, tuple)):
+        xs = [xs]
+    total = 0.0
+    for x in xs:
+        total = total + criterion(x, y, **kwargs)
+    return total / len(xs)

@@ -2,7 +2,8 @@
 
 `init_model(name, num_classes, device=..., seed=...)` returns a model with
 random weights drawn from a seeded torch.Generator, on the device (CUDA
-unless the caller passes device="cpu"), in eval mode. Only the VMGN
+unless the caller passes device="cpu"), in eval mode; a trainer calls
+`.train()`. `loss` and `consistent_loss` shape the train forward. Only the VMGN
 family is ported; the other archs of agrl_tpu's registry follow later.
 """
 
@@ -14,10 +15,12 @@ from agrl_torch import resolve_device
 from agrl_torch.models.vmgn import VMGN, vmgn
 
 
-def vmgn_tiny(num_classes, **kwargs):
+def vmgn_tiny(num_classes, loss=frozenset({"xent", "htri"}), **kwargs):
     """Depth-(1,1,1,1) VMGN for tests/smoke runs (not in the reference)."""
     return VMGN(
         num_classes=num_classes,
+        loss=loss,
+        consistent_loss=kwargs.pop("consistent_loss", False),
         layers=(1, 1, 1, 1),
         last_stride=kwargs.pop("last_stride", 1),
         num_split=kwargs.pop("num_split", 4),

@@ -17,6 +17,7 @@ import math
 
 import numpy as np
 import torch
+import torch.nn.functional as F
 from torch import nn
 
 # torch BatchNorm defaults: eps 1e-5 (agrl_tpu/models/backbone.py:56-59),
@@ -24,8 +25,39 @@ from torch import nn
 BN_EPS = 1e-5
 
 
-def batch_norm2d(channels: int) -> nn.BatchNorm2d:
-    return nn.BatchNorm2d(channels, eps=BN_EPS)
+class _FlaxRunningStats:
+    """Train mode normalizes with the batch mean and the biased batch
+    variance, as both frameworks do, but updates `running_var` with the
+    BIASED variance, as agrl_tpu's flax BatchNorm does
+    (agrl_tpu/models/backbone.py:56-59). torch's own BatchNorm, and the
+    original torch AGRL, use the unbiased one: a factor n / (n - 1) in the
+    update, 16/15 at the BNNecks of a 16-clip batch. agrl_tpu is the
+    oracle, so the port keeps flax's rule. Eval mode is torch's."""
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if not self.training:
+            return super().forward(x)
+        out = F.batch_norm(x, None, None, self.weight, self.bias, True, 0.0, self.eps)
+        with torch.no_grad():
+            dims = [0, *range(2, x.dim())]
+            var, mean = torch.var_mean(x, dim=dims, correction=0)
+            m = self.momentum
+            self.running_mean.mul_(1.0 - m).add_(mean, alpha=m)
+            self.running_var.mul_(1.0 - m).add_(var, alpha=m)
+            self.num_batches_tracked.add_(1)
+        return out
+
+
+class BatchNorm1d(_FlaxRunningStats, nn.BatchNorm1d):
+    pass
+
+
+class BatchNorm2d(_FlaxRunningStats, nn.BatchNorm2d):
+    pass
+
+
+def batch_norm2d(channels: int) -> BatchNorm2d:
+    return BatchNorm2d(channels, eps=BN_EPS)
 
 
 def init_conv_(conv: nn.Conv2d, generator: torch.Generator) -> None:

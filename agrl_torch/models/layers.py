@@ -18,10 +18,11 @@ Parity targets in the reference:
 from __future__ import annotations
 
 import torch
+import torch.nn.functional as F
 from torch import nn
 
-from agrl_torch.models.backbone import BN_EPS
-from agrl_torch.ops.graph_conv import graph_propagate, l1_normalize, l2_affinity
+from agrl_torch.models.backbone import BN_EPS, BatchNorm1d
+from agrl_torch.ops.graph_conv import blended_graph, graph_propagate, l1_normalize, l2_affinity
 
 __all__ = [
     "BNNeck", "GraphConvLayer", "l1_normalize", "l2_affinity", "temporal_attention",
@@ -31,13 +32,16 @@ __all__ = [
 class GraphConvLayer(nn.Module):
     """Adaptive graph convolution with residual learning — the vmgn/gsta
     variant (vmgn.py:68-172): pose graph and l2 learned graph averaged, no
-    diagonal mask, gamma 0.1, convex residual, eval mode.
+    diagonal mask, gamma 0.1, convex residual.
 
     The eval forward IS ops.graph_conv.graph_propagate on this layer's
     `linear.weight` and `bn` buffers: the CUDA kernel on the card, its
-    plain version on the CPU. Variants no path of the port runs yet raise
-    NotImplementedError: `dot` affinity, `mask_diag`, the `additive`
-    residual, pose-only or learned-only graphs, `vertex_mask`, train mode.
+    plain version on the CPU. The train forward is the plain composition
+    of agrl_tpu/models/layers.py:219-251 under autograd (BN on batch
+    statistics, which the eval kernel's fusion cannot take). Variants no
+    path of the port runs yet raise NotImplementedError: `dot` affinity,
+    `mask_diag`, the `additive` residual, pose-only or learned-only graphs,
+    `vertex_mask`.
     """
 
     def __init__(
@@ -65,7 +69,7 @@ class GraphConvLayer(nn.Module):
             raise NotImplementedError(f"GraphConvLayer: {', '.join(unsupported)} not ported yet")
         self.gamma = gamma
         self.linear = nn.Linear(in_features, out_features, bias=False)
-        self.bn = nn.BatchNorm1d(out_features, eps=BN_EPS)
+        self.bn = BatchNorm1d(out_features, eps=BN_EPS)
 
     def init_weights(self, generator: torch.Generator) -> None:
         """Reference _init_params (vmgn.py:137-140): Linear ~ N(0, 0.01)."""
@@ -74,18 +78,22 @@ class GraphConvLayer(nn.Module):
 
     def forward(self, x: torch.Tensor, adj: torch.Tensor, vertex_mask=None) -> torch.Tensor:
         """x: (B, V, C); adj: (B, V, V) pose graph. Returns (B, V, C)."""
-        if self.training:
-            raise NotImplementedError("GraphConvLayer train mode is not ported yet")
         if vertex_mask is not None:
             raise NotImplementedError("GraphConvLayer vertex_mask is not ported yet")
         bn = self.bn
-        return graph_propagate(
-            x, adj, self.linear.weight.t(), bn.weight, bn.bias,
-            bn.running_mean, bn.running_var, self.gamma,
-        )
+        if not self.training:
+            return graph_propagate(
+                x, adj, self.linear.weight.t(), bn.weight, bn.bias,
+                bn.running_mean, bn.running_var, self.gamma,
+            )
+        B, V, C = x.shape
+        h_prime = torch.matmul(blended_graph(x, adj), self.linear(x))
+        # BatchNorm over all (B * V) vertex rows, as BN1d(view(N * V, C))
+        h_prime = F.leaky_relu(bn(h_prime.reshape(B * V, C)).reshape(B, V, C), 0.1)
+        return (1.0 - self.gamma) * x + self.gamma * h_prime
 
 
-class BNNeck(nn.BatchNorm1d):
+class BNNeck(BatchNorm1d):
     """BatchNorm bottleneck whose bias is frozen at zero (the reference
     keeps the bias entry in its state dict, so the port does too)."""
 

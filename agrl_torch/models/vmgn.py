@@ -11,6 +11,14 @@ Counterpart of agrl_tpu/models/vmgn.py (reference GSTA as built by
     vertices -> num_gb graph layers (the fused CUDA kernel on the card) ->
     temporal attention fusion -> mean over parts -> BNNeck.
   * Eval feature: cat([global_bn, att_bn]) — 4096-d.
+  * Train outputs: ([g_out, att_out, *subclip_outs], [g_f, att_f,
+    *subclip_feats]) for loss {'xent', 'htri'} (vmgn.py:344-355); the
+    classifiers have no bias and the triplet features are the pre-BN ones.
+  * Consistent loss: sorted random subsets of S-3, S-2 and S-1 frames are
+    re-fused through the same attention BNNeck and classifier
+    (vmgn.py:327-342). The subsets come from an explicit torch.Generator,
+    or are injected (`subclip_indices`): agrl_tpu draws them with
+    jax.random, whose numbers torch cannot reproduce.
 
 Public layout follows agrl_tpu: clips (B, S, H, W, 3) float, adjacency
 (B, V, V). Inside, frames go to NCHW by a permute (which gives NCHW
@@ -19,12 +27,13 @@ tensors in channels_last memory order, no copy).
 Submodule names are the reference's, so agrl_tpu's name map
 (weight_convert._split_torch_name) covers every entry.
 
-Not ported yet (raise NotImplementedError): the train forward (logits,
-consistent-loss subclips) and `frame_mask` (`--test-sample all`).
+Not ported yet (raises NotImplementedError): `frame_mask`
+(`--test-sample all`).
 """
 
 from __future__ import annotations
 
+import numpy as np
 import torch
 from torch import nn
 
@@ -52,8 +61,14 @@ class VMGN(ResNetTrunk):
         num_gb: int = 2,
         use_pose: bool = True,
         learn_graph: bool = True,
+        loss=frozenset({"xent", "htri"}),
+        consistent_loss: bool = False,
     ):
         super().__init__(layers)
+        self.loss = frozenset(loss)
+        if self.loss not in (frozenset({"xent"}), frozenset({"xent", "htri"})):
+            raise KeyError(f"Unsupported loss: {set(self.loss)}")
+        self.consistent_loss = consistent_loss
         self.total_split_list = calc_splits(num_split) if pyramid_part else [num_split]
         self.total_split = sum(self.total_split_list)
         self.layer4_1 = ResLayer(1024, 512, layers[3], stride=last_stride)
@@ -85,20 +100,26 @@ class VMGN(ResNetTrunk):
                 head.weight.normal_(0.0, 0.001, generator=generator)
 
     def _pool_matrix(self, h: int, ref: torch.Tensor) -> torch.Tensor:
-        """(total_split, h) pyramid pooling matrix, cached per height/device."""
-        key = (h, ref.device)
+        """(total_split, h) pyramid pooling matrix, cached per height,
+        device and dtype."""
+        key = (h, ref.device, ref.dtype)
         if key not in self._pool_cache:
             rows = [adaptive_avg_pool_matrix(h, n) for n in self.total_split_list]
             self._pool_cache[key] = torch.cat(
                 [torch.from_numpy(r) for r in rows]
-            ).to(ref.device)
+            ).to(ref.device, ref.dtype)
         return self._pool_cache[key]
 
-    def forward(self, x: torch.Tensor, adj: torch.Tensor, frame_mask=None) -> torch.Tensor:
+    def forward(
+        self, x: torch.Tensor, adj: torch.Tensor, frame_mask=None, *,
+        generator: torch.Generator | None = None, subclip_indices=None,
+    ):
         """x: (B, S, H, W, 3) float; adj: (B, V, V), V = S * total_split.
-        Returns the (B, 4096) eval feature."""
-        if self.training:
-            raise NotImplementedError("VMGN train forward is not ported yet")
+
+        Eval mode: the (B, 4096) eval feature. Train mode: (logits list,
+        feature list), or the logits list alone for loss {'xent'}. With the
+        consistent loss, `subclip_indices` gives the three sorted frame
+        subsets (S-3, S-2 and S-1 frames); else `generator` draws them."""
         if frame_mask is not None:
             raise NotImplementedError("VMGN frame_mask (--test-sample all) is not ported yet")
         B, S, H, W, C = x.shape
@@ -122,11 +143,45 @@ class VMGN(ResNetTrunk):
 
         att_f = temporal_attention(f).mean(dim=1)
         att_bn = self.att_bottleneck(att_f)
-        return torch.cat([g_bn, att_bn], dim=1)
+        if not self.training:
+            return torch.cat([g_bn, att_bn], dim=1)
+
+        out_list = [self.global_classifier(g_bn), self.att_classifier(att_bn)]
+        f_list = [g_f, att_f]
+        if self.consistent_loss:
+            for index in self._subclip_indices(S, generator, subclip_indices):
+                sf = f.index_select(1, torch.as_tensor(index, dtype=torch.long).to(f.device))
+                satt_f = temporal_attention(sf).mean(dim=1)
+                out_list.append(self.att_classifier(self.att_bottleneck(satt_f)))
+                f_list.append(satt_f)
+        if self.loss == frozenset({"xent"}):
+            return out_list
+        return out_list, f_list
+
+    @staticmethod
+    def _subclip_indices(S: int, generator, given) -> list:
+        """Sorted random subsets of S-3, S-2, S-1 of the S frames."""
+        if S < 5:
+            raise ValueError(f"the consistent loss needs seq_len >= 5, got {S}")
+        sizes = (S - 3, S - 2, S - 1)
+        if given is not None:
+            given = [np.asarray(i) for i in given]
+            if [len(i) for i in given] != list(sizes) or any(
+                i.min() < 0 or i.max() >= S for i in given
+            ):
+                raise ValueError(f"subclip_indices must hold {sizes} frame indices in "
+                                 f"[0, {S}), got {[i.tolist() for i in given]}")
+            return given
+        if generator is None:
+            raise ValueError("the consistent loss needs a torch.Generator or subclip_indices")
+        return [
+            torch.sort(torch.randperm(S, generator=generator)[:n]).values for n in sizes
+        ]
 
 
 def vmgn(
     num_classes,
+    loss=frozenset({"xent", "htri"}),
     last_stride=1,
     num_split=4,
     num_gb=2,
@@ -134,11 +189,10 @@ def vmgn(
     pyramid_part=True,
     use_pose=True,
     learn_graph=True,
+    consistent_loss=False,
     **kwargs,
 ):
-    """Factory matching the reference factory signature (vmgn.py:373-390);
-    train-only arguments (`loss`, `consistent_loss`) are accepted and
-    unused: the train forward is not ported yet."""
+    """Factory matching the reference factory signature (vmgn.py:373-390)."""
     if num_scale != 1:
         raise ValueError("vmgn's pooling produces one scale of vertices")
     return VMGN(
@@ -150,4 +204,6 @@ def vmgn(
         num_gb=num_gb,
         use_pose=use_pose,
         learn_graph=learn_graph,
+        loss=loss,
+        consistent_loss=consistent_loss,
     )

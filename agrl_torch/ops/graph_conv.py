@@ -45,18 +45,23 @@ def l2_affinity(v: torch.Tensor) -> torch.Tensor:
     computed as 2 * sigmoid(-dist): the same function, overflow-safe
     (agrl_tpu/models/layers.py:55-76). The Gram is fp32; TF32 would
     reinject the cancellation error of the quadratic form near zero
-    distance, where the affinity is sharpest, so callers keep it off."""
-    v = v.float()
+    distance, where the affinity is sharpest, so callers keep it off.
+    float64 input stays float64."""
+    v = v.to(torch.promote_types(v.dtype, torch.float32))
     sq = (v * v).sum(dim=2)
     d2 = sq[:, None, :] + sq[:, :, None] - 2.0 * torch.matmul(v, v.transpose(1, 2))
     return 2.0 * torch.sigmoid(-torch.sqrt(torch.clamp(d2, min=1e-12)))
 
 
+def blended_graph(f: torch.Tensor, adj: torch.Tensor) -> torch.Tensor:
+    """G = (row_l1(adj) + row_l1(l2_affinity(f))) / 2, (B, V, V)."""
+    return (l1_normalize(adj, dim=2) + l1_normalize(l2_affinity(f), dim=2)) / 2.0
+
+
 def graph_propagate_reference(f, adj, W, scale, bias, mean, var, gamma=0.1):
     """Plain PyTorch version: (B, V, C) -> (B, V, C), eval-mode BN."""
     h = torch.matmul(f, W)
-    graph = (l1_normalize(adj, dim=2) + l1_normalize(l2_affinity(f), dim=2)) / 2.0
-    hp = torch.matmul(graph, h)
+    hp = torch.matmul(blended_graph(f, adj), h)
     hp = (hp - mean) / torch.sqrt(var + BN_EPS) * scale + bias
     hp = torch.where(hp >= 0, hp, 0.1 * hp)
     return (1.0 - gamma) * f + gamma * hp

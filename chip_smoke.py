@@ -19,8 +19,24 @@ Phases (any failure exits non-zero before the result lines):
   6. the same 2 clips on the CPU and on the card;
   7. the `evenly` Evaluator (cosine, MARS CMC/mAP on the card) on the
      synthetic dataset at 256x128;
-then one {"serving": ...} line, one {"kernels": [...]} line, the card's
-name and power limit, and {"ok": true, "device": {...}} as the last line.
+  8. the batch-hard mining kernel (K3) vs its plain version, TF32 off: the
+     train shape B=16 (4x4) D=2048, a ragged B=15 and B=64 (16x4); values
+     atol 1e-4, picks equal, feature gradients atol 1e-5; device time per
+     call (profiler) and CUDA-event call times (L2 flushed) of the kernel,
+     the plain version and torch.cdist;
+  9. the train step at the paper config (VMGN, 625 classes, consistent
+     loss: 5 heads), 4x4 batches from ClipLoader + RandomIdentitySamplerV1
+     over synthetic 256x128 data (restricted, seq_len 8), flips, Adam lr
+     1e-4 wd 5e-4, soft-margin triplet, no label smoothing: 20 steps with
+     finite losses, 5 K3 launches per step and falling xent; step time,
+     clips/s, peak memory, a profiler table of one step; then the evenly
+     Evaluator on the trained model;
+ 10. one train step's loss and gradients, kernel path vs plain path (only
+     the triplet op differs);
+ 11. one train step at full width, B=4 (2x2), card vs CPU;
+then one {"serving": ...} line, one {"training": ...} line, one
+{"kernels": [...]} line, the card's name and power limit, and
+{"ok": true, "device": {...}} as the last line.
 """
 
 from __future__ import annotations
@@ -31,6 +47,7 @@ import subprocess
 import sys
 import tempfile
 import time
+from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 
 import numpy as np
@@ -45,7 +62,10 @@ PEAK_HBM_BYTES = 3.35e12
 SEQ_LEN, HEIGHT, WIDTH, BATCH = 8, 256, 128, 16
 # device kernels of agrl_torch/csrc/graph_conv.cu, as the profiler names them
 GRAPH_KERNELS = ("gram_partial_kernel", "graph_blend_kernel", "graph_propagate_kernel")
+TRIPLET_KERNEL = "hard_mine_kernel"  # agrl_torch/csrc/triplet.cu
 NUM_CLASSES = 625  # MARS training identities
+FEATURE_DIM = 2048  # the triplet heads' width
+TRAIN_STEPS, TRAIN_HEADS = 20, 5  # global, attention, 3 consistent-loss subclips
 
 
 def log(msg: str) -> None:
@@ -86,6 +106,23 @@ def time_cuda(torch, fn, flush, iters=20, warmup=3) -> float:
         end.synchronize()
         total += start.elapsed_time(end)
     return total / iters
+
+
+def device_ms_per_call(torch, fn, n=20):
+    """Device time of one fn() call: its kernels' device time summed over
+    n back-to-back calls (torch.profiler), over n. For a call whose host
+    dispatch outlasts its kernels, where CUDA events around the call
+    measure the dispatch; the inputs stay in L2 between calls, as a
+    caller's freshly computed inputs are."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(n):
+            fn()
+        torch.cuda.synchronize()
+    return sum(r[1] for r in device_rows(prof, n))
 
 
 def graph_inputs(torch, B, V, C, seed, device):
@@ -261,6 +298,18 @@ def phase_model_paths(torch, layers_mod, gc, model, device):
     return fwd_ms, err, profile_forward(torch, model, x, adj)
 
 
+def device_rows(prof, n):
+    """(kernel name, device ms per iteration, launches per iteration) of a
+    profiled window of n iterations, largest first."""
+    rows = []
+    for e in prof.key_averages():
+        us = getattr(e, "self_device_time_total", 0) or getattr(e, "self_cuda_time_total", 0)
+        if us > 0 and str(e.device_type).endswith("CUDA"):
+            rows.append((e.key, us / 1e3 / n, e.count // n))
+    rows.sort(key=lambda r: -r[1])
+    return rows
+
+
 def profile_forward(torch, model, x, adj, n=3):
     """Device time by kernel over `n` forwards of one 16-clip batch
     (torch.profiler), the graph kernels' share of it, and the card's busy
@@ -277,12 +326,7 @@ def profile_forward(torch, model, x, adj, n=3):
             end.record()
             end.synchronize()
     window_ms = start.elapsed_time(end)
-    rows = []
-    for e in prof.key_averages():
-        us = getattr(e, "self_device_time_total", 0) or getattr(e, "self_cuda_time_total", 0)
-        if us > 0 and str(e.device_type).endswith("CUDA"):
-            rows.append((e.key, us / 1e3 / n, e.count // n))
-    rows.sort(key=lambda r: -r[1])
+    rows = device_rows(prof, n)
     busy_ms = sum(r[1] for r in rows)
     ours = [r for r in rows if any(k in r[0] for k in GRAPH_KERNELS)]
     graph_ms = sum(r[1] for r in ours)
@@ -350,8 +394,294 @@ def phase_evaluator(torch, gc, model, device):
     return r1, mAP
 
 
+def triplet_batch(torch, B, device, seed, K=4):
+    """P x K labels and features with no tied distances in a row."""
+    rng = np.random.RandomState(seed)
+    labels = np.repeat(np.arange(-(-B // K)), K)[:B]
+    feats = rng.randn(B, FEATURE_DIM) * 0.5 + labels[:, None] * 0.05
+    return (torch.from_numpy(feats.astype(np.float32)).to(device),
+            torch.from_numpy(labels.astype(np.int64)).to(device))
+
+
+def triplet_bound_ms(B, D):
+    """Least time for one mining call: the fp32 Gram's 2 B^2 D FLOPs (and
+    2 B D for the norms) over the fp32 peak vs features and labels in,
+    two distances and two int64 picks per anchor out, over the HBM rate."""
+    flops = 2.0 * B * B * D + 2.0 * B * D
+    nbytes = 4.0 * B * D + 8.0 * B + (4 + 4 + 8 + 8) * B
+    t_ops, t_mem = flops / PEAK_FP32_FLOPS, nbytes / PEAK_HBM_BYTES
+    return max(t_ops, t_mem) * 1e3, ("operations" if t_ops >= t_mem else "bytes")
+
+
+def phase_triplet(torch, tri, device, flush):
+    """K3 vs its plain version on the card; returns the train-shape record."""
+    rec = {}
+    for label, B, seed in (("train B=16 (4x4)", 16, 0), ("ragged B=15", 15, 1),
+                           ("B=64 (16x4)", 64, 2)):
+        f, labels = triplet_batch(torch, B, device, seed)
+        d_ap, d_an, i_ap, i_an = tri.hard_mine_kernel(f, labels)
+        w_ap, w_an, wi_ap, wi_an = tri.hard_mine_reference(f, labels)
+        grads = []
+        for fn in (tri.hard_mine_fused, lambda x, y: tri.hard_mine(tri.pairwise_euclidean(x), y)):
+            x = f.clone().requires_grad_(True)
+            a, n = fn(x, labels)
+            torch.nn.functional.softplus(a - n).mean().backward()
+            grads.append(x.grad)
+        torch.cuda.synchronize()
+        err = max(float((d_ap - w_ap).abs().max()), float((d_an - w_an).abs().max()))
+        picks = bool(torch.equal(i_ap, wi_ap) and torch.equal(i_an, wi_an))
+        gerr = float((grads[0] - grads[1]).abs().max())
+        log(f"[triplet] {label} D={FEATURE_DIM}: max|kernel - plain| = {err:.3e} (atol 1e-4), "
+            f"picks equal: {picks}, gradient max|diff| = {gerr:.3e} (atol 1e-5)")
+        if not (err <= 1e-4 and picks and gerr <= 1e-5):
+            raise AssertionError(f"hard_mine kernel disagrees with plain at {label}")
+        if B == 16:
+            calls = dict(
+                kernel=lambda: tri.hard_mine_kernel(f, labels),
+                plain=lambda: tri.hard_mine(tri.pairwise_euclidean(f), labels),
+                library=lambda: torch.cdist(f, f),
+            )
+            rec = dict(max_abs_err=err, grad_max_abs_err=gerr)
+            for name, fn in calls.items():
+                prefix = "" if name == "kernel" else f"{name}_"
+                rec[f"{prefix}ms"] = device_ms_per_call(torch, fn)
+                rec[f"{prefix}call_ms"] = time_cuda(torch, fn, flush)
+            rec["bound_ms"], rec["bound_by"] = triplet_bound_ms(B, FEATURE_DIM)
+    log(f"[triplet] train shape, device time per call: kernel {rec['ms']:.4f} ms, plain "
+        f"{rec['plain_ms']:.4f} ms, torch.cdist(f, f) alone {rec['library_ms']:.4f} ms, bound "
+        f"{rec['bound_ms']:.6f} ms ({rec['bound_by']}); event-timed calls with the L2 flushed "
+        f"(host dispatch included): kernel {rec['call_ms']:.4f} ms, plain "
+        f"{rec['plain_call_ms']:.4f} ms, cdist {rec['library_call_ms']:.4f} ms")
+    return rec
+
+
+def colour_clips(n, seed):
+    """Clips of a colour each under noise, so the clips of a batch differ
+    as real identities do (train-mode BN normalizes over the batch)."""
+    rng = np.random.RandomState(seed)
+    base = rng.randint(0, 256, (n, 1, 1, 1, 3))
+    noise = rng.randint(-40, 41, (n, SEQ_LEN, HEIGHT, WIDTH, 3))
+    return np.clip(base + noise, 0, 255).astype(np.uint8)
+
+
+def subclips(seed):
+    """Consistent-loss subclips: sorted subsets of S-3, S-2, S-1 frames."""
+    rng = np.random.RandomState(seed)
+    return [np.sort(rng.permutation(SEQ_LEN)[:n]) for n in (SEQ_LEN - 3, SEQ_LEN - 2, SEQ_LEN - 1)]
+
+
+def build_train_model(init_model, device, seed=0):
+    return init_model(
+        "vmgn", num_classes=NUM_CLASSES, device=device, seed=seed, num_split=4,
+        pyramid_part=True, num_gb=2, use_pose=True, learn_graph=True, consistent_loss=True,
+    )
+
+
+def frozen_step(torch, model):
+    """A train step whose optimizer does not move the weights (lr 0): its
+    gradients stay in p.grad for a comparison."""
+    from agrl_torch.engine.trainer import make_train_step
+    from agrl_torch.optim import init_optim
+
+    opt = init_optim("adam", model.parameters(), 0.0)
+    return make_train_step(model, opt, lambda step: 0.0, label_smooth=False,
+                           aug={"flip_aug": True})
+
+
+def grads_of(model):
+    return {n: p.grad.detach().cpu().clone() for n, p in model.named_parameters()
+            if p.grad is not None}
+
+
+def profile_train_step(torch, tri, step, batch, generator):
+    """Device time by kernel over one train step (torch.profiler), the
+    busy share of its event-timed window, and K3's share."""
+    from torch.profiler import ProfilerActivity, profile
+
+    imgs, pids, _, adjs = batch
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        step(imgs, pids, adjs, generator=generator)
+        end.record()
+        end.synchronize()
+    window_ms = start.elapsed_time(end)
+    rows = device_rows(prof, 1)
+    busy_ms = sum(r[1] for r in rows)
+    k3 = [r for r in rows if TRIPLET_KERNEL in r[0]]
+    k3_ms = sum(r[1] for r in k3)
+    log(f"[profile] one train step: device busy {busy_ms:.2f} ms, "
+        f"{busy_ms / window_ms:.1%} of the {window_ms:.2f} ms window; "
+        f"hard_mine {k3_ms:.4f} ms x{sum(r[2] for r in k3)} ({k3_ms / max(busy_ms, 1e-9):.3%})")
+    for name, ms, count in rows[:15]:
+        log(f"[profile]   {ms:8.3f} ms x{count:<4d} {name[:90]}")
+    return dict(device_busy_ms=busy_ms, window_ms=window_ms, busy_share=busy_ms / window_ms,
+                hard_mine_ms=k3_ms, hard_mine_share=k3_ms / max(busy_ms, 1e-9), top=rows[:15])
+
+
+def phase_train(torch, tri, gc, device):
+    """Main path: TRAIN_STEPS steps of the paper recipe's train step on
+    synthetic 256x128 data, then the evenly Evaluator on the result."""
+    from agrl_torch.data.datasets import init_vidreid_dataset
+    from agrl_torch.data.loader import ClipLoader, VideoClipDataset
+    from agrl_torch.data.samplers import RandomIdentitySamplerV1
+    from agrl_torch.engine.evaluator import Evaluator
+    from agrl_torch.engine.trainer import make_train_step
+    from agrl_torch.models import init_model
+    from agrl_torch.optim import init_optim, multistep_lr, per_step
+
+    build_dir = REPO / "agrl_torch" / "_build"
+    build_dir.mkdir(parents=True, exist_ok=True)
+    with tempfile.TemporaryDirectory(dir=build_dir) as root:
+        t0 = time.perf_counter()
+        ds = init_vidreid_dataset(
+            "synthetic", root=root, num_pids=8, tracklets_per_pid=4,
+            frames_per_tracklet=(6, 16), height=HEIGHT, width=WIDTH, verbose=False,
+        )
+        log(f"[train] synthetic dataset ({ds.num_train_pids} train pids, {len(ds.train)} "
+            f"tracklets) written in {time.perf_counter() - t0:.1f} s")
+
+        def clip_set(split, sample):
+            return VideoClipDataset(getattr(ds, split), seq_len=SEQ_LEN, sample=sample,
+                                    height=HEIGHT, width=WIDTH, pose_info=ds.process_poses)
+
+        loader = ClipLoader(
+            clip_set("train", "restricted"), batch_size=BATCH, drop_last=True, num_workers=4,
+            seed=0, sampler=RandomIdentitySamplerV1(ds.train, num_instances=4, seed=0),
+        )
+        model = build_train_model(init_model, device)
+        opt = init_optim("adam", model.parameters(), 1e-4, weight_decay=5e-4)
+        lr_fn = per_step(multistep_lr(1e-4, [50, 100, 150]), len(loader))
+        step = make_train_step(model, opt, lr_fn, lambda_xent=1.0, lambda_htri=1.0,
+                               label_smooth=False, margin=0.3, soft_margin=True,
+                               aug={"flip_aug": True})
+        gen = torch.Generator().manual_seed(0)
+        batches = []
+        while len(batches) < TRAIN_STEPS:
+            batches.extend(loader)
+        batches = batches[:TRAIN_STEPS]
+
+        torch.cuda.reset_peak_memory_stats()
+        history, times = [], []
+        tri.launches = 0  # main path starts here
+        for i, (imgs, pids, _, adjs) in enumerate(batches):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            metrics = step(imgs, pids, adjs, generator=gen)
+            torch.cuda.synchronize()
+            times.append((time.perf_counter() - t0) * 1e3)
+            row = {k: float(v) for k, v in metrics.items()}
+            history.append(row)
+            log(f"[train] step {i + 1:2d}: loss {row['loss']:.4f} xent {row['xent_loss']:.4f} "
+                f"htri {row['htri_loss']:.4f} top1 {row['top1']:.3f} ({times[-1]:.1f} ms)")
+        launches = tri.launches  # main path ends here
+        peak_gb = torch.cuda.max_memory_allocated() / 1e9
+
+        if launches != TRAIN_HEADS * TRAIN_STEPS:
+            raise AssertionError(f"{launches} hard_mine launches, want "
+                                 f"{TRAIN_HEADS} per step x {TRAIN_STEPS}")
+        if not all(math.isfinite(v) for row in history for v in row.values()):
+            raise AssertionError("a train metric is not finite")
+        first = float(np.mean([r["xent_loss"] for r in history[:5]]))
+        last = float(np.mean([r["xent_loss"] for r in history[-5:]]))
+        log(f"[train] mean xent of steps 1-5 {first:.4f} -> steps {TRAIN_STEPS - 4}-"
+            f"{TRAIN_STEPS} {last:.4f}")
+        if not last < first:
+            raise AssertionError("xent did not fall")
+        steady = times[3:]
+        q1, med, q3 = (float(v) for v in np.percentile(steady, [25, 50, 75]))
+        log(f"[train] step (device synced): median {med:.2f} ms (quartiles {q1:.2f}-{q3:.2f}) "
+            f"over steps 4-{TRAIN_STEPS}, {BATCH / med * 1e3:.1f} clips/s; peak device memory "
+            f"{peak_gb:.2f} GB; hard_mine launches {launches}")
+        prof = profile_train_step(torch, tri, step, batches[0], gen)
+
+        gc.launches = 0
+        r1, mAP = Evaluator(model, test_sample="evenly", device=device).evaluate(
+            ClipLoader(clip_set("query", "evenly"), batch_size=BATCH, num_workers=4),
+            ClipLoader(clip_set("gallery", "evenly"), batch_size=BATCH, num_workers=4),
+            dist_metric="cosine",
+        )
+        if not (0.0 <= r1 <= 1.0 and 0.0 <= mAP <= 1.0) or gc.launches == 0:
+            raise AssertionError(f"evaluator after training: rank-1 {r1}, mAP {mAP}")
+        log(f"[train] evenly evaluator on the trained model: rank-1 {r1:.4f}, mAP {mAP:.4f}")
+    return model, launches, dict(
+        steps=TRAIN_STEPS, history=history, step_ms=med, step_q1_ms=q1, step_q3_ms=q3,
+        step_all_ms=times, clips_per_s=BATCH / med * 1e3, peak_mem_gb=peak_gb,
+        xent_first5=first, xent_last5=last, profile=prof, eval_rank1=r1, eval_mAP=mAP,
+    )
+
+
+def phase_train_paths(torch, tri, losses_mod, model):
+    """One train step, kernel path vs plain path on the same batch, flips
+    and subclips (only the triplet op differs), with deterministic cuDNN
+    so that nothing else changes between the two."""
+    step = frozen_step(torch, model)
+    imgs = colour_clips(BATCH, 40)
+    pids = np.repeat(np.arange(BATCH // 4), 4)
+    adjs = pose_adjacency(BATCH, 40)
+    flip = np.arange(BATCH) % 2 == 0
+    subs = subclips(40)
+    torch.backends.cudnn.deterministic = True
+    try:
+        kern = step(imgs, pids, adjs, flip=flip, subclip_indices=subs)
+        g_kern = grads_of(model)
+        losses_mod.hard_mine_fused = lambda f, y: tri.hard_mine(tri.pairwise_euclidean(f), y)
+        try:
+            plain = step(imgs, pids, adjs, flip=flip, subclip_indices=subs)
+        finally:
+            losses_mod.hard_mine_fused = tri.hard_mine_fused
+        g_plain = grads_of(model)
+    finally:
+        torch.backends.cudnn.deterministic = False
+    loss_err = abs(float(kern["loss"]) - float(plain["loss"])) / abs(float(plain["loss"]))
+    worst = max((float((g_kern[n] - g).abs().max() / g.abs().max().clamp_min(1e-30)), n)
+                for n, g in g_plain.items())
+    log(f"[paths] train step, kernel vs plain triplet: loss rel {loss_err:.3e} (tol 1e-5); "
+        f"worst gradient leaf {worst[1]}: max|diff|/max|g| = {worst[0]:.3e} (tol 1e-4)")
+    if not (loss_err <= 1e-5 and worst[0] <= 1e-4):
+        raise AssertionError("train step: kernel path and plain path disagree")
+    return loss_err, worst[0]
+
+
+def phase_train_card_vs_cpu(torch, device):
+    """One train step at full width, B=4 (2x2), on the card and on the CPU
+    from the same seed, batch, flips and subclips."""
+    from agrl_torch.models import init_model
+
+    imgs = colour_clips(4, 50)
+    pids = np.array([0, 0, 1, 1])
+    adjs = pose_adjacency(4, 50)
+    flip = np.array([True, False, False, True])
+    subs = subclips(50)
+    out = {}
+    for dev in ("cpu", device):
+        model = build_train_model(init_model, dev, seed=3)
+        t0 = time.perf_counter()
+        metrics = frozen_step(torch, model)(imgs, pids, adjs, flip=flip, subclip_indices=subs)
+        out[str(dev)] = (float(metrics["loss"]), grads_of(model), time.perf_counter() - t0)
+    (l_cpu, g_cpu, cpu_s), (l_gpu, g_gpu, _) = out["cpu"], out[str(device)]
+    loss_err = abs(l_gpu - l_cpu) / abs(l_cpu)
+    fro = max((float((g_gpu[n] - g).norm() / g.norm().clamp_min(1e-30)), n) for n, g in g_cpu.items())
+    worst = max(float((g_gpu[n] - g).abs().max() / g.abs().max().clamp_min(1e-30))
+                for n, g in g_cpu.items())
+    # cuDNN and the CPU sum in other orders. The conv kernels ahead of a
+    # train-mode BN get gradients whose terms cancel (the loss is invariant
+    # to their scale), which magnifies those rounding differences: at
+    # vmgn_tiny size fp32 alone is 0.3% (Frobenius) from a float64 run
+    # (tests/test_torch_train.py). Bar: 5e-2 of the leaf's norm, far under
+    # the O(1) of a wrong term.
+    log(f"[cpu] train step, card vs CPU (B=4, S={SEQ_LEN}, full width): loss rel "
+        f"{loss_err:.3e} (tol 1e-3); worst gradient leaf {fro[1]}: |diff|/|g| = "
+        f"{fro[0]:.3e} (tol 5e-2), largest entry diff / max|g| over leaves {worst:.3e}; "
+        f"CPU step {cpu_s:.1f} s")
+    if not (loss_err <= 1e-3 and fro[0] <= 5e-2):
+        raise AssertionError("train step: card and CPU disagree")
+    return loss_err, fro[0], worst
+
+
 def main() -> int:
-    if not (REPO / "agrl_torch" / "csrc" / "graph_conv.cu").exists():
+    if not all((REPO / "agrl_torch" / "csrc" / f"{n}.cu").exists()
+               for n in ("graph_conv", "triplet")):
         print("chip_smoke.py: the agrl_torch package is not beside this script", file=sys.stderr)
         return 2
     import torch
@@ -361,10 +691,13 @@ def main() -> int:
               file=sys.stderr)
         return 3
     sys.path.insert(0, str(REPO))
+    from agrl_torch import losses as losses_mod
     from agrl_torch.models import default_num_vertices, init_model
     from agrl_torch.models import layers as layers_mod
     from agrl_torch.ops import graph_conv as gc
+    from agrl_torch.ops import triplet as tri
     from agrl_torch.engine.export import FeatureExtractor
+    from agrl_torch.kernels.build import build as build_library
     from agrl_torch.kernels.build import library_path
 
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -377,18 +710,25 @@ def main() -> int:
     log(f"[card] nvidia-smi: {smi}; torch: {torch.cuda.get_device_name(0)}, "
         f"torch {torch.__version__}, CUDA {torch.version.cuda}")
 
-    # 2. build
+    # 2. build: one nvcc per source, all started together
     t0 = time.perf_counter()
+    libs = ("graph_conv", "triplet")
+    with ThreadPoolExecutor(len(libs)) as pool:
+        list(pool.map(build_library, libs))
     gc._lib()
-    log(f"[build] graph_conv library ready in {time.perf_counter() - t0:.1f} s "
-        f"({library_path('graph_conv').name})")
-    for line in library_path("graph_conv").with_suffix(".log").read_text().splitlines():
-        if "registers" in line or "spill" in line:
-            log(f"[build]   {line.strip()}")
+    tri._lib()
+    log(f"[build] {', '.join(library_path(n).name for n in libs)} ready in "
+        f"{time.perf_counter() - t0:.1f} s")
+    for name in libs:
+        for line in library_path(name).with_suffix(".log").read_text().splitlines():
+            if "registers" in line or "spill" in line:
+                log(f"[build]   {name}: {line.strip()}")
 
     # 3. kernel vs plain
     flush = L2Flusher(torch, device)
     krec = phase_kernels(torch, gc, device, flush)
+    # 8. K3 vs plain (run here, beside the other kernel checks)
+    trec = phase_triplet(torch, tri, device, flush)
     del flush
 
     # 4. serving at the paper config
@@ -421,8 +761,24 @@ def main() -> int:
     r1, mAP = phase_evaluator(torch, gc, model, device)
     serving.update(eval_rank1=r1, eval_mAP=mAP)
 
-    serving["smoke_seconds"] = time.perf_counter() - t_start
+    # 9. the train step at the paper config, then the evaluator
+    del fx, model
+    torch.cuda.empty_cache()
+    trained, tri_launches, training = phase_train(torch, tri, gc, device)
+
+    # 10. kernel path vs plain path, one train step
+    training["step_kernel_vs_plain_loss_rel_err"], training[
+        "step_kernel_vs_plain_grad_rel_err"] = phase_train_paths(torch, tri, losses_mod, trained)
+    del trained
+    torch.cuda.empty_cache()
+
+    # 11. card vs CPU, one train step
+    (training["card_vs_cpu_loss_rel_err"], training["card_vs_cpu_grad_fro_rel_err"],
+     training["card_vs_cpu_grad_max_rel_err"]) = phase_train_card_vs_cpu(torch, device)
+
+    serving["smoke_seconds"] = training["smoke_seconds"] = time.perf_counter() - t_start
     print(json.dumps({"serving": serving}))
+    print(json.dumps({"training": training}))
     kernel = {
         "name": "graph_propagate",
         "route": "cuda",
@@ -442,7 +798,28 @@ def main() -> int:
         "v2_ms": krec["v2_ms"],
         "shape": "B=16 V=56 C=2048 fp32",
     }
-    print(json.dumps({"kernels": [kernel]}))
+    triplet = {
+        "name": "hard_mine",
+        "route": "cuda",
+        "source": "agrl_torch/csrc/triplet.cu",
+        "replaces": "agrl_tpu/ops/triplet.py:48",
+        "launches": tri_launches,
+        "max_abs_err": trec["max_abs_err"],
+        "ms": trec["ms"],
+        "plain_ms": trec["plain_ms"],
+        "bound_ms": trec["bound_ms"],
+        "bound_by": trec["bound_by"],
+        "library_ms": trec["library_ms"],
+        "library_call": "torch.cdist(f, f): the distance matrix alone",
+        "timing": "device time per call (torch.profiler, L2 warm); *_call_ms: CUDA events "
+                  "around one call with the L2 flushed, host dispatch included",
+        "call_ms": trec["call_ms"],
+        "plain_call_ms": trec["plain_call_ms"],
+        "library_call_ms": trec["library_call_ms"],
+        "grad_max_abs_err": trec["grad_max_abs_err"],
+        "shape": f"B=16 (4x4) D={FEATURE_DIM} fp32",
+    }
+    print(json.dumps({"kernels": [kernel, triplet]}))
     print(smi)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

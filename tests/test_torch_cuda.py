@@ -11,7 +11,7 @@ import numpy as np
 import pytest
 import torch
 
-from agrl_torch.ops import graph_conv
+from agrl_torch.ops import graph_conv, triplet
 
 pytestmark = pytest.mark.cuda
 
@@ -97,3 +97,65 @@ def test_kernel_rejects_what_it_does_not_take(cuda):
         graph_conv.graph_propagate(t["f"].double(), t["adj"], *rest)
     with pytest.raises(ValueError):  # non-contiguous features
         graph_conv.graph_propagate(t["f"].transpose(0, 1), t["adj"], *rest)
+
+
+def _triplet_batch(B, D, dev, seed=0, K=4):
+    """P x K labels and features with no tied distances in a row."""
+    rng = np.random.RandomState(seed)
+    labels = np.repeat(np.arange(-(-B // K)), K)[:B]
+    feats = rng.randn(B, D) * 0.5 + labels[:, None] * 0.05
+    return (torch.from_numpy(feats.astype(np.float32)).to(dev),
+            torch.from_numpy(labels.astype(np.int64)).to(dev))
+
+
+@pytest.mark.parametrize("B", [4, 15, 16, 64])
+def test_hard_mine_kernel_matches_plain(cuda, B):
+    """Values (fp32 Gram in another summation order: atol 1e-4), the picks
+    (equal on tie-free input) and the feature gradient of the soft-margin
+    loss (atol 1e-5) at the train step's width D=2048."""
+    f, labels = _triplet_batch(B, 2048, cuda, seed=B)
+    before = triplet.launches
+    d_ap, d_an, i_ap, i_an = triplet.hard_mine_kernel(f, labels)
+    torch.cuda.synchronize()
+    assert triplet.launches == before + 1
+    w_ap, w_an, wi_ap, wi_an = triplet.hard_mine_reference(f, labels)
+    torch.testing.assert_close(d_ap, w_ap, atol=1e-4, rtol=0)
+    torch.testing.assert_close(d_an, w_an, atol=1e-4, rtol=0)
+    assert torch.equal(i_ap, wi_ap) and torch.equal(i_an, wi_an)
+
+    grads = []
+    for fn in (triplet.hard_mine_fused, lambda x, y: triplet.hard_mine_reference(x, y)[:2]):
+        x = f.clone().requires_grad_(True)
+        a, n = fn(x, labels)
+        torch.nn.functional.softplus(a - n).mean().backward()
+        grads.append(x.grad)
+    torch.testing.assert_close(grads[0], grads[1], atol=1e-5, rtol=0)
+
+
+def test_hard_mine_kernel_self_distance_is_exact(cuda):
+    """One label: every anchor's hardest positive may be itself only when
+    all rows are equal; d2_ii is exactly 0, so d_ap is the clamp's floor
+    and d_an is FLT_MAX (no negatives), as in the plain version."""
+    f = torch.randn(1, 256, device=cuda).repeat(8, 1) * 10
+    labels = torch.zeros(8, dtype=torch.int64, device=cuda)
+    d_ap, d_an, i_ap, _ = triplet.hard_mine_kernel(f, labels)
+    assert torch.all(d_ap == float(torch.sqrt(torch.tensor(1e-12))))
+    assert torch.all(d_an == torch.finfo(torch.float32).max)
+    assert torch.equal(i_ap, torch.zeros_like(i_ap))
+
+
+def test_hard_mine_kernel_rejects_what_it_does_not_take(cuda):
+    f, labels = _triplet_batch(16, 2048, cuda)
+    with pytest.raises(ValueError):  # B above the kernel's maximum
+        triplet.hard_mine_kernel(torch.zeros(1025, 8, device=cuda),
+                                 torch.zeros(1025, dtype=torch.int64, device=cuda))
+    with pytest.raises(ValueError):  # D not a multiple of 4
+        triplet.hard_mine_kernel(f[:, :2046].contiguous(), labels)
+    with pytest.raises(ValueError):  # float64
+        triplet.hard_mine_kernel(f.double(), labels)
+    with pytest.raises(ValueError):  # non-contiguous
+        triplet.hard_mine_kernel(f[:, ::2], labels)
+    with pytest.raises(ValueError):  # labels on the CPU
+        triplet.hard_mine_kernel(f, labels.cpu())
+    with pytest.raises(ValueError):  # labels of another length
+        triplet.hard_mine_kernel(f, labels[:8])

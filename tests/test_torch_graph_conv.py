@@ -115,9 +115,44 @@ def test_unported_layer_variants_raise(kwargs):
 
 
 def test_unported_layer_modes_raise():
+    """`vertex_mask` is still unported; train mode (ported since) is held
+    against JAX's apply(train=True) in test_graph_conv_layer_train_matches_jax."""
     layer = TorchGraphConvLayer(128, 128)
     x, adj = torch.zeros(1, 4, 128), torch.ones(1, 4, 4)
-    with pytest.raises(NotImplementedError):  # train mode
-        layer.train()(x, adj)
     with pytest.raises(NotImplementedError):
         layer.eval()(x, adj, vertex_mask=torch.ones(1, 4))
+    assert layer.train()(x, adj).shape == (1, 4, 128)
+
+
+def test_graph_conv_layer_train_matches_jax():
+    """Train mode: BN over the B * V rows on batch statistics, and the
+    running statistics updated with flax's rule (biased variance,
+    momentum 0.9). Gradients are held at the model level
+    (tests/test_torch_train.py)."""
+    f, adj, W, scale, bias, mean, var = _inputs(2, 56, 1024, seed=4)
+    jax_layer = JaxGraphConvLayer(in_features=1024, out_features=1024)
+    params = {"linear": {"kernel": jnp.asarray(W)},
+              "bn": {"scale": jnp.asarray(scale), "bias": jnp.asarray(bias)}}
+    stats = {"bn": {"mean": jnp.asarray(mean), "var": jnp.asarray(var)}}
+
+    want, mutated = jax_layer.apply({"params": params, "batch_stats": stats}, jnp.asarray(f),
+                                    jnp.asarray(adj), train=True, mutable=["batch_stats"])
+    want_stats = mutated["batch_stats"]["bn"]
+
+    layer = TorchGraphConvLayer(1024, 1024).train()
+    with torch.no_grad():
+        layer.linear.weight.copy_(torch.from_numpy(W.T))
+        layer.bn.weight.copy_(torch.from_numpy(scale))
+        layer.bn.bias.copy_(torch.from_numpy(bias))
+        layer.bn.running_mean.copy_(torch.from_numpy(mean))
+        layer.bn.running_var.copy_(torch.from_numpy(var))
+        got = layer(torch.from_numpy(f), torch.from_numpy(adj))
+    # The l2 affinity's diagonal is the square root of fp32 cancellation
+    # noise (d2_ii ~ 1e-6 -> dist_ii ~ 1e-3, not 0), different in the two
+    # frameworks' summation orders: ~3e-4 in G against float64. Train-mode
+    # BN divides G @ h by its batch std (6e-3 at the smallest channel
+    # here), so the outputs differ by up to ~5e-4 (eval: 2e-4, above).
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=1e-3)
+    for ours, theirs in ((layer.bn.running_mean, "mean"), (layer.bn.running_var, "var")):
+        np.testing.assert_allclose(ours.numpy(), np.asarray(want_stats[theirs]), rtol=1e-5,
+                                   atol=1e-7)
