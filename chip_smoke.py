@@ -5,7 +5,8 @@
 
 Phases (any failure exits non-zero before the result lines):
   1. the card: nvidia-smi name and power limit, torch's device name;
-  2. build the graph-conv kernel library from agrl_torch/csrc (nvcc);
+  2. build the three kernel libraries from agrl_torch/csrc (graph_conv,
+     triplet, minsum; one nvcc each, in parallel);
   3. kernel vs its plain PyTorch version on the card, TF32 off: the
      serving shape B=16 V=56 C=2048 (atol 2e-4), a ragged B=3 V=40
      (atol 2e-4), and the bf16-held v2 entry on rounded inputs (atol
@@ -18,7 +19,12 @@ Phases (any failure exits non-zero before the result lines):
   5. the whole model, kernel path vs plain path, on one 16-clip batch;
   6. the same 2 clips on the CPU and on the card;
   7. the `evenly` Evaluator (cosine, MARS CMC/mAP on the card) on the
-     synthetic dataset at 256x128;
+     synthetic dataset at 256x128, then with re_rank=True: mars,
+     market1501 and dukev re-ranked on the card (one K4 launch each;
+     dukev scores on the host), the re-ranked distmat export
+     (return_distmat, one K4 launch) and mars on the host path
+     (device_rank=False), whose mAP must equal the device path's within
+     1e-6;
   8. the batch-hard mining kernel (K3) vs its plain version, TF32 off: the
      train shape B=16 (4x4) D=2048, a ragged B=15 and B=64 (16x4); values
      atol 1e-4, picks equal, feature gradients atol 1e-5; device time per
@@ -34,9 +40,26 @@ Phases (any failure exits non-zero before the result lines):
  10. one train step's loss and gradients, kernel path vs plain path (only
      the triplet op differs);
  11. one train step at full width, B=4 (2x2), card vs CPU;
+ 12. the min-plus kernel (K4) vs its plain version at the JAX package's
+     test shapes (37,53,100), (130,260,515), (8,8,8): atol 1e-4;
+ 13. k-reciprocal re-ranking at MARS scale (1,980 query and 9,330
+     gallery seeded 4096-d features with identity structure; cosine,
+     k1 20, k2 6, lambda 0.3): re_ranking_from_features 3 times, one K4
+     launch each, wall time, peak memory, a profiler table with K4's
+     share; the kernel path vs the plain path (plain min-sum): the
+     re-ranked matrix within 1e-5, MARS CMC/mAP within 1e-6;
+ 14. K4 vs plain at the MARS shape (Q=1,980, J=C=11,310) on the
+     re-ranking's membership matrix (atol 1e-5) and on uniform inputs
+     (1e-5 of the max); times of the kernel, the plain version and
+     torch.cdist(p=1) + row sums with the L2 flushed; the bound on these
+     inputs and on dense ones;
+ 15. re-ranking at Q=200 G=800: the card vs the CPU vs the host
+     algorithm (agrl_torch.metrics.rerank), atol 2e-4, on integer
+     features whose distances are exact on every device; then card vs
+     CPU on continuous cosine features, reported only;
 then one {"serving": ...} line, one {"training": ...} line, one
-{"kernels": [...]} line, the card's name and power limit, and
-{"ok": true, "device": {...}} as the last line.
+{"reranking": ...} line, one {"kernels": [...]} line, the card's name and
+power limit, and {"ok": true, "device": {...}} as the last line.
 """
 
 from __future__ import annotations
@@ -55,9 +78,17 @@ import numpy as np
 REPO = Path(__file__).resolve().parent
 
 # H100 SXM peaks (NVIDIA data sheet, dense, 700 W): fp32 outside the
-# tensor cores, and HBM3 bandwidth
+# tensor cores (an FMA counts 2), and HBM3 bandwidth
 PEAK_FP32_FLOPS = 67e12
 PEAK_HBM_BYTES = 3.35e12
+# fp32 instructions per second, for work with no FMA in it: 132 SMs x 128
+# lanes x 1.98 GHz. The min-plus kernel's FMNMX runs on the ALU pipe at
+# half that (64 lanes per SM per clock), its FADD on the FP32 pipe at full
+# rate, and the schedulers issue one warp instruction per clock each, so
+# a (FMNMX, FADD) term costs 2 / 128 SM-clocks either way.
+PEAK_FP32_ISSUE = 132 * 128 * 1.98e9
+MINSUM_KERNEL = "min_sum_kernel"  # agrl_torch/csrc/minsum.cu
+MARS_Q, MARS_G, MARS_IDS = 1980, 9330, 636  # MARS test split: query, gallery tracklets
 
 SEQ_LEN, HEIGHT, WIDTH, BATCH = 8, 256, 128, 16
 # device kernels of agrl_torch/csrc/graph_conv.cu, as the profiler names them
@@ -361,7 +392,11 @@ def phase_card_vs_cpu(torch, build_model_fn, fx):
     return err
 
 
-def phase_evaluator(torch, gc, model, device):
+def phase_evaluator(torch, gc, ms, model, device):
+    """The evenly Evaluator, then its re-ranking stage: device re-ranking
+    under the mars, market1501 and dukev protocols and for the distmat
+    export (one K4 launch each; dukev and the export score on the host)
+    and the host path (device_rank=False: host re-ranking, NumPy scorer)."""
     from agrl_torch.data.datasets import init_vidreid_dataset
     from agrl_torch.data.loader import ClipLoader, VideoClipDataset
     from agrl_torch.engine.evaluator import Evaluator
@@ -383,15 +418,48 @@ def phase_evaluator(torch, gc, model, device):
             )
             return ClipLoader(dset, batch_size=BATCH, num_workers=4)
 
+        evaluator = Evaluator(model, test_sample="evenly", device=device)
         gc.launches = 0
-        r1, mAP = Evaluator(model, test_sample="evenly", device=device).evaluate(
-            loader("query"), loader("gallery"), dist_metric="cosine"
-        )
-    if not (0.0 <= r1 <= 1.0 and 0.0 <= mAP <= 1.0) or gc.launches == 0:
-        raise AssertionError(f"evaluator: rank-1 {r1}, mAP {mAP}, launches {gc.launches}")
-    log(f"[eval] evenly evaluator: rank-1 {r1:.4f}, mAP {mAP:.4f}, "
-        f"graph kernel launches {gc.launches}")
-    return r1, mAP
+        r1, mAP = evaluator.evaluate(loader("query"), loader("gallery"), dist_metric="cosine")
+        if not (0.0 <= r1 <= 1.0 and 0.0 <= mAP <= 1.0) or gc.launches == 0:
+            raise AssertionError(f"evaluator: rank-1 {r1}, mAP {mAP}, launches {gc.launches}")
+        log(f"[eval] evenly evaluator: rank-1 {r1:.4f}, mAP {mAP:.4f}, "
+            f"graph kernel launches {gc.launches}")
+
+        reranked = {}
+        # dukev after re-ranking scores on the host, still re-ranked on the card
+        for protocol, device_rank in (("mars", True), ("market1501", True), ("dukev", True),
+                                      ("mars", False)):
+            before = ms.launches
+            rr1, rmap = evaluator.evaluate(
+                loader("query"), loader("gallery"), dist_metric="cosine", re_rank=True,
+                metric_protocol=protocol, device_rank=device_rank,
+            )
+            k4 = ms.launches - before
+            path = "device" if device_rank else "host"
+            log(f"[eval] re-ranked, {protocol} on the {path} path: rank-1 {rr1:.4f}, "
+                f"mAP {rmap:.4f}, min_sum launches +{k4}")
+            if not (math.isfinite(rr1) and math.isfinite(rmap) and 0.0 <= rr1 <= 1.0
+                    and 0.0 <= rmap <= 1.0 and k4 == int(device_rank)):
+                raise AssertionError(f"re-ranking evaluator ({protocol}, {path}): rank-1 {rr1}, "
+                                     f"mAP {rmap}, min_sum launches {k4}")
+            reranked[f"{protocol}_{path}"] = (rr1, rmap)
+
+        # the re-ranked matrix for export: re-ranked on the card, one K4 launch
+        before = ms.launches
+        dm = evaluator.evaluate(loader("query"), loader("gallery"), dist_metric="cosine",
+                                re_rank=True, return_distmat=True)
+        k4 = ms.launches - before
+        log(f"[eval] re-ranked distmat export: shape {dm.shape}, min_sum launches +{k4}")
+        if not (isinstance(dm, np.ndarray) and dm.shape == (len(ds.query), len(ds.gallery))
+                and np.isfinite(dm).all() and k4 == 1):
+            raise AssertionError(f"re-ranked distmat export: shape {getattr(dm, 'shape', None)}, "
+                                 f"min_sum launches {k4}")
+    host_diff = abs(reranked["mars_host"][1] - reranked["mars_device"][1])
+    log(f"[eval] re-ranked mars mAP, host path vs device path: |diff| {host_diff:.3e} (tol 1e-6)")
+    if not host_diff <= 1e-6:
+        raise AssertionError("re-ranking evaluator: host and device paths disagree")
+    return r1, mAP, reranked
 
 
 def triplet_batch(torch, B, device, seed, K=4):
@@ -679,9 +747,258 @@ def phase_train_card_vs_cpu(torch, device):
     return loss_err, fro[0], worst
 
 
+def minsum_bound_ms(a, b):
+    """Least time for one min-plus call on these inputs: 2 instructions
+    (FMNMX, FADD) per term that the data needs, over the fp32 issue rate,
+    vs each input read once and the output written once, over the HBM
+    rate; the larger one bounds. A term with a zero operand adds min = 0
+    (the inputs are non-negative), so the terms needed are sum_c nnz(a[:,
+    c]) nnz(b[:, c]); on dense inputs that is Q J C. Returns (bound ms,
+    bound_by, terms, bound ms if every term were needed)."""
+    Q, C = a.shape
+    J = b.shape[0]
+    terms = int(((a > 0).sum(0).double() * (b > 0).sum(0).double()).sum())
+    t_bytes = 4.0 * (Q * C + J * C + Q * J) / PEAK_HBM_BYTES
+    t_ops = 2.0 * terms / PEAK_FP32_ISSUE
+    t_dense = 2.0 * Q * J * C / PEAK_FP32_ISSUE
+    return (max(t_ops, t_bytes) * 1e3, "operations" if t_ops >= t_bytes else "bytes", terms,
+            max(t_dense, t_bytes) * 1e3)
+
+
+def check_min_sum(torch, ms, a, b, label, atol, relative=False):
+    """K4 vs its plain version on the same inputs; raises past the bar."""
+    got = ms.min_sum_kernel(a, b)
+    want = ms.min_sum_reference(a, b)
+    torch.cuda.synchronize()
+    err = float((got - want).abs().max())
+    scale = float(want.abs().max()) if relative else 1.0
+    kind = "max|kernel - plain| / max|plain|" if relative else "max|kernel - plain|"
+    log(f"[minsum] {label}: {kind} = {err / scale:.3e} (tol {atol:g})")
+    if not (err / scale <= atol):
+        raise AssertionError(f"min_sum kernel disagrees with plain at {label}: {err / scale}")
+    return err / scale
+
+
+def phase_minsum_shapes(torch, ms, device):
+    """K4 vs plain at the JAX package's test shapes (atol 1e-4)."""
+    rng = np.random.RandomState(0)
+    for Q, J, C in ((37, 53, 100), (130, 260, 515), (8, 8, 8)):
+        a = torch.from_numpy(rng.rand(Q, C).astype(np.float32)).to(device)
+        b = torch.from_numpy(rng.rand(J, C).astype(np.float32)).to(device)
+        check_min_sum(torch, ms, a, b, f"Q={Q} J={J} C={C} uniform", 1e-4)
+
+
+def mars_features(torch, device, seed=0):
+    """Seeded 4096-d features at MARS's test size (1,980 query, 9,330
+    gallery tracklets): 636 identity centres plus noise (sigma 5 gives
+    cosine rank-1 ~0.67 before re-ranking), cameras 0-5."""
+    rng = np.random.RandomState(seed)
+    centres = rng.randn(MARS_IDS, 4096).astype(np.float32)
+    q_pids = np.arange(MARS_Q) % MARS_IDS
+    g_pids = rng.randint(0, MARS_IDS, MARS_G)
+    qf = centres[q_pids] + rng.randn(MARS_Q, 4096).astype(np.float32) * 5.0
+    gf = centres[g_pids] + rng.randn(MARS_G, 4096).astype(np.float32) * 5.0
+    ids = (q_pids, g_pids, rng.randint(0, 6, MARS_Q), rng.randint(0, 6, MARS_G))
+    return torch.from_numpy(qf).to(device), torch.from_numpy(gf).to(device), ids
+
+
+def phase_rerank_mars(torch, ms, rr, rank, qf, gf, ids):
+    """Main path: k-reciprocal re-ranking at MARS scale on the card
+    (cosine, k1 20, k2 6, lambda 0.3); one K4 launch per re-rank."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from agrl_torch.ops.distmat import compute_distmat
+
+    runs = 3
+    torch.cuda.synchronize()
+    base_mem = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    times = []
+    ms.launches = 0  # main path starts here
+    for i in range(runs):
+        before = ms.launches
+        t0 = time.perf_counter()
+        final = rr.re_ranking_from_features(qf, gf, "cosine")
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+        if ms.launches - before != 1:
+            raise AssertionError(f"re-rank {i}: {ms.launches - before} min_sum launches, want 1")
+    launches = ms.launches  # main path ends here
+    peak_gb = (torch.cuda.max_memory_allocated() - base_mem) / 1e9
+    if final.shape != (MARS_Q, MARS_G) or not bool(torch.isfinite(final).all()):
+        raise AssertionError("re-ranked matrix has the wrong shape or non-finite entries")
+    med = float(np.median(times))
+    log(f"[rerank] MARS scale Q={MARS_Q} G={MARS_G} D=4096 cosine: wall {med:.2f} ms median of "
+        f"{runs} ({', '.join(f'{t:.2f}' for t in times)}); peak device memory above the "
+        f"features {peak_gb:.2f} GB; min_sum launches {launches} (1 per re-rank)")
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        rr.re_ranking_from_features(qf, gf, "cosine")
+        end.record()
+        end.synchronize()
+    window_ms = start.elapsed_time(end)
+    rows = device_rows(prof, 1)
+    busy_ms = sum(r[1] for r in rows)
+    k4_ms = sum(r[1] for r in rows if MINSUM_KERNEL in r[0])
+    log(f"[rerank] profiled re-rank: device busy {busy_ms:.2f} ms, {busy_ms / window_ms:.1%} of "
+        f"the {window_ms:.2f} ms window; min_sum_kernel {k4_ms:.2f} ms "
+        f"({k4_ms / max(busy_ms, 1e-9):.1%} of device time)")
+    for name, t, count in rows[:10]:
+        log(f"[rerank]   {t:8.3f} ms x{count:<3d} {name[:90]}")
+
+    # kernel path vs plain path: only the Jaccard min-sum differs
+    rr.min_sum = ms.min_sum_reference
+    try:
+        t0 = time.perf_counter()
+        plain = rr.re_ranking_from_features(qf, gf, "cosine")
+        torch.cuda.synchronize()
+        plain_wall = (time.perf_counter() - t0) * 1e3
+    finally:
+        rr.min_sum = ms.min_sum
+    err = float((final - plain).abs().max())
+    scores = {}
+    original = compute_distmat(qf, gf, "cosine")
+    for label, dm in (("kernel", final), ("plain", plain), ("original", original)):
+        cmc, mAP = rank.mars_cmc_map_from_distmat(dm, *ids)
+        scores[label] = (cmc.cpu().numpy(), float(mAP))
+    cmc_diff = float(np.abs(scores["kernel"][0] - scores["plain"][0]).max())
+    map_diff = abs(scores["kernel"][1] - scores["plain"][1])
+    log(f"[rerank] kernel path vs plain path (plain min-sum, {plain_wall:.0f} ms): "
+        f"max|diff| = {err:.3e} (tol 1e-5); MARS CMC max|diff| {cmc_diff:.3e}, mAP |diff| "
+        f"{map_diff:.3e} (tol 1e-6)")
+    log(f"[rerank] MARS rank-1 / mAP: original {scores['original'][0][0]:.4f} / "
+        f"{scores['original'][1]:.4f}, re-ranked {scores['kernel'][0][0]:.4f} / "
+        f"{scores['kernel'][1]:.4f}")
+    if not (err <= 1e-5 and cmc_diff <= 1e-6 and map_diff <= 1e-6):
+        raise AssertionError("re-ranking: kernel path and plain path disagree")
+    return launches, dict(
+        Q=MARS_Q, G=MARS_G, D=4096, metric="cosine", k1=20, k2=6, lambda_value=0.3,
+        wall_ms=med, wall_all_ms=times, peak_mem_gb_above_features=peak_gb,
+        profile_window_ms=window_ms, device_busy_ms=busy_ms, min_sum_device_ms=k4_ms,
+        min_sum_share=k4_ms / max(busy_ms, 1e-9), top=rows[:10],
+        kernel_vs_plain_max_abs_err=err, plain_path_wall_ms=plain_wall,
+        cmc_max_abs_diff=cmc_diff, map_abs_diff=map_diff,
+        rank1_original=float(scores["original"][0][0]), map_original=scores["original"][1],
+        rank1=float(scores["kernel"][0][0]), mAP=scores["kernel"][1],
+    )
+
+
+def phase_minsum_mars(torch, ms, rr, qf, gf, device, flush):
+    """K4 vs plain at the MARS shape (Q=1,980, J=C=11,310): on the
+    re-ranking's own membership matrix v (atol 1e-5; rows sum to 1) and on
+    uniform inputs (1e-5 of the max); times of the kernel, the plain
+    version and torch.cdist(p=1) + row sums, L2 flushed; the bound."""
+    from agrl_torch.ops.distmat import compute_distmat
+
+    dists = [compute_distmat(x, y, "cosine") for x, y in ((qf, gf), (qf, qf), (gf, gf))]
+    v = rr.expanded_membership(rr.original_dist(*dists))
+    del dists
+    a, b = v[:MARS_Q], v
+    rec = dict(max_abs_err=check_min_sum(torch, ms, a, b, "MARS shape, re-ranking v", 1e-5))
+    gen = torch.Generator(device=device).manual_seed(0)
+    ua = torch.rand(MARS_Q, a.shape[1], generator=gen, device=device)
+    ub = torch.rand(*b.shape, generator=gen, device=device)
+    rec["uniform_rel_err"] = check_min_sum(torch, ms, ua, ub, "MARS shape, uniform", 1e-5,
+                                           relative=True)
+    del ua, ub
+
+    def library():
+        return (a.sum(1)[:, None] + b.sum(1)[None, :] - torch.cdist(a, b, p=1)) / 2
+
+    lib_err = float((library() - ms.min_sum_kernel(a, b)).abs().max())
+    rec["ms"] = time_cuda(torch, lambda: ms.min_sum_kernel(a, b), flush, iters=5, warmup=1)
+    rec["plain_ms"] = time_cuda(torch, lambda: ms.min_sum_reference(a, b), flush, iters=2,
+                                warmup=1)
+    rec["library_ms"] = time_cuda(torch, library, flush, iters=3, warmup=1)
+    rec["bound_ms"], rec["bound_by"], terms, rec["dense_bound_ms"] = minsum_bound_ms(a, b)
+    Q, C = a.shape
+    dense = Q * b.shape[0] * C
+    rec.update(terms_needed=terms, terms_dense=dense, library_max_abs_err=lib_err,
+               v_nonzero_share=float((v > 0).float().mean()))
+    log(f"[minsum] MARS shape Q={Q} J={b.shape[0]} C={C} (v {rec['v_nonzero_share']:.3%} "
+        f"non-zero): kernel {rec['ms']:.3f} ms (mean of 5), plain {rec['plain_ms']:.1f} ms "
+        f"(mean of 2), cdist(p=1) + row sums {rec['library_ms']:.3f} ms (mean of 3; max|lib - "
+        f"kernel| {lib_err:.2e}); bound on this v {rec['bound_ms']:.4f} ms ({rec['bound_by']}: "
+        f"{terms:.3e} of {dense:.3e} terms have both operands non-zero), on dense inputs "
+        f"{rec['dense_bound_ms']:.2f} ms (operations: 2 instructions per term at "
+        f"{PEAK_FP32_ISSUE / 1e12:.1f} T/s); L2 flushed before each call")
+    return rec
+
+
+def exact_features(seed=1):
+    """Q=200, G=800 integer features (D=128, 40 identity centres in
+    [-150, 150] plus noise in [-100, 100]): every squared euclidean
+    distance and every partial sum of it is an integer below 2^24, so the
+    distances are bit-identical on the card, on the CPU and in the host
+    algorithm's float64, and this seed leaves no tie at the neighbour-set
+    boundaries (ranks 6, 11, 21). With continuous features, fp32 rounding
+    (~1e-7) flips near-tied neighbours between devices, and one flipped
+    set moves its row's Jaccard terms by up to ~1e-1."""
+    rng = np.random.RandomState(seed)
+    centres = rng.randint(-150, 151, (40, 128))
+    pids = rng.randint(0, 40, 1000)
+    feats = (centres[pids] + rng.randint(-100, 101, (1000, 128))).astype(np.float32)
+    return feats[:200], feats[200:]
+
+
+def boundary_gap(torch, rr, qf, gf, metric):
+    """Smallest distance gap at a neighbour-set boundary of re-ranking
+    (between ranks k - 1 and k of each sorted row of its normalized
+    distance, k = k2 = 6, half_k + 1 = 11, k1 + 1 = 21): 0 means a tie
+    that decides a set."""
+    from agrl_torch.ops.distmat import compute_distmat
+
+    d = rr.original_dist(*(compute_distmat(x, y, metric) for x, y in ((qf, gf), (qf, qf), (gf, gf))))
+    s = torch.sort(d, dim=1).values
+    return min(float((s[:, k] - s[:, k - 1]).min()) for k in (6, 11, 21))
+
+
+def phase_rerank_cpu(torch, rr, device):
+    """The port's re-ranking from features on the card vs its own CPU run
+    vs the copied host algorithm (metrics.rerank.re_ranking on float64
+    host distances), Q=200 G=800, squared euclidean, atol 2e-4. Then the
+    card vs the CPU on continuous 4096-d cosine features of the same size,
+    reported and not held: there fp32 rounding decides near ties."""
+    from agrl_torch.metrics import compute_distance_matrix, re_ranking
+
+    qf, gf = exact_features()
+    q_card, g_card = torch.from_numpy(qf).to(device), torch.from_numpy(gf).to(device)
+    gap = boundary_gap(torch, rr, q_card, g_card, "euclidean")
+    card = rr.re_ranking_from_features(q_card, g_card, "euclidean").cpu().numpy()
+    t0 = time.perf_counter()
+    cpu = rr.re_ranking_from_features(torch.from_numpy(qf), torch.from_numpy(gf),
+                                      "euclidean").numpy()
+    cpu_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    host = re_ranking(*(compute_distance_matrix(x, y, "euclidean")
+                        for x, y in ((qf, gf), (qf, qf), (gf, gf))))
+    host_s = time.perf_counter() - t0
+    e_cpu, e_host = float(np.abs(card - cpu).max()), float(np.abs(card - host).max())
+    log(f"[rerank] Q=200 G=800 exact integer distances (smallest boundary gap {gap:.2e}): card "
+        f"vs CPU max|diff| {e_cpu:.3e}, card vs host algorithm {e_host:.3e} (tol 2e-4); CPU "
+        f"{cpu_s:.1f} s, host algorithm {host_s:.1f} s")
+    if not (gap > 0 and e_cpu <= 2e-4 and e_host <= 2e-4):
+        raise AssertionError("re-ranking: card, CPU and host algorithm disagree")
+
+    rng = np.random.RandomState(1)
+    centres = rng.randn(100, 4096)
+    qf, gf = (torch.from_numpy((centres[rng.randint(0, 100, n)] + rng.randn(n, 4096) * 5.0)
+                               .astype(np.float32)) for n in (200, 800))
+    cont_gap = boundary_gap(torch, rr, qf.to(device), gf.to(device), "cosine")
+    diff = np.abs(rr.re_ranking_from_features(qf.to(device), gf.to(device), "cosine").cpu().numpy()
+                  - rr.re_ranking_from_features(qf, gf, "cosine").numpy())
+    rows = int((diff.max(axis=1) > 2e-4).sum())
+    log(f"[rerank] the same size on continuous 4096-d cosine features (smallest boundary gap "
+        f"{cont_gap:.2e}): card vs CPU max|diff| {float(diff.max()):.3e}, {rows} of 200 rows "
+        f"beyond 2e-4 (reported, not held: fp32 distance rounding flips near-tied neighbours)")
+    return e_cpu, e_host, float(diff.max()), rows
+
+
 def main() -> int:
     if not all((REPO / "agrl_torch" / "csrc" / f"{n}.cu").exists()
-               for n in ("graph_conv", "triplet")):
+               for n in ("graph_conv", "triplet", "minsum")):
         print("chip_smoke.py: the agrl_torch package is not beside this script", file=sys.stderr)
         return 2
     import torch
@@ -695,6 +1012,9 @@ def main() -> int:
     from agrl_torch.models import default_num_vertices, init_model
     from agrl_torch.models import layers as layers_mod
     from agrl_torch.ops import graph_conv as gc
+    from agrl_torch.ops import minsum as ms
+    from agrl_torch.ops import rank
+    from agrl_torch.ops import rerank as rr
     from agrl_torch.ops import triplet as tri
     from agrl_torch.engine.export import FeatureExtractor
     from agrl_torch.kernels.build import build as build_library
@@ -712,11 +1032,12 @@ def main() -> int:
 
     # 2. build: one nvcc per source, all started together
     t0 = time.perf_counter()
-    libs = ("graph_conv", "triplet")
+    libs = ("graph_conv", "triplet", "minsum")
     with ThreadPoolExecutor(len(libs)) as pool:
         list(pool.map(build_library, libs))
     gc._lib()
     tri._lib()
+    ms._lib()
     log(f"[build] {', '.join(library_path(n).name for n in libs)} ready in "
         f"{time.perf_counter() - t0:.1f} s")
     for name in libs:
@@ -729,7 +1050,8 @@ def main() -> int:
     krec = phase_kernels(torch, gc, device, flush)
     # 8. K3 vs plain (run here, beside the other kernel checks)
     trec = phase_triplet(torch, tri, device, flush)
-    del flush
+    # 12. K4 vs plain at the JAX package's test shapes
+    phase_minsum_shapes(torch, ms, device)
 
     # 4. serving at the paper config
     def build(dev):
@@ -758,7 +1080,7 @@ def main() -> int:
     serving["card_vs_cpu_rel_err"] = phase_card_vs_cpu(torch, build, fx)
 
     # 7. evaluator
-    r1, mAP = phase_evaluator(torch, gc, model, device)
+    r1, mAP, reranked_eval = phase_evaluator(torch, gc, ms, model, device)
     serving.update(eval_rank1=r1, eval_mAP=mAP)
 
     # 9. the train step at the paper config, then the evaluator
@@ -775,10 +1097,26 @@ def main() -> int:
     # 11. card vs CPU, one train step
     (training["card_vs_cpu_loss_rel_err"], training["card_vs_cpu_grad_fro_rel_err"],
      training["card_vs_cpu_grad_max_rel_err"]) = phase_train_card_vs_cpu(torch, device)
+    torch.cuda.empty_cache()
+
+    # 13. re-ranking at MARS scale (K4's main path), kernel path vs plain path
+    qf, gf, ids = mars_features(torch, device)
+    k4_launches, reranking = phase_rerank_mars(torch, ms, rr, rank, qf, gf, ids)
+    # 14. K4 vs plain at the MARS shape, times and bound
+    mrec = phase_minsum_mars(torch, ms, rr, qf, gf, device, flush)
+    del qf, gf, flush
+    torch.cuda.empty_cache()
+    # 15. card vs CPU vs the host algorithm
+    (reranking["card_vs_cpu_max_abs_err"], reranking["card_vs_host_max_abs_err"],
+     reranking["continuous_card_vs_cpu_max_abs_diff"],
+     reranking["continuous_rows_beyond_2e-4"]) = phase_rerank_cpu(torch, rr, device)
+    reranking["evaluator_synthetic"] = reranked_eval
 
     serving["smoke_seconds"] = training["smoke_seconds"] = time.perf_counter() - t_start
     print(json.dumps({"serving": serving}))
     print(json.dumps({"training": training}))
+    reranking["smoke_seconds"] = time.perf_counter() - t_start
+    print(json.dumps({"reranking": reranking}))
     kernel = {
         "name": "graph_propagate",
         "route": "cuda",
@@ -819,7 +1157,30 @@ def main() -> int:
         "grad_max_abs_err": trec["grad_max_abs_err"],
         "shape": f"B=16 (4x4) D={FEATURE_DIM} fp32",
     }
-    print(json.dumps({"kernels": [kernel, triplet]}))
+    min_sum = {
+        "name": "min_sum",
+        "route": "cuda",
+        "source": "agrl_torch/csrc/minsum.cu",
+        "replaces": "agrl_tpu/ops/minsum.py:59",
+        "launches": k4_launches,
+        "max_abs_err": mrec["max_abs_err"],
+        "ms": mrec["ms"],
+        "plain_ms": mrec["plain_ms"],
+        "bound_ms": mrec["bound_ms"],
+        "bound_by": mrec["bound_by"],
+        "library_ms": mrec["library_ms"],
+        "library_call": "(a.sum(1)[:, None] + b.sum(1)[None, :] - torch.cdist(a, b, p=1)) / 2",
+        "timing": "CUDA events around one call, L2 flushed; kernel mean of 5, plain of 2, "
+                  "library of 3",
+        "dense_bound_ms": mrec["dense_bound_ms"],
+        "terms_needed": mrec["terms_needed"],
+        "terms_dense": mrec["terms_dense"],
+        "uniform_rel_err": mrec["uniform_rel_err"],
+        "library_max_abs_err": mrec["library_max_abs_err"],
+        "shape": f"Q={MARS_Q} J=C={MARS_Q + MARS_G} fp32, the re-ranking's membership v "
+                 f"({mrec['v_nonzero_share']:.3%} non-zero)",
+    }
+    print(json.dumps({"kernels": [kernel, triplet, min_sum]}))
     print(smi)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
