@@ -27,6 +27,26 @@ def _k_reciprocal_set(rank: np.ndarray, i: int, k: int) -> np.ndarray:
     return fwd[np.any(back == i, axis=1)]
 
 
+def sparse_min_sum(a: np.ndarray, b: np.ndarray) -> np.ndarray:
+    """(Q, J) sums_c min(a[q, c], b[j, c]) of non-negative a (Q, C) and b
+    (J, C) over the non-zero entries only, as the public implementation
+    accumulates the Jaccard term: an inverted index of the rows that are
+    non-zero in each column of b (ascending); each row q of a adds
+    min(a[q, c], b[rows, c]) into those rows, over its non-zero columns c
+    ascending, in fp32. agrl_torch.ops.minsum.min_sum_sparse keeps this
+    order on the card."""
+    rows, cols = np.nonzero(b)  # row-major: a stable sort by column keeps rows ascending
+    order = np.argsort(cols, kind="stable")
+    rows = rows[order]
+    col_ptr = np.searchsorted(cols[order], np.arange(b.shape[1] + 1))
+    out = np.zeros((a.shape[0], b.shape[0]), dtype=np.float32)
+    for q in range(a.shape[0]):
+        for c in np.flatnonzero(a[q]):
+            r = rows[col_ptr[c]:col_ptr[c + 1]]
+            out[q, r] += np.minimum(a[q, c], b[r, c])
+    return out
+
+
 def re_ranking(
     q_g_dist: np.ndarray,
     q_q_dist: np.ndarray,
@@ -67,15 +87,8 @@ def re_ranking(
     orig_qg = dist[:num_q]
 
     # Jaccard distance via sparse min-sum accumulation
-    nonzero_rows_per_col = [np.flatnonzero(member[:, c]) for c in range(n)]
-    jaccard = np.zeros_like(orig_qg, dtype=np.float32)
-    for i in range(num_q):
-        min_sum = np.zeros(n, dtype=np.float32)
-        cols = np.flatnonzero(member[i])
-        for c in cols:
-            rows = nonzero_rows_per_col[c]
-            min_sum[rows] += np.minimum(member[i, c], member[rows, c])
-        jaccard[i] = 1.0 - min_sum / (2.0 - min_sum)
+    min_sum = sparse_min_sum(member[:num_q], member)
+    jaccard = 1.0 - min_sum / (2.0 - min_sum)
 
     final = jaccard * (1.0 - lambda_value) + orig_qg * lambda_value
     return final[:, num_q:]

@@ -10,11 +10,13 @@ schedules of one function — the eval-mode VMGN GraphConvLayer, per clip:
     G   = (A + S) / 2
     out = (1 - gamma) * f + gamma * lrelu_0.1(bn_eval(G @ h))
 
-On the card this op IS the hand-written kernel (csrc/graph_conv.cu);
-`graph_propagate_reference` is its plain PyTorch version, used for CPU
-tensors and to check the kernel. `graph_propagate` dispatches on the
-tensor's device: CPU -> plain version, CUDA -> the kernel or an
-exception, never a fallback.
+On the card this op IS the hand-written kernel (csrc/graph_conv.cu: f @ W
+on the tensor cores in 3xTF32, each K chunk promoted into fp32 registers,
+which keeps fp32 accuracy; the Gram and G @ h in fp32);
+`graph_propagate_reference` is its plain PyTorch
+version, used for CPU tensors and to check the kernel.
+`graph_propagate` dispatches on the tensor's device: CPU -> plain
+version, CUDA -> the kernel or an exception, never a fallback.
 
 Layouts follow the JAX package: f (B, V, C), adj (B, V, V), W (C, C) as
 (in, out). The kernel reads W^T, so the transpose view of a torch Linear

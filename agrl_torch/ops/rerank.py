@@ -13,9 +13,11 @@ membership matrix and the set algebra is dense products:
   * union of accepted half-sets      -> (cond @ Rh) > 0
   * local query expansion            -> the mean of k2 gathered rows
   * Jaccard min-sum sum_c min(V[q,c], V[j,c])
-                                     -> ops/minsum.py: the hand-written
-    min-plus kernel (csrc/minsum.cu) on the card, its plain version on
-    the CPU, chosen by the tensor's device
+                                     -> ops/minsum.py min_sum_sparse: V is
+    ~99% zeros by construction, so on the card the hand-written sparse
+    min-plus kernels (csrc/minsum_sparse.cu) do only the terms whose two
+    operands are non-zero; its plain version on the CPU, chosen by the
+    tensor's device
 
 Ties: equal distances keep the lower index first (stable sort), the
 order lax.top_k gives agrl_tpu, so both pick the same neighbour sets
@@ -27,7 +29,7 @@ from __future__ import annotations
 import torch
 
 from agrl_torch.ops.distmat import compute_distmat
-from agrl_torch.ops.minsum import min_sum
+from agrl_torch.ops.minsum import min_sum_sparse
 from agrl_torch.ops.rank import nearest
 
 # Largest count bf16 holds exactly: integers up to 2^8.
@@ -110,12 +112,12 @@ def expanded_membership(dist: torch.Tensor, k1: int = 20, k2: int = 6) -> torch.
 def re_ranking_device(q_g_dist, q_q_dist, g_g_dist, k1: int = 20, k2: int = 6,
                       lambda_value: float = 0.3) -> torch.Tensor:
     """(Q, G), (Q, Q), (G, G) distances -> the re-ranked (Q, G) distance,
-    on their device. On the card the Jaccard term is one min_sum kernel
-    launch."""
+    on their device. On the card the Jaccard term is one min_sum_sparse
+    call: v is sparse by construction (expanded_membership)."""
     num_q = q_g_dist.shape[0]
     dist = original_dist(q_g_dist, q_q_dist, g_g_dist)
     v = expanded_membership(dist, k1, k2)
-    ms = min_sum(v[:num_q], v)  # (Q, N)
+    ms = min_sum_sparse(v[:num_q], v)  # (Q, N)
     jaccard = 1.0 - ms / (2.0 - ms)
     final = jaccard * (1.0 - lambda_value) + dist[:num_q] * lambda_value
     return final[:, num_q:].contiguous()

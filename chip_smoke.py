@@ -5,12 +5,15 @@
 
 Phases (any failure exits non-zero before the result lines):
   1. the card: nvidia-smi name and power limit, torch's device name;
-  2. build the three kernel libraries from agrl_torch/csrc (graph_conv,
-     triplet, minsum; one nvcc each, in parallel);
-  3. kernel vs its plain PyTorch version on the card, TF32 off: the
-     serving shape B=16 V=56 C=2048 (atol 2e-4), a ragged B=3 V=40
+  2. build the four kernel libraries from agrl_torch/csrc (graph_conv,
+     triplet, minsum, minsum_sparse; one nvcc each, in parallel) and
+     print each kernel's registers and spills from the -Xptxas -v logs;
+  3. K1 (3xTF32 on the tensor cores) vs its plain PyTorch version on the
+     card, TF32 off: the serving shape B=16 V=56 C=2048 (atol 2e-4; and
+     within 1e-6 of max|output| of a float64 run), a ragged B=3 V=40
      (atol 2e-4), and the bf16-held v2 entry on rounded inputs (atol
-     2e-3); times with CUDA events, L2 flushed before every call;
+     2e-3); times with CUDA events, L2 flushed before every call; the
+     bound on the tensor cores and the old fp32-FMA bound;
   4. the serving path at the paper config (VMGN, ResNet-50, 256x128,
      seq_len 8, 4-way pyramid parts -> V=56, two graph layers, random
      weights from a seed): FeatureExtractor(batch_size=16) answers 1-,
@@ -20,9 +23,9 @@ Phases (any failure exits non-zero before the result lines):
   6. the same 2 clips on the CPU and on the card;
   7. the `evenly` Evaluator (cosine, MARS CMC/mAP on the card) on the
      synthetic dataset at 256x128, then with re_rank=True: mars,
-     market1501 and dukev re-ranked on the card (one K4 launch each;
-     dukev scores on the host), the re-ranked distmat export
-     (return_distmat, one K4 launch) and mars on the host path
+     market1501 and dukev re-ranked on the card (one sparse K4 call
+     each; dukev scores on the host), the re-ranked distmat export
+     (return_distmat, one sparse K4 call) and mars on the host path
      (device_rank=False), whose mAP must equal the device path's within
      1e-6;
   8. the batch-hard mining kernel (K3) vs its plain version, TF32 off: the
@@ -40,19 +43,25 @@ Phases (any failure exits non-zero before the result lines):
  10. one train step's loss and gradients, kernel path vs plain path (only
      the triplet op differs);
  11. one train step at full width, B=4 (2x2), card vs CPU;
- 12. the min-plus kernel (K4) vs its plain version at the JAX package's
-     test shapes (37,53,100), (130,260,515), (8,8,8): atol 1e-4;
+ 12. the dense min-plus kernel (K4, min_sum) vs its plain version at the
+     JAX package's test shapes (37,53,100), (130,260,515), (8,8,8): atol
+     1e-4;
  13. k-reciprocal re-ranking at MARS scale (1,980 query and 9,330
      gallery seeded 4096-d features with identity structure; cosine,
-     k1 20, k2 6, lambda 0.3): re_ranking_from_features 3 times, one K4
-     launch each, wall time, peak memory, a profiler table with K4's
-     share; the kernel path vs the plain path (plain min-sum): the
-     re-ranked matrix within 1e-5, MARS CMC/mAP within 1e-6;
- 14. K4 vs plain at the MARS shape (Q=1,980, J=C=11,310) on the
-     re-ranking's membership matrix (atol 1e-5) and on uniform inputs
-     (1e-5 of the max); times of the kernel, the plain version and
-     torch.cdist(p=1) + row sums with the L2 flushed; the bound on these
-     inputs and on dense ones;
+     k1 20, k2 6, lambda 0.3): re_ranking_from_features 3 times, one
+     sparse K4 call (min_sum_sparse) each and no dense one, wall time,
+     peak memory, a profiler table with K4's share; the kernel path vs
+     the plain path (plain min-sum): the re-ranked matrix within 1e-5,
+     MARS CMC/mAP within 1e-6;
+ 14. K4 at the MARS shape (Q=1,980, J=C=11,310) on the re-ranking's
+     membership matrix v: min_sum_sparse vs plain (atol 1e-5), vs the
+     host algorithm's fp32 accumulation replayed in NumPy (atol 1e-6),
+     bit-equal across two calls; the dense kernel vs plain on v (atol
+     1e-5) and on uniform inputs (1e-5 of the max); times of the whole
+     sparse call, the dense kernel, the plain version and
+     torch.cdist(p=1) + row sums with the L2 flushed; the bounds on these
+     inputs (the sparse entry reads a = v[:Q] as part of b, the dense
+     kernel reads both) and on dense ones;
  15. re-ranking at Q=200 G=800: the card vs the CPU vs the host
      algorithm (agrl_torch.metrics.rerank), atol 2e-4, on integer
      features whose distances are exact on every device; then card vs
@@ -80,6 +89,7 @@ REPO = Path(__file__).resolve().parent
 # H100 SXM peaks (NVIDIA data sheet, dense, 700 W): fp32 outside the
 # tensor cores (an FMA counts 2), and HBM3 bandwidth
 PEAK_FP32_FLOPS = 67e12
+PEAK_TF32_FLOPS = 495e12  # tensor cores, dense
 PEAK_HBM_BYTES = 3.35e12
 # fp32 instructions per second, for work with no FMA in it: 132 SMs x 128
 # lanes x 1.98 GHz. The min-plus kernel's FMNMX runs on the ALU pipe at
@@ -88,6 +98,8 @@ PEAK_HBM_BYTES = 3.35e12
 # a (FMNMX, FADD) term costs 2 / 128 SM-clocks either way.
 PEAK_FP32_ISSUE = 132 * 128 * 1.98e9
 MINSUM_KERNEL = "min_sum_kernel"  # agrl_torch/csrc/minsum.cu
+# agrl_torch/csrc/minsum_sparse.cu, as the profiler names them
+SPARSE_KERNELS = ("nnz_count_kernel", "csr_fill_kernel", "min_sum_accumulate_kernel")
 MARS_Q, MARS_G, MARS_IDS = 1980, 9330, 636  # MARS test split: query, gallery tracklets
 
 SEQ_LEN, HEIGHT, WIDTH, BATCH = 8, 256, 128, 16
@@ -97,10 +109,28 @@ TRIPLET_KERNEL = "hard_mine_kernel"  # agrl_torch/csrc/triplet.cu
 NUM_CLASSES = 625  # MARS training identities
 FEATURE_DIM = 2048  # the triplet heads' width
 TRAIN_STEPS, TRAIN_HEADS = 20, 5  # global, attention, 3 consistent-loss subclips
+LIBS = ("graph_conv", "triplet", "minsum", "minsum_sparse")  # agrl_torch/csrc/<name>.cu
 
 
 def log(msg: str) -> None:
     print(msg, flush=True)
+
+
+def ptxas_summary(log_text: str) -> list:
+    """One line per kernel of an nvcc -Xptxas -v log: its name (and
+    template argument), registers, spills and static shared memory."""
+    import re
+
+    lines, name, spill = [], "?", ""
+    for line in log_text.splitlines():
+        m = re.search(r"Compiling entry function '.*?\d([a-z][a-z_]*_kernel)(?:ILi(\d+)E)?", line)
+        if m:
+            name = m.group(1) + (f"<{m.group(2)}>" if m.group(2) else "")
+        elif "spill" in line:
+            spill = line.strip()
+        elif "registers" in line:
+            lines.append(f"{name}: {line.split(':', 1)[1].strip()}; {spill}")
+    return lines
 
 
 def nvidia_smi_line() -> str:
@@ -171,13 +201,18 @@ def graph_inputs(torch, B, V, C, seed, device):
 
 
 def graph_bound_ms(B, V, C):
-    """Least time for one fused call: fp32 FLOPs of f@W, the Gram and G@h
-    over the fp32 peak vs bytes of f, adj, W, BN vectors in and out over
-    the HBM rate; the larger one bounds."""
-    flops = 2.0 * B * V * C * C + 2 * (2.0 * B * V * V * C)
+    """Least time for one fused call: f@W as three tf32 products (3xTF32,
+    the least that keeps fp32 accuracy on the tensor cores) over the
+    tf32 peak, plus the Gram and G@h in fp32 over the FMA peak, vs bytes
+    of f, adj, W, BN vectors in and out over the HBM rate; the larger one
+    bounds. Also the first design's bound, every FLOP at the fp32 FMA
+    peak. Returns (bound ms, bound_by, fp32 FMA bound ms)."""
+    mm, small = 2.0 * B * V * C * C, 2 * (2.0 * B * V * V * C)
     nbytes = 4.0 * (2 * B * V * C + B * V * V + C * C + 4 * C)
-    t_ops, t_mem = flops / PEAK_FP32_FLOPS, nbytes / PEAK_HBM_BYTES
-    return max(t_ops, t_mem) * 1e3, ("operations" if t_ops >= t_mem else "bytes")
+    t_ops = 3 * mm / PEAK_TF32_FLOPS + small / PEAK_FP32_FLOPS
+    t_mem = nbytes / PEAK_HBM_BYTES
+    t_fma = max((mm + small) / PEAK_FP32_FLOPS, t_mem)
+    return max(t_ops, t_mem) * 1e3, ("operations" if t_ops >= t_mem else "bytes"), t_fma * 1e3
 
 
 def phase_kernels(torch, gc, device, flush):
@@ -194,15 +229,25 @@ def phase_kernels(torch, gc, device, flush):
         if not (err <= 2e-4):
             raise AssertionError(f"kernel disagrees with plain at {label}: {err}")
         if B == 16:
+            # fp32 accuracy of the 3xTF32 product: one TF32 pass is ~2e-4
+            # away, the wgmma accumulators without per-chunk promotion ~3e-6
+            exact = gc.graph_propagate_reference(*(x.double() for x in args))
+            f64_err = float((got.double() - exact).abs().max() / exact.abs().max())
+            plain_f64_err = float((want.double() - exact).abs().max() / exact.abs().max())
+            log(f"[kernel] {label}: max|kernel - float64| / max|float64| = {f64_err:.3e} "
+                f"(tol 1e-6; the plain fp32 version: {plain_f64_err:.3e})")
+            if not (f64_err <= 1e-6):
+                raise AssertionError(f"kernel is not fp32-accurate at {label}: {f64_err}")
+            del exact
             f, W = args[0], args[2]
             f2 = f.reshape(B * V, C)
             rec = dict(
-                max_abs_err=err,
+                max_abs_err=err, float64_rel_err=f64_err, plain_float64_rel_err=plain_f64_err,
                 ms=time_cuda(torch, lambda: gc.graph_propagate(*args), flush),
                 plain_ms=time_cuda(torch, lambda: gc.graph_propagate_reference(*args), flush),
                 library_ms=time_cuda(torch, lambda: torch.matmul(f2, W), flush),
             )
-            rec["bound_ms"], rec["bound_by"] = graph_bound_ms(B, V, C)
+            rec["bound_ms"], rec["bound_by"], rec["fp32_fma_bound_ms"] = graph_bound_ms(B, V, C)
             v2_args = args
     # the v2 entry: f and adj held in bf16, same kernel, fp32 math
     got = gc.graph_propagate_v2(*v2_args)
@@ -219,7 +264,8 @@ def phase_kernels(torch, gc, device, flush):
     log(
         f"[kernel] serving shape: kernel {rec['ms']:.4f} ms, plain {rec['plain_ms']:.4f} ms, "
         f"torch.matmul(f, W) alone {rec['library_ms']:.4f} ms, bound {rec['bound_ms']:.4f} ms "
-        f"({rec['bound_by']}), v2 {rec['v2_ms']:.4f} ms"
+        f"({rec['bound_by']}: 3xTF32 on the tensor cores; fp32-FMA bound "
+        f"{rec['fp32_fma_bound_ms']:.4f} ms), v2 {rec['v2_ms']:.4f} ms"
     )
     return rec
 
@@ -395,7 +441,7 @@ def phase_card_vs_cpu(torch, build_model_fn, fx):
 def phase_evaluator(torch, gc, ms, model, device):
     """The evenly Evaluator, then its re-ranking stage: device re-ranking
     under the mars, market1501 and dukev protocols and for the distmat
-    export (one K4 launch each; dukev and the export score on the host)
+    export (one sparse K4 call each; dukev and the export score on the host)
     and the host path (device_rank=False: host re-ranking, NumPy scorer)."""
     from agrl_torch.data.datasets import init_vidreid_dataset
     from agrl_torch.data.loader import ClipLoader, VideoClipDataset
@@ -430,31 +476,31 @@ def phase_evaluator(torch, gc, ms, model, device):
         # dukev after re-ranking scores on the host, still re-ranked on the card
         for protocol, device_rank in (("mars", True), ("market1501", True), ("dukev", True),
                                       ("mars", False)):
-            before = ms.launches
+            before = ms.sparse_launches
             rr1, rmap = evaluator.evaluate(
                 loader("query"), loader("gallery"), dist_metric="cosine", re_rank=True,
                 metric_protocol=protocol, device_rank=device_rank,
             )
-            k4 = ms.launches - before
+            k4 = ms.sparse_launches - before
             path = "device" if device_rank else "host"
             log(f"[eval] re-ranked, {protocol} on the {path} path: rank-1 {rr1:.4f}, "
-                f"mAP {rmap:.4f}, min_sum launches +{k4}")
+                f"mAP {rmap:.4f}, min_sum_sparse launches +{k4}")
             if not (math.isfinite(rr1) and math.isfinite(rmap) and 0.0 <= rr1 <= 1.0
                     and 0.0 <= rmap <= 1.0 and k4 == int(device_rank)):
                 raise AssertionError(f"re-ranking evaluator ({protocol}, {path}): rank-1 {rr1}, "
-                                     f"mAP {rmap}, min_sum launches {k4}")
+                                     f"mAP {rmap}, min_sum_sparse launches {k4}")
             reranked[f"{protocol}_{path}"] = (rr1, rmap)
 
-        # the re-ranked matrix for export: re-ranked on the card, one K4 launch
-        before = ms.launches
+        # the re-ranked matrix for export: re-ranked on the card, one sparse K4 call
+        before = ms.sparse_launches
         dm = evaluator.evaluate(loader("query"), loader("gallery"), dist_metric="cosine",
                                 re_rank=True, return_distmat=True)
-        k4 = ms.launches - before
-        log(f"[eval] re-ranked distmat export: shape {dm.shape}, min_sum launches +{k4}")
+        k4 = ms.sparse_launches - before
+        log(f"[eval] re-ranked distmat export: shape {dm.shape}, min_sum_sparse launches +{k4}")
         if not (isinstance(dm, np.ndarray) and dm.shape == (len(ds.query), len(ds.gallery))
                 and np.isfinite(dm).all() and k4 == 1):
             raise AssertionError(f"re-ranked distmat export: shape {getattr(dm, 'shape', None)}, "
-                                 f"min_sum launches {k4}")
+                                 f"min_sum_sparse launches {k4}")
     host_diff = abs(reranked["mars_host"][1] - reranked["mars_device"][1])
     log(f"[eval] re-ranked mars mAP, host path vs device path: |diff| {host_diff:.3e} (tol 1e-6)")
     if not host_diff <= 1e-6:
@@ -747,18 +793,20 @@ def phase_train_card_vs_cpu(torch, device):
     return loss_err, fro[0], worst
 
 
-def minsum_bound_ms(a, b):
+def minsum_bound_ms(a, b, a_in_b=False):
     """Least time for one min-plus call on these inputs: 2 instructions
     (FMNMX, FADD) per term that the data needs, over the fp32 issue rate,
     vs each input read once and the output written once, over the HBM
     rate; the larger one bounds. A term with a zero operand adds min = 0
     (the inputs are non-negative), so the terms needed are sum_c nnz(a[:,
-    c]) nnz(b[:, c]); on dense inputs that is Q J C. Returns (bound ms,
-    bound_by, terms, bound ms if every term were needed)."""
+    c]) nnz(b[:, c]); on dense inputs that is Q J C. a_in_b: a is the
+    first Q rows of b (re-ranking's v[:Q] and v), which min_sum_sparse
+    reads once, as part of b, so a's bytes are not counted. Returns
+    (bound ms, bound_by, terms, bound ms if every term were needed)."""
     Q, C = a.shape
     J = b.shape[0]
     terms = int(((a > 0).sum(0).double() * (b > 0).sum(0).double()).sum())
-    t_bytes = 4.0 * (Q * C + J * C + Q * J) / PEAK_HBM_BYTES
+    t_bytes = 4.0 * ((0 if a_in_b else Q * C) + J * C + Q * J) / PEAK_HBM_BYTES
     t_ops = 2.0 * terms / PEAK_FP32_ISSUE
     t_dense = 2.0 * Q * J * C / PEAK_FP32_ISSUE
     return (max(t_ops, t_bytes) * 1e3, "operations" if t_ops >= t_bytes else "bytes", terms,
@@ -804,7 +852,8 @@ def mars_features(torch, device, seed=0):
 
 def phase_rerank_mars(torch, ms, rr, rank, qf, gf, ids):
     """Main path: k-reciprocal re-ranking at MARS scale on the card
-    (cosine, k1 20, k2 6, lambda 0.3); one K4 launch per re-rank."""
+    (cosine, k1 20, k2 6, lambda 0.3); one sparse K4 call per re-rank and
+    no dense one. Returns the main path's (sparse, dense) launch counts."""
     from torch.profiler import ProfilerActivity, profile
 
     from agrl_torch.ops.distmat import compute_distmat
@@ -814,23 +863,27 @@ def phase_rerank_mars(torch, ms, rr, rank, qf, gf, ids):
     base_mem = torch.cuda.memory_allocated()
     torch.cuda.reset_peak_memory_stats()
     times = []
-    ms.launches = 0  # main path starts here
+    ms.sparse_launches = ms.launches = 0  # main path starts here
     for i in range(runs):
-        before = ms.launches
+        before = ms.sparse_launches
         t0 = time.perf_counter()
         final = rr.re_ranking_from_features(qf, gf, "cosine")
         torch.cuda.synchronize()
         times.append((time.perf_counter() - t0) * 1e3)
-        if ms.launches - before != 1:
-            raise AssertionError(f"re-rank {i}: {ms.launches - before} min_sum launches, want 1")
-    launches = ms.launches  # main path ends here
+        if ms.sparse_launches - before != 1:
+            raise AssertionError(f"re-rank {i}: {ms.sparse_launches - before} min_sum_sparse "
+                                 f"launches, want 1")
+    launches, dense_launches = ms.sparse_launches, ms.launches  # main path ends here
+    if dense_launches:
+        raise AssertionError(f"{dense_launches} dense min_sum launches in re-ranking, want 0")
     peak_gb = (torch.cuda.max_memory_allocated() - base_mem) / 1e9
     if final.shape != (MARS_Q, MARS_G) or not bool(torch.isfinite(final).all()):
         raise AssertionError("re-ranked matrix has the wrong shape or non-finite entries")
     med = float(np.median(times))
     log(f"[rerank] MARS scale Q={MARS_Q} G={MARS_G} D=4096 cosine: wall {med:.2f} ms median of "
         f"{runs} ({', '.join(f'{t:.2f}' for t in times)}); peak device memory above the "
-        f"features {peak_gb:.2f} GB; min_sum launches {launches} (1 per re-rank)")
+        f"features {peak_gb:.2f} GB; min_sum_sparse launches {launches} (1 per re-rank), "
+        f"dense min_sum launches {dense_launches}")
 
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
@@ -841,22 +894,23 @@ def phase_rerank_mars(torch, ms, rr, rank, qf, gf, ids):
     window_ms = start.elapsed_time(end)
     rows = device_rows(prof, 1)
     busy_ms = sum(r[1] for r in rows)
-    k4_ms = sum(r[1] for r in rows if MINSUM_KERNEL in r[0])
+    k4_ms = sum(r[1] for r in rows if any(k in r[0] for k in SPARSE_KERNELS))
     log(f"[rerank] profiled re-rank: device busy {busy_ms:.2f} ms, {busy_ms / window_ms:.1%} of "
-        f"the {window_ms:.2f} ms window; min_sum_kernel {k4_ms:.2f} ms "
-        f"({k4_ms / max(busy_ms, 1e-9):.1%} of device time)")
-    for name, t, count in rows[:10]:
+        f"the {window_ms:.2f} ms window; the sparse min-sum kernels {k4_ms:.3f} ms "
+        f"({k4_ms / max(busy_ms, 1e-9):.2%} of device time; its sort, scans and gathers are "
+        f"rows of their own)")
+    for name, t, count in rows[:14]:
         log(f"[rerank]   {t:8.3f} ms x{count:<3d} {name[:90]}")
 
     # kernel path vs plain path: only the Jaccard min-sum differs
-    rr.min_sum = ms.min_sum_reference
+    rr.min_sum_sparse = ms.min_sum_reference
     try:
         t0 = time.perf_counter()
         plain = rr.re_ranking_from_features(qf, gf, "cosine")
         torch.cuda.synchronize()
         plain_wall = (time.perf_counter() - t0) * 1e3
     finally:
-        rr.min_sum = ms.min_sum
+        rr.min_sum_sparse = ms.min_sum_sparse
     err = float((final - plain).abs().max())
     scores = {}
     original = compute_distmat(qf, gf, "cosine")
@@ -873,11 +927,11 @@ def phase_rerank_mars(torch, ms, rr, rank, qf, gf, ids):
         f"{scores['kernel'][1]:.4f}")
     if not (err <= 1e-5 and cmc_diff <= 1e-6 and map_diff <= 1e-6):
         raise AssertionError("re-ranking: kernel path and plain path disagree")
-    return launches, dict(
+    return launches, dense_launches, dict(
         Q=MARS_Q, G=MARS_G, D=4096, metric="cosine", k1=20, k2=6, lambda_value=0.3,
         wall_ms=med, wall_all_ms=times, peak_mem_gb_above_features=peak_gb,
-        profile_window_ms=window_ms, device_busy_ms=busy_ms, min_sum_device_ms=k4_ms,
-        min_sum_share=k4_ms / max(busy_ms, 1e-9), top=rows[:10],
+        profile_window_ms=window_ms, device_busy_ms=busy_ms, min_sum_sparse_kernels_ms=k4_ms,
+        min_sum_sparse_kernels_share=k4_ms / max(busy_ms, 1e-9), top=rows[:14],
         kernel_vs_plain_max_abs_err=err, plain_path_wall_ms=plain_wall,
         cmc_max_abs_diff=cmc_diff, map_abs_diff=map_diff,
         rank1_original=float(scores["original"][0][0]), map_original=scores["original"][1],
@@ -885,46 +939,105 @@ def phase_rerank_mars(torch, ms, rr, rank, qf, gf, ids):
     )
 
 
+def profile_min_sum_sparse(torch, ms, a, b, n=3):
+    """Device time by kernel of n back-to-back min_sum_sparse calls (their
+    602 MB of inputs do not fit the 50 MB L2): the count, fill and
+    accumulation kernels and the glue (zeroed counts, scans, sort,
+    gathers)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(n):
+            ms.min_sum_sparse(a, b)
+        torch.cuda.synchronize()
+    rows = device_rows(prof, n)
+    log(f"[minsum] one min_sum_sparse call by kernel (device ms, mean of {n}; device total "
+        f"{sum(r[1] for r in rows):.4f} ms):")
+    for name, t, count in rows[:10]:
+        log(f"[minsum]   {t:8.4f} ms x{count:<2d} {name[:90]}")
+    return rows[:10]
+
+
 def phase_minsum_mars(torch, ms, rr, qf, gf, device, flush):
-    """K4 vs plain at the MARS shape (Q=1,980, J=C=11,310): on the
-    re-ranking's own membership matrix v (atol 1e-5; rows sum to 1) and on
-    uniform inputs (1e-5 of the max); times of the kernel, the plain
-    version and torch.cdist(p=1) + row sums, L2 flushed; the bound."""
+    """K4 at the MARS shape (Q=1,980, J=C=11,310) on the re-ranking's own
+    membership matrix v (rows sum to 1): min_sum_sparse vs plain (atol
+    1e-5), vs the host algorithm's fp32 accumulation replayed in NumPy
+    (atol 1e-6; agrl_torch.metrics.rerank.sparse_min_sum), bit-equal across
+    two calls; the dense kernel vs plain on
+    v (atol 1e-5) and on uniform inputs (1e-5 of the max); times of the
+    whole sparse call (counts, scans, read-back, fill, sort, accumulation),
+    the dense kernel, the plain version and torch.cdist(p=1) + row sums,
+    L2 flushed; the bound. Returns (sparse record, dense record)."""
+    from agrl_torch.metrics.rerank import sparse_min_sum
     from agrl_torch.ops.distmat import compute_distmat
 
     dists = [compute_distmat(x, y, "cosine") for x, y in ((qf, gf), (qf, qf), (gf, gf))]
     v = rr.expanded_membership(rr.original_dist(*dists))
     del dists
     a, b = v[:MARS_Q], v
-    rec = dict(max_abs_err=check_min_sum(torch, ms, a, b, "MARS shape, re-ranking v", 1e-5))
+
+    got = ms.min_sum_sparse(a, b)
+    again = ms.min_sum_sparse(a, b)
+    want = ms.min_sum_reference(a, b)
+    torch.cuda.synchronize()
+    err = float((got - want).abs().max())
+    bit_equal = bool(torch.equal(got, again))
+    t0 = time.perf_counter()
+    host = sparse_min_sum(a.cpu().numpy(), b.cpu().numpy())
+    host_s = time.perf_counter() - t0
+    got_np = got.cpu().numpy()
+    host_err = float(np.abs(got_np - host).max())
+    host_same = bool(np.array_equal(got_np, host))
+    log(f"[minsum] MARS shape, re-ranking v, min_sum_sparse: max|kernel - plain| = {err:.3e} "
+        f"(tol 1e-5); max|kernel - host order| = {host_err:.3e} (tol 1e-6; bit-equal: "
+        f"{host_same}; NumPy replay {host_s:.1f} s); two calls bit-equal: {bit_equal}")
+    if not (err <= 1e-5 and host_err <= 1e-6 and bit_equal):
+        raise AssertionError("min_sum_sparse disagrees with plain or the host order, or is "
+                             "not deterministic")
+    del got, again, want, host, got_np
+    srec = dict(max_abs_err=err, host_order_max_abs_err=host_err, host_order_bit_equal=host_same,
+                two_calls_bit_equal=bit_equal)
+
+    drec = dict(max_abs_err=check_min_sum(torch, ms, a, b, "MARS shape, re-ranking v", 1e-5))
     gen = torch.Generator(device=device).manual_seed(0)
     ua = torch.rand(MARS_Q, a.shape[1], generator=gen, device=device)
     ub = torch.rand(*b.shape, generator=gen, device=device)
-    rec["uniform_rel_err"] = check_min_sum(torch, ms, ua, ub, "MARS shape, uniform", 1e-5,
-                                           relative=True)
+    drec["uniform_rel_err"] = check_min_sum(torch, ms, ua, ub, "MARS shape, uniform", 1e-5,
+                                            relative=True)
     del ua, ub
 
     def library():
         return (a.sum(1)[:, None] + b.sum(1)[None, :] - torch.cdist(a, b, p=1)) / 2
 
     lib_err = float((library() - ms.min_sum_kernel(a, b)).abs().max())
-    rec["ms"] = time_cuda(torch, lambda: ms.min_sum_kernel(a, b), flush, iters=5, warmup=1)
-    rec["plain_ms"] = time_cuda(torch, lambda: ms.min_sum_reference(a, b), flush, iters=2,
-                                warmup=1)
-    rec["library_ms"] = time_cuda(torch, library, flush, iters=3, warmup=1)
-    rec["bound_ms"], rec["bound_by"], terms, rec["dense_bound_ms"] = minsum_bound_ms(a, b)
+    srec["ms"] = time_cuda(torch, lambda: ms.min_sum_sparse(a, b), flush, iters=5, warmup=1)
+    srec["profile"] = profile_min_sum_sparse(torch, ms, a, b)
+    drec["ms"] = time_cuda(torch, lambda: ms.min_sum_kernel(a, b), flush, iters=5, warmup=1)
+    plain_ms = time_cuda(torch, lambda: ms.min_sum_reference(a, b), flush, iters=2, warmup=1)
+    library_ms = time_cuda(torch, library, flush, iters=3, warmup=1)
+    # the dense kernel reads a and b; the sparse entry sees that a is b's
+    # first rows (the wrapper's own test) and reads b alone
+    bound_ms, bound_by, terms, dense_bound_ms = minsum_bound_ms(a, b)
+    a_in_b = a.data_ptr() == b.data_ptr() and a.stride() == b.stride()
+    s_bound_ms, s_bound_by, _, _ = minsum_bound_ms(a, b, a_in_b=a_in_b)
     Q, C = a.shape
     dense = Q * b.shape[0] * C
-    rec.update(terms_needed=terms, terms_dense=dense, library_max_abs_err=lib_err,
-               v_nonzero_share=float((v > 0).float().mean()))
-    log(f"[minsum] MARS shape Q={Q} J={b.shape[0]} C={C} (v {rec['v_nonzero_share']:.3%} "
-        f"non-zero): kernel {rec['ms']:.3f} ms (mean of 5), plain {rec['plain_ms']:.1f} ms "
-        f"(mean of 2), cdist(p=1) + row sums {rec['library_ms']:.3f} ms (mean of 3; max|lib - "
-        f"kernel| {lib_err:.2e}); bound on this v {rec['bound_ms']:.4f} ms ({rec['bound_by']}: "
-        f"{terms:.3e} of {dense:.3e} terms have both operands non-zero), on dense inputs "
-        f"{rec['dense_bound_ms']:.2f} ms (operations: 2 instructions per term at "
-        f"{PEAK_FP32_ISSUE / 1e12:.1f} T/s); L2 flushed before each call")
-    return rec
+    common = dict(plain_ms=plain_ms, library_ms=library_ms, dense_bound_ms=dense_bound_ms,
+                  terms_needed=terms, terms_dense=dense, library_max_abs_err=lib_err,
+                  v_nonzero_share=float((v > 0).float().mean()))
+    srec.update(common, bound_ms=s_bound_ms, bound_by=s_bound_by, a_read_as_part_of_b=a_in_b)
+    drec.update(common, bound_ms=bound_ms, bound_by=bound_by)
+    log(f"[minsum] MARS shape Q={Q} J={b.shape[0]} C={C} (v {common['v_nonzero_share']:.3%} "
+        f"non-zero): min_sum_sparse call {srec['ms']:.4f} ms (mean of 5; bound "
+        f"{s_bound_ms:.4f} ms, {s_bound_by}, b read once{' and a as its first rows' if a_in_b else ''}"
+        f"; {s_bound_ms / srec['ms']:.1%} of it), dense kernel {drec['ms']:.3f} ms (mean "
+        f"of 5; bound on this v {bound_ms:.4f} ms, {bound_by}, a and b read), plain "
+        f"{plain_ms:.1f} ms (mean of 2), cdist(p=1) + row sums {library_ms:.3f} ms (mean of 3; "
+        f"max|lib - kernel| {lib_err:.2e}); {terms:.3e} of {dense:.3e} terms have both "
+        f"operands non-zero; on dense inputs the bound is {dense_bound_ms:.2f} ms (operations: "
+        f"2 instructions per term at {PEAK_FP32_ISSUE / 1e12:.1f} T/s); L2 flushed before each "
+        f"call")
+    return srec, drec
 
 
 def exact_features(seed=1):
@@ -997,8 +1110,7 @@ def phase_rerank_cpu(torch, rr, device):
 
 
 def main() -> int:
-    if not all((REPO / "agrl_torch" / "csrc" / f"{n}.cu").exists()
-               for n in ("graph_conv", "triplet", "minsum")):
+    if not all((REPO / "agrl_torch" / "csrc" / f"{n}.cu").exists() for n in LIBS):
         print("chip_smoke.py: the agrl_torch package is not beside this script", file=sys.stderr)
         return 2
     import torch
@@ -1032,18 +1144,17 @@ def main() -> int:
 
     # 2. build: one nvcc per source, all started together
     t0 = time.perf_counter()
-    libs = ("graph_conv", "triplet", "minsum")
-    with ThreadPoolExecutor(len(libs)) as pool:
-        list(pool.map(build_library, libs))
+    with ThreadPoolExecutor(len(LIBS)) as pool:
+        list(pool.map(build_library, LIBS))
     gc._lib()
     tri._lib()
     ms._lib()
-    log(f"[build] {', '.join(library_path(n).name for n in libs)} ready in "
+    ms._sparse_lib()
+    log(f"[build] {', '.join(library_path(n).name for n in LIBS)} ready in "
         f"{time.perf_counter() - t0:.1f} s")
-    for name in libs:
-        for line in library_path(name).with_suffix(".log").read_text().splitlines():
-            if "registers" in line or "spill" in line:
-                log(f"[build]   {name}: {line.strip()}")
+    for name in LIBS:
+        for line in ptxas_summary(library_path(name).with_suffix(".log").read_text()):
+            log(f"[build]   {name}: {line}")
 
     # 3. kernel vs plain
     flush = L2Flusher(torch, device)
@@ -1101,9 +1212,9 @@ def main() -> int:
 
     # 13. re-ranking at MARS scale (K4's main path), kernel path vs plain path
     qf, gf, ids = mars_features(torch, device)
-    k4_launches, reranking = phase_rerank_mars(torch, ms, rr, rank, qf, gf, ids)
+    k4_launches, dense_launches, reranking = phase_rerank_mars(torch, ms, rr, rank, qf, gf, ids)
     # 14. K4 vs plain at the MARS shape, times and bound
-    mrec = phase_minsum_mars(torch, ms, rr, qf, gf, device, flush)
+    srec, mrec = phase_minsum_mars(torch, ms, rr, qf, gf, device, flush)
     del qf, gf, flush
     torch.cuda.empty_cache()
     # 15. card vs CPU vs the host algorithm
@@ -1130,6 +1241,11 @@ def main() -> int:
         "plain_ms": krec["plain_ms"],
         "bound_ms": krec["bound_ms"],
         "bound_by": krec["bound_by"],
+        "fp32_fma_bound_ms": krec["fp32_fma_bound_ms"],
+        "float64_rel_err": krec["float64_rel_err"],
+        "plain_float64_rel_err": krec["plain_float64_rel_err"],
+        "precision": "f@W in 3xTF32 (wgmma.m64n128k8 tf32, TMA ring, fp32 accumulators); "
+                     "Gram, G@h fp32",
         "library_ms": krec["library_ms"],
         "library_call": "torch.matmul(f, W): the f@W product alone",
         "v2_max_abs_err": krec["v2_max_abs_err"],
@@ -1162,7 +1278,7 @@ def main() -> int:
         "route": "cuda",
         "source": "agrl_torch/csrc/minsum.cu",
         "replaces": "agrl_tpu/ops/minsum.py:59",
-        "launches": k4_launches,
+        "launches": dense_launches,
         "max_abs_err": mrec["max_abs_err"],
         "ms": mrec["ms"],
         "plain_ms": mrec["plain_ms"],
@@ -1179,8 +1295,30 @@ def main() -> int:
         "library_max_abs_err": mrec["library_max_abs_err"],
         "shape": f"Q={MARS_Q} J=C={MARS_Q + MARS_G} fp32, the re-ranking's membership v "
                  f"({mrec['v_nonzero_share']:.3%} non-zero)",
+        "note": "the dense entry; re-ranking calls min_sum_sparse",
     }
-    print(json.dumps({"kernels": [kernel, triplet, min_sum]}))
+    min_sum_sparse = {
+        "name": "min_sum_sparse",
+        "route": "cuda",
+        "source": "agrl_torch/csrc/minsum_sparse.cu",
+        "replaces": "agrl_tpu/ops/minsum.py:59",
+        "launches": k4_launches,
+        "max_abs_err": srec["max_abs_err"],
+        "ms": srec["ms"],
+        "plain_ms": srec["plain_ms"],
+        "bound_ms": srec["bound_ms"],
+        "bound_by": srec["bound_by"],
+        "library_ms": srec["library_ms"],
+        "library_call": "(a.sum(1)[:, None] + b.sum(1)[None, :] - torch.cdist(a, b, p=1)) / 2",
+        "timing": "CUDA events around the whole call (counts, scans, one read-back, CSR fill, "
+                  "sort, accumulation), L2 flushed, mean of 5",
+        "host_order_max_abs_err": srec["host_order_max_abs_err"],
+        "host_order_bit_equal": srec["host_order_bit_equal"],
+        "two_calls_bit_equal": srec["two_calls_bit_equal"],
+        "terms_needed": srec["terms_needed"],
+        "shape": min_sum["shape"],
+    }
+    print(json.dumps({"kernels": [kernel, triplet, min_sum, min_sum_sparse]}))
     print(smi)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -11,6 +11,7 @@ import numpy as np
 import pytest
 import torch
 
+from agrl_torch.metrics.rerank import sparse_min_sum
 from agrl_torch.ops import distmat, graph_conv, minsum, rerank, triplet
 
 pytestmark = pytest.mark.cuda
@@ -82,6 +83,19 @@ def test_v2_matches_plain_on_bf16_rounded_inputs(cuda):
         graph_conv.round_bf16(t["f"]), graph_conv.round_bf16(t["adj"]), *args
     )
     torch.testing.assert_close(got, want, atol=2e-3, rtol=0)
+
+
+def test_kernel_within_fp32_of_float64(cuda):
+    """The 3xTF32 product keeps fp32 accuracy: within 1e-6 of max|output|
+    of the float64 plain version at the serving shape (ReLU-like features,
+    where fp32 itself is ~1e-7 away); one TF32 pass would be ~2e-4 away,
+    and the wgmma accumulators without the kernel's per-chunk promotion
+    ~3e-6."""
+    t = _to(cuda, _inputs(16, 56, 2048, seed=2, relu_like=True))
+    args = (t["f"], t["adj"], t["W"], t["scale"], t["bias"], t["mean"], t["var"])
+    got = graph_conv.graph_propagate(*args)
+    exact = graph_conv.graph_propagate_reference(*(x.double() for x in args))
+    assert float((got.double() - exact).abs().max()) <= 1e-6 * float(exact.abs().max())
 
 
 def test_kernel_rejects_what_it_does_not_take(cuda):
@@ -191,9 +205,75 @@ def test_min_sum_kernel_rejects_what_it_does_not_take(cuda):
         minsum.min_sum_kernel(a, a.cpu())
 
 
+def _sparse_operand(rng, rows, cols, density):
+    return (rng.rand(rows, cols) * (rng.rand(rows, cols) < density)).astype(np.float32)
+
+
+@pytest.mark.parametrize("Q,J,C,density", [
+    (40, 300, 257, 0.01),
+    (40, 300, 257, 0.1),
+    (7, 1000, 64, 0.5),
+    (3, 16384 + 300, 200, 0.05),  # J beyond one accumulation range (16,384 columns)
+])
+def test_min_sum_sparse_kernel_matches_plain(cuda, Q, J, C, density):
+    """Random densities with empty rows and columns; fp32 sums in another
+    order than the plain version's: atol 1e-5. Two calls are bit-equal
+    (no atomics in the sums), and each counts one launch."""
+    rng = np.random.RandomState(J + Q)
+    a, b = _sparse_operand(rng, Q, C, density), _sparse_operand(rng, J, C, density)
+    a[1], a[:, 3], b[5], b[:, 2] = 0, 0, 0, 0
+    a, b = torch.from_numpy(a).to(cuda), torch.from_numpy(b).to(cuda)
+    before = minsum.sparse_launches
+    got = minsum.min_sum_sparse(a, b)
+    torch.cuda.synchronize()
+    assert minsum.sparse_launches == before + 1
+    assert got.shape == (Q, J)
+    assert torch.equal(got, minsum.min_sum_sparse(a, b))
+    torch.testing.assert_close(got, minsum.min_sum_reference(a, b), atol=1e-5, rtol=0)
+
+
+def test_min_sum_sparse_kernel_on_re_ranking_v(cuda):
+    """Re-ranking's own membership matrix at N = 1,000 (Q = 200): the plain
+    version within 1e-5, the host algorithm's fp32 accumulation within
+    1e-6 (the kernels keep its order: ascending c), bit-equal across two
+    calls."""
+    rng = np.random.RandomState(11)
+    centres = rng.randn(50, 128)
+    feats = centres[rng.randint(0, 50, 1000)] + rng.randn(1000, 128) * 0.5
+    x = torch.from_numpy(feats.astype(np.float32)).to(cuda)
+    qf, gf = x[:200], x[200:]
+    dists = [distmat.compute_distmat(p, g, "euclidean") for p, g in ((qf, gf), (qf, qf), (gf, gf))]
+    v = rerank.expanded_membership(rerank.original_dist(*dists))
+    a, b = v[:200], v
+    got = minsum.min_sum_sparse(a, b)
+    assert torch.equal(got, minsum.min_sum_sparse(a, b))
+    torch.testing.assert_close(got, minsum.min_sum_reference(a, b), atol=1e-5, rtol=0)
+    host = sparse_min_sum(a.cpu().numpy(), b.cpu().numpy())
+    np.testing.assert_allclose(got.cpu().numpy(), host, atol=1e-6, rtol=0)
+
+
+def test_min_sum_sparse_kernel_rejects_what_it_does_not_take(cuda):
+    a = torch.rand(4, 16, device=cuda)
+    with pytest.raises(ValueError):  # CPU tensors: the kernel entry takes the card's only
+        minsum.min_sum_sparse_kernel(a.cpu(), a.cpu())
+    with pytest.raises(ValueError):  # b on the CPU
+        minsum.min_sum_sparse_kernel(a, a.cpu())
+    with pytest.raises(ValueError):  # C differs
+        minsum.min_sum_sparse_kernel(a, torch.rand(5, 17, device=cuda))
+    with pytest.raises(ValueError):  # float64
+        minsum.min_sum_sparse_kernel(a.double(), a.double())
+    with pytest.raises(ValueError):  # non-contiguous
+        minsum.min_sum_sparse_kernel(a[:, ::2], a[:, ::2])
+    for value in (-1e-3, float("nan")):
+        bad = a.clone()
+        bad[2, 3] = value
+        with pytest.raises(ValueError, match="non-negative"):
+            minsum.min_sum_sparse(a, bad)
+
+
 @pytest.mark.parametrize("metric", ["euclidean", "cosine"])
 def test_re_ranking_card_matches_cpu(cuda, metric):
-    """Identity-clustered features; one kernel launch per re-rank; the
+    """Identity-clustered features; one sparse min-sum call per re-rank; the
     JAX package's device-vs-host bar (2e-4). The neighbour sets must not
     differ between devices: this seed leaves every gap at a set boundary
     (between ranks k - 1 and k, k = 6, 11, 21) >= 3e-6, ~30x the fp32
@@ -206,10 +286,10 @@ def test_re_ranking_card_matches_cpu(cuda, metric):
     dists = [distmat.compute_distmat(x, y, metric) for x, y in ((qf, gf), (qf, qf), (gf, gf))]
     rows = torch.sort(rerank.original_dist(*dists), dim=1).values
     assert min(float((rows[:, k] - rows[:, k - 1]).min()) for k in (6, 11, 21)) >= 3e-6
-    before = minsum.launches
+    before = minsum.sparse_launches
     got = rerank.re_ranking_from_features(qf.to(cuda), gf.to(cuda), metric)
     torch.cuda.synchronize()
-    assert minsum.launches == before + 1
+    assert minsum.sparse_launches == before + 1
     want = rerank.re_ranking_from_features(qf, gf, metric)
     torch.testing.assert_close(got.cpu(), want, atol=2e-4, rtol=0)
 
@@ -236,9 +316,9 @@ def test_evaluator_host_scoring_re_ranks_on_the_card(cuda, kw, monkeypatch):
         raise AssertionError("the host re-ranking ran although the features are on the card")
 
     monkeypatch.setattr(ev, "re_ranking", no_host_re_ranking)
-    before = minsum.launches
+    before = minsum.sparse_launches
     out = evaluator.evaluate("query", "gallery", dist_metric="cosine", re_rank=True, **kw)
-    assert minsum.launches == before + 1
+    assert minsum.sparse_launches == before + 1
     if kw.get("return_distmat"):
         assert isinstance(out, np.ndarray) and out.shape == (12, 36) and np.isfinite(out).all()
     else:

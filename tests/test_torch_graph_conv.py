@@ -156,3 +156,81 @@ def test_graph_conv_layer_train_matches_jax():
     for ours, theirs in ((layer.bn.running_mean, "mean"), (layer.bn.running_var, "var")):
         np.testing.assert_allclose(ours.numpy(), np.asarray(want_stats[theirs]), rtol=1e-5,
                                    atol=1e-7)
+
+
+def _round_tf32(x: torch.Tensor) -> torch.Tensor:
+    """fp32 -> tf32 as cvt.rna.tf32.f32 does: round to nearest (ties away
+    from zero) on the low 13 mantissa bits, which become 0."""
+    bits = x.view(torch.int32)
+    return ((bits + 0x1000) & ~0x1FFF).view(torch.float32)
+
+
+def test_3xtf32_split_keeps_fp32_accuracy():
+    """Why the CUDA kernel's f @ W takes three tf32 products: with x = hi +
+    lo, hi = tf32(x), lo = tf32(x - hi), the products lo*hi + hi*lo +
+    hi*hi in fp32 stay within 2e-6 of max|f @ W| from float64 at the
+    serving shape (B*V = 16*56 rows, C = 2048), as an fp32 product does,
+    while one tf32 pass (hi*hi) is ~100x further off. CPU fp32 products
+    of tf32 values are exact, so this emulates the tensor cores' inputs;
+    their accumulation is another matter (next test)."""
+    rng = np.random.RandomState(5)
+    f = torch.from_numpy((rng.rand(16 * 56, 2048) * 2.0).astype(np.float32))
+    W = torch.from_numpy((rng.randn(2048, 2048) * 0.01).astype(np.float32))
+    exact = f.double() @ W.double()
+    scale = float(exact.abs().max())
+
+    def err(x):
+        return float((x.double() - exact).abs().max()) / scale
+
+    f_hi, W_hi = _round_tf32(f), _round_tf32(W)
+    f_lo, W_lo = _round_tf32(f - f_hi), _round_tf32(W - W_hi)
+    assert torch.equal(_round_tf32(f_hi), f_hi) and float((f - f_hi - f_lo).abs().max()) > 0
+    hi_hi = f_hi @ W_hi
+    three = (f_lo @ W_hi + f_hi @ W_lo) + hi_hi
+    assert err(three) <= 2e-6
+    assert err(f @ W) <= 2e-6
+    assert err(hi_hi) > 1e-4
+
+
+def _round_fp32_toward_zero(x: torch.Tensor) -> torch.Tensor:
+    """float64 -> fp32, truncating (round toward zero)."""
+    y = x.float()
+    over = y.double().abs() > x.abs()
+    y[over] = torch.nextafter(y[over], torch.zeros_like(y[over]))
+    return y.double()
+
+
+def test_3xtf32_truncating_accumulation_needs_promotion():
+    """Why the CUDA kernel promotes each K chunk's wgmma accumulators into
+    separate fp32 registers. Model of the tensor cores: each k8 step adds
+    its 8 exact products to the accumulator and truncates the sum to fp32.
+    On one accumulator, the 3 x 256 truncating steps of a C = 2048
+    reduction drift well past 2e-6 of max|f @ W| from float64 at the
+    serving shape; holding each 32-deep chunk (12 steps) in its own
+    accumulator and adding it to the total in fp32 (round to nearest)
+    stays within 2e-6, as an fp32 product does. 128 of the 2048 columns
+    keep this quick."""
+    rng = np.random.RandomState(5)
+    f = torch.from_numpy((rng.rand(16 * 56, 2048) * 2.0).astype(np.float32))
+    W = torch.from_numpy((rng.randn(2048, 128) * 0.01).astype(np.float32))
+    exact = f.double() @ W.double()
+    scale = float(exact.abs().max())
+    f_hi, W_hi = _round_tf32(f), _round_tf32(W)
+    f_lo, W_lo = _round_tf32(f - f_hi), _round_tf32(W - W_hi)
+    parts = [(x.double(), y.double()) for x, y in ((f_lo, W_hi), (f_hi, W_lo), (f_hi, W_hi))]
+
+    def product(chunk_steps):
+        acc = torch.zeros_like(exact)
+        total = torch.zeros_like(exact)
+        for step, k in enumerate(range(0, 2048, 8)):
+            for x, y in parts:  # the kernel's order: small terms first
+                acc = _round_fp32_toward_zero(acc + x[:, k:k + 8] @ y[k:k + 8])
+            if chunk_steps and (step + 1) % chunk_steps == 0:
+                total = (total + acc).float().double()
+                acc = torch.zeros_like(exact)
+        return total if chunk_steps else acc
+
+    one_accumulator = float((product(None) - exact).abs().max()) / scale
+    promoted = float((product(4) - exact).abs().max()) / scale
+    assert one_accumulator > 5e-6
+    assert promoted <= 2e-6
