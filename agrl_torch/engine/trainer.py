@@ -8,8 +8,9 @@ Behavioral parity with the reference train() iteration
   for the meter (train_vidreid_xent_htri.py:419).
 
 Everything runs on the model's device in fp32. The batch-hard triplet
-term goes through ops.triplet.hard_mine_fused: the CUDA kernel on the
-card (5 launches per step with the consistent loss's 5 heads).
+term goes through losses.batch_hard_triplet_heads: on the card, one
+forward and one backward launch of the mining kernels per step for all
+heads (the consistent loss's 5).
 """
 
 from __future__ import annotations
@@ -19,7 +20,11 @@ from functools import partial
 import torch
 
 from agrl_torch.data.transforms import preprocess_clips
-from agrl_torch.losses import batch_hard_triplet, cross_entropy_label_smooth, deep_supervision
+from agrl_torch.losses import (
+    batch_hard_triplet_heads,
+    cross_entropy_label_smooth,
+    deep_supervision,
+)
 
 
 def make_train_step(
@@ -54,7 +59,6 @@ def make_train_step(
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     xent_fn = partial(cross_entropy_label_smooth, epsilon=0.1 if label_smooth else 0.0)
-    htri_fn = partial(batch_hard_triplet, margin=margin, soft=soft_margin)
     device = next(model.parameters()).device
     step = 0
 
@@ -70,7 +74,7 @@ def make_train_step(
         model.train()
         outputs, features = model(x, adj, generator=generator, subclip_indices=subclip_indices)
         xent = deep_supervision(xent_fn, outputs, pids)
-        htri = deep_supervision(htri_fn, features, pids)
+        htri = batch_hard_triplet_heads(features, pids, margin=margin, soft=soft_margin)
         loss = lambda_xent * xent + lambda_htri * htri
 
         optimizer.zero_grad(set_to_none=True)

@@ -12,8 +12,11 @@ Parity targets in the reference:
     criterion over a list of heads.
 
 The distance + mining step is `ops.triplet.hard_mine_fused`: the CUDA
-kernel on the card, its plain version (`pairwise_euclidean` +
+kernels on the card, its plain version (`pairwise_euclidean` +
 `hard_mine`, re-exported here where agrl_tpu keeps them) on the CPU.
+`batch_hard_triplet_heads` is deep_supervision(batch_hard_triplet, ...)
+with every head mined in one kernel launch on the card
+(`ops.triplet.hard_mine_heads`).
 """
 
 from __future__ import annotations
@@ -21,11 +24,14 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
-from agrl_torch.ops.triplet import hard_mine, hard_mine_fused, pairwise_euclidean
+from agrl_torch.ops.triplet import hard_mine, hard_mine_fused, hard_mine_heads, pairwise_euclidean
 
 __all__ = [
     "cross_entropy_label_smooth",
     "batch_hard_triplet",
+    "batch_hard_triplet_heads",
+    "triplet_from_distances",
+    "mean_over_heads",
     "pairwise_euclidean",
     "hard_mine",
     "deep_supervision",
@@ -54,10 +60,38 @@ def batch_hard_triplet(
     soft: bool = True,
 ) -> torch.Tensor:
     """Batch-hard triplet loss. features (B, D); labels (B,)."""
-    d_ap, d_an = hard_mine_fused(features, labels)
+    return triplet_from_distances(*hard_mine_fused(features, labels), margin, soft).mean()
+
+
+def triplet_from_distances(d_ap, d_an, margin: float = 0.3, soft: bool = True):
+    """Per-anchor loss from the mined distances: softplus(d_ap - d_an), or
+    the margin hinge max(0, margin + d_ap - d_an)."""
     if soft:
-        return F.softplus(d_ap - d_an).mean()
-    return torch.clamp(margin + d_ap - d_an, min=0.0).mean()
+        return F.softplus(d_ap - d_an)
+    return torch.clamp(margin + d_ap - d_an, min=0.0)
+
+
+def batch_hard_triplet_heads(features, labels, margin: float = 0.3, soft: bool = True):
+    """deep_supervision(batch_hard_triplet, features, labels): the mean of
+    the batch-hard triplet loss over a list of (B, D) heads. CPU tensors
+    take exactly that call. CUDA tensors: one forward kernel launch mines
+    every head (and one backward launch gives their gradient), then each
+    head's mean over B, summed over heads in deep_supervision's order and
+    divided by H."""
+    if not isinstance(features, (list, tuple)):
+        features = [features]
+    if features[0].device.type == "cpu":
+        return deep_supervision(batch_hard_triplet, features, labels, margin=margin, soft=soft)
+    return mean_over_heads(triplet_from_distances(*hard_mine_heads(features, labels), margin, soft))
+
+
+def mean_over_heads(per_anchor: torch.Tensor) -> torch.Tensor:
+    """(H, B) per-anchor losses -> each head's mean over B, summed over the
+    heads in deep_supervision's order, divided by H."""
+    total = 0.0
+    for loss in per_anchor.mean(dim=1):
+        total = total + loss
+    return total / per_anchor.shape[0]
 
 
 def deep_supervision(criterion, xs, y, **kwargs) -> torch.Tensor:

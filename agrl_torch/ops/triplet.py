@@ -1,4 +1,4 @@
-"""Batch-hard triplet mining: the CUDA kernel and its plain twin.
+"""Batch-hard triplet mining: the CUDA kernels and their plain twins.
 
 Counterpart of agrl_tpu/ops/triplet.py (hard_mine_pallas), whose jnp
 twin is agrl_tpu/losses/__init__.py (pairwise_euclidean + hard_mine).
@@ -6,12 +6,15 @@ For features (B, D) and labels (B,), per anchor: the distance to the
 farthest sample of its label (self included) and to the nearest sample
 of another label, on Euclidean distances sqrt(max(d2, 1e-12)).
 
-On the card this op IS the hand-written kernel (csrc/triplet.cu); the
-plain version (`hard_mine_reference`) serves CPU tensors and checks the
-kernel. `hard_mine_fused` dispatches on the tensor's device: CPU -> the
-plain version under autograd, CUDA -> the kernel inside `_HardMine` (an
-autograd.Function whose backward scatters the gradient onto the two
-picked rows), or an exception — never a fallback.
+On the card this op IS the hand-written kernels (csrc/triplet.cu): one
+launch mines the H heads of a train step (`hard_mine_heads_kernel`), one
+more launch gives their gradient (`hard_mine_heads_backward_kernel`).
+The plain versions (`hard_mine_heads_reference`,
+`hard_mine_backward_reference`) serve CPU tensors and check the kernels.
+`hard_mine_heads` takes CUDA tensors to the kernels inside
+`_HardMineHeads` (an autograd.Function) and raises on any other device;
+`hard_mine_fused` takes CPU tensors to the plain version and CUDA ones
+to `hard_mine_heads` — never a fallback.
 """
 
 from __future__ import annotations
@@ -21,9 +24,14 @@ import functools
 
 import torch
 
-# Launches of the CUDA kernel (one per `hard_mine_kernel` call). A plain
-# integer: callers reset it to 0 and read it back.
+# Launches of the CUDA kernels: the forward (one per `hard_mine_heads_kernel`
+# call, whatever the number of heads) and the backward. Plain integers:
+# callers reset them to 0 and read them back.
 launches = 0
+backward_launches = 0
+
+# What the kernels take (csrc/triplet.cu checks the same limits)
+MAX_BATCH, MAX_DIM, MAX_HEADS = 256, 8192, 8
 
 D2_MIN = 1e-12  # the clamp under the square root, as the JAX package has it
 # the distance the clamp leaves; a pick at it carries no gradient (the
@@ -52,7 +60,7 @@ def hard_mine(dist: torch.Tensor, labels: torch.Tensor):
 
 
 def hard_mine_reference(features: torch.Tensor, labels: torch.Tensor):
-    """Plain version of the kernel: (d_ap, d_an, i_ap, i_an). The values
+    """Plain version of one head: (d_ap, d_an, i_ap, i_an). The values
     are differentiable; the indices take the lowest of tied entries."""
     dist = pairwise_euclidean(features)
     d_ap, d_an = hard_mine(dist, labels)
@@ -62,99 +70,205 @@ def hard_mine_reference(features: torch.Tensor, labels: torch.Tensor):
     return d_ap, d_an, i_ap, i_an
 
 
+def hard_mine_heads_reference(features, labels: torch.Tensor):
+    """Plain version of the forward kernel: `hard_mine_reference` per head,
+    stacked into (d_ap, d_an, i_ap, i_an), each (H, B)."""
+    per_head = [hard_mine_reference(f, labels) for f in features]
+    return tuple(torch.stack(x) for x in zip(*per_head))
+
+
+def hard_mine_backward_reference(features, d_ap, d_an, i_ap, i_an, g_ap, g_an):
+    """Plain version of the backward kernel: for each head h, the gradient
+    of dist(i, j) = |f_i - f_j| at each anchor's two picks, g (f_i - f_j) /
+    dist onto row i and its negative onto row j. With M[i, j] = g_i /
+    dist_ij at the picks, S = M + M^T: grad = rowsum(S) * f - S @ f, a dense
+    product, so the sum order is fixed (a scatter with atomics would vary
+    from run to run). A pick carries nothing where the clamp holds (dist at
+    its floor), where none exists (d_an = FLT_MAX for an anchor without
+    negatives) or at the anchor itself (its distance's gradient is 0); such
+    a pick writes its 0 onto the diagonal. g_ap or g_an None: zero. d_*,
+    i_*, g_* are (H, B); returns one (B, D) gradient per head."""
+    grads = []
+    for h, f in enumerate(features):
+        B = f.shape[0]
+        M = f.new_zeros(B, B)
+        rows = torch.arange(B, device=f.device)
+        for g, d, j in ((g_ap, d_ap, i_ap), (g_an, d_an, i_an)):
+            if g is not None:
+                live = (d[h] > _DIST_MIN) & (d[h] < _BIG) & (j[h] != rows)
+                M[rows, torch.where(live, j[h], rows)] = torch.where(
+                    live, g[h] / d[h], torch.zeros_like(d[h]))
+        S = M + M.t()
+        grads.append(S.sum(dim=1, keepdim=True) * f - S @ f)
+    return grads
+
+
 @functools.lru_cache(maxsize=None)
 def _lib() -> ctypes.CDLL:
     """csrc/triplet.cu, built at first use, with its C signatures."""
     from agrl_torch.kernels.build import load_library
 
     lib = load_library("triplet")
-    p, i = ctypes.c_void_p, ctypes.c_int
-    lib.hard_mine_forward.argtypes = [p, p, i, i, p, p, p, p, p]
-    lib.hard_mine_forward.restype = i
+    p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+    lib.hard_mine_heads_forward.argtypes = [p, i, p, i, i, p, p, p, p, p]
+    lib.hard_mine_heads_forward.restype = i
+    lib.hard_mine_heads_backward.argtypes = [p, p, i, i, i, p, p, p, p, p, p, f, p]
+    lib.hard_mine_heads_backward.restype = i
+    lib.hard_mine_empty_launch.argtypes = [p]
+    lib.hard_mine_empty_launch.restype = i
     lib.hard_mine_error_string.argtypes = [i]
     lib.hard_mine_error_string.restype = ctypes.c_char_p
-    lib.hard_mine_max_batch.restype = i
-    lib.hard_mine_max_dim.restype = i
+    limits = (lib.hard_mine_max_batch(), lib.hard_mine_max_dim(), lib.hard_mine_max_heads())
+    if limits != (MAX_BATCH, MAX_DIM, MAX_HEADS):
+        raise RuntimeError(f"csrc/triplet.cu takes (B, D, H) up to {limits}, the wrapper "
+                           f"{(MAX_BATCH, MAX_DIM, MAX_HEADS)}")
     return lib
 
 
-def hard_mine_kernel(features: torch.Tensor, labels: torch.Tensor):
-    """Run csrc/triplet.cu on CUDA tensors: (d_ap, d_an, i_ap, i_an), no
-    autograd. Raises on anything the kernel does not take."""
-    global launches
-    lib = _lib()
-    if features.dim() != 2 or labels.shape != features.shape[:1]:
+def _pointers(tensors):
+    return (ctypes.c_void_p * len(tensors))(*(t.data_ptr() for t in tensors))
+
+
+def _check(rc: int, what: str) -> None:
+    if rc != 0:
+        msg = _lib().hard_mine_error_string(rc).decode()
+        raise RuntimeError(f"{what} kernel launch failed: {msg} ({rc})")
+
+
+def _check_heads(features, labels: torch.Tensor):
+    """Raises ValueError on anything the kernels do not take; returns
+    (H, B, D)."""
+    H = len(features)
+    if not 0 < H <= MAX_HEADS:
+        raise ValueError(f"the kernel takes 1 to {MAX_HEADS} heads, got {H}")
+    f0 = features[0]
+    if f0.dim() != 2 or labels.shape != f0.shape[:1]:
         raise ValueError(f"features must be (B, D) and labels (B,), got "
-                         f"{tuple(features.shape)}, {tuple(labels.shape)}")
-    B, D = features.shape
-    b_max, d_max = lib.hard_mine_max_batch(), lib.hard_mine_max_dim()
-    if not (0 < B <= b_max and 0 < D <= d_max and D % 4 == 0):
-        raise ValueError(f"kernel takes 0 < B <= {b_max}, 0 < D <= {d_max}, D % 4 == 0; "
+                         f"{tuple(f0.shape)}, {tuple(labels.shape)}")
+    if any(f.shape != f0.shape or f.dtype != f0.dtype or f.device != f0.device
+           for f in features):
+        raise ValueError("the heads must share one (B, D), dtype and device")
+    B, D = f0.shape
+    if not (0 < B <= MAX_BATCH and 0 < D <= MAX_DIM and D % 4 == 0):
+        raise ValueError(f"kernel takes 0 < B <= {MAX_BATCH}, 0 < D <= {MAX_DIM}, D % 4 == 0; "
                          f"got B={B} D={D}")
-    dev = features.device
-    if features.dtype != torch.float32 or not features.is_contiguous():
-        raise ValueError(f"features must be contiguous float32, got {features.dtype}")
-    if features.data_ptr() % 16:
+    dev = f0.device
+    if dev.type != "cuda":
+        raise ValueError(f"the kernel takes CUDA tensors, got {dev}")
+    if f0.dtype != torch.float32 or not all(f.is_contiguous() for f in features):
+        raise ValueError(f"features must be contiguous float32, got {f0.dtype}")
+    if any(f.data_ptr() % 16 for f in features):
         raise ValueError("features must be 16-byte aligned")
     if labels.device != dev or labels.dtype != torch.int64 or not labels.is_contiguous():
         raise ValueError(f"labels must be contiguous int64 on {dev}, got {labels.dtype} "
                          f"on {labels.device}")
+    return H, B, D
 
-    d_ap = torch.empty(B, dtype=torch.float32, device=dev)
+
+def hard_mine_heads_kernel(features, labels: torch.Tensor):
+    """Run csrc/triplet.cu's forward on H CUDA heads of one (B, D) in one
+    launch: (d_ap, d_an, i_ap, i_an), each (H, B), no autograd. Raises on
+    anything the kernel does not take."""
+    global launches
+    features = list(features)
+    H, B, D = _check_heads(features, labels)
+    lib = _lib()
+    dev = labels.device
+    d_ap = torch.empty(H, B, dtype=torch.float32, device=dev)
     d_an = torch.empty_like(d_ap)
-    i_ap = torch.empty(B, dtype=torch.int64, device=dev)
+    i_ap = torch.empty(H, B, dtype=torch.int64, device=dev)
     i_an = torch.empty_like(i_ap)
     with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream(dev).cuda_stream
-        rc = lib.hard_mine_forward(
-            features.data_ptr(), labels.data_ptr(), B, D, d_ap.data_ptr(),
-            d_an.data_ptr(), i_ap.data_ptr(), i_an.data_ptr(), stream,
+        rc = lib.hard_mine_heads_forward(
+            _pointers(features), H, labels.data_ptr(), B, D, d_ap.data_ptr(), d_an.data_ptr(),
+            i_ap.data_ptr(), i_an.data_ptr(), torch.cuda.current_stream(dev).cuda_stream,
         )
-    if rc != 0:
-        msg = lib.hard_mine_error_string(rc).decode()
-        raise RuntimeError(f"hard_mine kernel launch failed: {msg} ({rc})")
+    _check(rc, "hard_mine_heads")
     launches += 1
     return d_ap, d_an, i_ap, i_an
 
 
-class _HardMine(torch.autograd.Function):
-    """(d_ap, d_an) of `mine(features, labels)`, which returns them with
-    the picked indices. Backward: the gradient of dist(i, j) = |f_i - f_j|
-    for each picked pair, g (f_i - f_j) / dist onto row i and its negative
-    onto row j; zero where the clamp holds (dist at its floor) or no pick
-    exists (d_an = FLT_MAX for an anchor without negatives). The TPU
-    kernel has no backward; this one is plain torch on the picks."""
+def hard_mine_heads_backward_kernel(features, d_ap, d_an, i_ap, i_an, g_ap, g_an):
+    """Run csrc/triplet.cu's backward on the forward's outputs and the
+    incoming gradients g_ap, g_an (H, B; None counts as zero) in one
+    launch: one (B, D) gradient per head."""
+    global backward_launches
+    features = list(features)
+    H, B, D = _check_heads(features, i_ap[0])
+    dev = features[0].device
+    # autograd may hand over an expanded (stride 0) gradient
+    g_ap, g_an = (None if g is None else g.contiguous() for g in (g_ap, g_an))
+    for name, t, dtype in (("d_ap", d_ap, torch.float32), ("d_an", d_an, torch.float32),
+                           ("i_ap", i_ap, torch.int64), ("i_an", i_an, torch.int64),
+                           ("g_ap", g_ap, torch.float32), ("g_an", g_an, torch.float32)):
+        if t is not None and (t.shape != (H, B) or t.dtype != dtype or t.device != dev
+                              or not t.is_contiguous()):
+            raise ValueError(f"{name} must be contiguous {dtype} ({H}, {B}) on {dev}")
+    lib = _lib()
+    grads = [torch.empty_like(f) for f in features]
+    with torch.cuda.device(dev):
+        rc = lib.hard_mine_heads_backward(
+            _pointers(features), _pointers(grads), H, B, D, d_ap.data_ptr(), d_an.data_ptr(),
+            i_ap.data_ptr(), i_an.data_ptr(), None if g_ap is None else g_ap.data_ptr(),
+            None if g_an is None else g_an.data_ptr(), _DIST_MIN,
+            torch.cuda.current_stream(dev).cuda_stream,
+        )
+    _check(rc, "hard_mine_heads_backward")
+    backward_launches += 1
+    return grads
+
+
+def empty_launch(device) -> None:
+    """One launch of an empty kernel on the current stream: the floor of
+    a launch, as a yardstick for the kernels' times."""
+    device = torch.device(device)
+    with torch.cuda.device(device):
+        _check(_lib().hard_mine_empty_launch(torch.cuda.current_stream(device).cuda_stream),
+               "empty")
+
+
+def hard_mine_kernel(features: torch.Tensor, labels: torch.Tensor):
+    """The forward kernel on one head: (d_ap, d_an, i_ap, i_an), each (B,)."""
+    return tuple(x[0] for x in hard_mine_heads_kernel([features], labels))
+
+
+class _HardMineHeads(torch.autograd.Function):
+    """(d_ap, d_an), each (H, B), of `mine(features, labels)`, which
+    returns them with the picked indices; the backward is
+    `mine_backward(features, d_ap, d_an, i_ap, i_an, g_ap, g_an)`, one
+    gradient per head. The kernels on the card, the plain twins in the
+    CPU tests."""
 
     @staticmethod
-    def forward(ctx, features, labels, mine):
+    def forward(ctx, labels, mine, mine_backward, *features):
         d_ap, d_an, i_ap, i_an = mine(features, labels)
-        ctx.save_for_backward(features, d_ap, d_an, i_ap, i_an)
+        ctx.mine_backward = mine_backward
+        ctx.save_for_backward(d_ap, d_an, i_ap, i_an, *features)
         return d_ap, d_an
 
     @staticmethod
     def backward(ctx, g_ap, g_an):
-        features, d_ap, d_an, i_ap, i_an = ctx.saved_tensors
-        # M[i, j] = g_i / dist_ij at each anchor's two picks (distinct
-        # columns: a positive is never a negative). With S = M + M^T,
-        # grad = rowsum(S) * f - S @ f: a dense product, so the sum order is
-        # fixed (a scatter with atomics would make it vary from run to run).
-        B = features.shape[0]
-        M = features.new_zeros(B, B)
-        rows = torch.arange(B, device=features.device)
-        for g, d, j in ((g_ap, d_ap, i_ap), (g_an, d_an, i_an)):
-            if g is not None:
-                live = (d > _DIST_MIN) & (d < _BIG)
-                M[rows, j] = torch.where(live, g / d, torch.zeros_like(d))
-        S = M + M.t()
-        return S.sum(dim=1, keepdim=True) * features - S @ features, None, None
+        d_ap, d_an, i_ap, i_an, *features = ctx.saved_tensors
+        grads = ctx.mine_backward(features, d_ap, d_an, i_ap, i_an, g_ap, g_an)
+        return (None, None, None, *grads)
+
+
+def hard_mine_heads(features, labels: torch.Tensor):
+    """(d_ap, d_an), each (H, B), differentiable in every head, from one
+    forward and one backward kernel launch (csrc/triplet.cu) on CUDA
+    tensors; any other device raises (CPU callers take the plain version
+    head by head)."""
+    features = list(features)
+    if features[0].device.type != "cuda":
+        raise ValueError(f"no hard_mine_heads for device {features[0].device}")
+    return _HardMineHeads.apply(labels, hard_mine_heads_kernel, hard_mine_heads_backward_kernel,
+                                *features)
 
 
 def hard_mine_fused(features: torch.Tensor, labels: torch.Tensor):
     """(d_ap, d_an), differentiable in `features`. CPU tensors: the plain
-    version. CUDA tensors: the kernel (csrc/triplet.cu), or an
-    exception."""
+    version. CUDA tensors: the kernels with H = 1, or an exception."""
     if features.device.type == "cpu":
         return hard_mine(pairwise_euclidean(features), labels)
-    if features.device.type != "cuda":
-        raise ValueError(f"no hard_mine_fused for device {features.device}")
-    return _HardMine.apply(features, labels, hard_mine_kernel)
+    d_ap, d_an = hard_mine_heads([features], labels)
+    return d_ap[0], d_an[0]

@@ -28,20 +28,25 @@ Phases (any failure exits non-zero before the result lines):
      (return_distmat, one sparse K4 call) and mars on the host path
      (device_rank=False), whose mAP must equal the device path's within
      1e-6;
-  8. the batch-hard mining kernel (K3) vs its plain version, TF32 off: the
-     train shape B=16 (4x4) D=2048, a ragged B=15 and B=64 (16x4); values
-     atol 1e-4, picks equal, feature gradients atol 1e-5; device time per
-     call (profiler) and CUDA-event call times (L2 flushed) of the kernel,
-     the plain version and torch.cdist;
+  8. the batch-hard mining kernels (K3: one forward launch for H heads,
+     one backward launch) vs their plain versions, TF32 off: H=5 B=16
+     D=2048 (the train step), H=1 B=15, H=5 B=64, H=3 B=256; values atol
+     1e-4, picks equal, the multi-head loss's gradients vs the plain
+     path's autograd atol 1e-5, two calls bit-equal; at the train shape,
+     device time per call (profiler) and CUDA-event call times (L2
+     flushed) of both kernels, their plain versions and batched
+     torch.cdist, an empty kernel's call, the bounds, and the whole
+     triplet term (forward and backward: the kernels, the per-head path,
+     the earlier design's structure) with its device operations;
   9. the train step at the paper config (VMGN, 625 classes, consistent
      loss: 5 heads), 4x4 batches from ClipLoader + RandomIdentitySamplerV1
      over synthetic 256x128 data (restricted, seq_len 8), flips, Adam lr
      1e-4 wd 5e-4, soft-margin triplet, no label smoothing: 20 steps with
-     finite losses, 5 K3 launches per step and falling xent; step time,
-     clips/s, peak memory, a profiler table of one step; then the evenly
-     Evaluator on the trained model;
+     finite losses, one K3 forward and one backward launch per step and
+     falling xent; step time, clips/s, peak memory, a profiler table of
+     one step; then the evenly Evaluator on the trained model;
  10. one train step's loss and gradients, kernel path vs plain path (only
-     the triplet op differs);
+     the multi-head triplet loss differs);
  11. one train step at full width, B=4 (2x2), card vs CPU;
  12. the dense min-plus kernel (K4, min_sum) vs its plain version at the
      JAX package's test shapes (37,53,100), (130,260,515), (8,8,8): atol
@@ -69,6 +74,12 @@ Phases (any failure exits non-zero before the result lines):
 then one {"serving": ...} line, one {"training": ...} line, one
 {"reranking": ...} line, one {"kernels": [...]} line, the card's name and
 power limit, and {"ok": true, "device": {...}} as the last line.
+
+    python3 chip_smoke.py --term-only ROOT
+
+measures only the triplet term of a train step (5 heads, forward and
+backward) as the agrl_torch package in ROOT computes it, e.g. an
+unpacked earlier commit, and prints one JSON line.
 """
 
 from __future__ import annotations
@@ -105,7 +116,8 @@ MARS_Q, MARS_G, MARS_IDS = 1980, 9330, 636  # MARS test split: query, gallery tr
 SEQ_LEN, HEIGHT, WIDTH, BATCH = 8, 256, 128, 16
 # device kernels of agrl_torch/csrc/graph_conv.cu, as the profiler names them
 GRAPH_KERNELS = ("gram_partial_kernel", "graph_blend_kernel", "graph_propagate_kernel")
-TRIPLET_KERNEL = "hard_mine_kernel"  # agrl_torch/csrc/triplet.cu
+# agrl_torch/csrc/triplet.cu, as the profiler names them: forward, backward
+TRIPLET_KERNELS = ("hard_mine_heads_kernel", "hard_mine_heads_backward_kernel")
 NUM_CLASSES = 625  # MARS training identities
 FEATURE_DIM = 2048  # the triplet heads' width
 TRAIN_STEPS, TRAIN_HEADS = 20, 5  # global, attention, 3 consistent-loss subclips
@@ -508,65 +520,215 @@ def phase_evaluator(torch, gc, ms, model, device):
     return r1, mAP, reranked
 
 
-def triplet_batch(torch, B, device, seed, K=4):
-    """P x K labels and features with no tied distances in a row."""
+def triplet_heads(torch, H, B, D, device, seed):
+    """H heads of (B, D) features over one P x K batch (the labels are
+    shared): identity centres plus noise, no tied distances in a row."""
     rng = np.random.RandomState(seed)
-    labels = np.repeat(np.arange(-(-B // K)), K)[:B]
-    feats = rng.randn(B, FEATURE_DIM) * 0.5 + labels[:, None] * 0.05
-    return (torch.from_numpy(feats.astype(np.float32)).to(device),
+    labels = np.repeat(np.arange(-(-B // 4)), 4)[:B]
+    heads = [(rng.randn(B, D) + rng.randn(labels[-1] + 1, D)[labels] * 0.3) * 0.5
+             for _ in range(H)]
+    return ([torch.from_numpy(h.astype(np.float32)).to(device) for h in heads],
             torch.from_numpy(labels.astype(np.int64)).to(device))
 
 
-def triplet_bound_ms(B, D):
-    """Least time for one mining call: the fp32 Gram's 2 B^2 D FLOPs (and
-    2 B D for the norms) over the fp32 peak vs features and labels in,
-    two distances and two int64 picks per anchor out, over the HBM rate."""
-    flops = 2.0 * B * B * D + 2.0 * B * D
-    nbytes = 4.0 * B * D + 8.0 * B + (4 + 4 + 8 + 8) * B
+def triplet_term(torch, loss_fn, heads, labels):
+    """One triplet term of a train step: loss_fn(heads, labels) forward and
+    its gradient onto every head (autograd.grad: nothing accumulates)."""
+    leaves = [h.clone().requires_grad_(True) for h in heads]
+    return lambda: torch.autograd.grad(loss_fn(leaves, labels), leaves)
+
+
+def measure_term(torch, run, flush, n=20):
+    """(device ms per call, device operations per call, event-timed ms with
+    the L2 flushed, profiler rows) of run(): the device time and the
+    kernels, memsets and copies it launched, summed over n back-to-back
+    calls (torch.profiler) over n; then CUDA events around one call, host
+    dispatch included."""
+    from torch.profiler import ProfilerActivity, profile
+
+    run()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(n):
+            run()
+        torch.cuda.synchronize()
+    rows = device_rows(prof, n)
+    return (sum(r[1] for r in rows), sum(r[2] for r in rows), time_cuda(torch, run, flush), rows)
+
+
+def plain_triplet_heads(tri, losses_mod):
+    """The multi-head loss's plain path: deep_supervision over the plain
+    mining (pairwise_euclidean + hard_mine) of each head."""
+    def one(f, y, margin, soft):
+        return losses_mod.triplet_from_distances(
+            *tri.hard_mine(tri.pairwise_euclidean(f), y), margin, soft).mean()
+
+    return lambda xs, y, margin=0.3, soft=True: losses_mod.deep_supervision(
+        one, xs, y, margin=margin, soft=soft)
+
+
+def triplet_bound_ms(H, B, D, s_nnz=None):
+    """Least time for one forward call over H heads: the fp32 Grams' 2 B^2
+    D FLOPs (and 2 B D for the norms) per head over the fp32 peak vs every
+    head and the labels in, two distances and two int64 picks per anchor
+    out, over the HBM rate. With s_nnz (the non-zeros of the H S matrices
+    of this run's picks), the backward's: (s_nnz + H B) D FMAs (S @ f and
+    rowsum(S) * f, the work the picks need) vs the heads and the forward's
+    outputs and two incoming gradients in, the gradients out. Returns (ms,
+    bound_by)."""
+    if s_nnz is None:
+        flops = H * (2.0 * B * B * D + 2.0 * B * D)
+        nbytes = H * 4.0 * B * D + 8.0 * B + H * (4 + 4 + 8 + 8) * B
+    else:
+        flops = 2.0 * (s_nnz + H * B) * D
+        nbytes = H * 8.0 * B * D + H * (4 + 4 + 8 + 8 + 4 + 4) * B
     t_ops, t_mem = flops / PEAK_FP32_FLOPS, nbytes / PEAK_HBM_BYTES
     return max(t_ops, t_mem) * 1e3, ("operations" if t_ops >= t_mem else "bytes")
 
 
-def phase_triplet(torch, tri, device, flush):
-    """K3 vs its plain version on the card; returns the train-shape record."""
+def s_nonzeros(torch, tri, d_ap, d_an, i_ap, i_an):
+    """Non-zeros of S = M + M^T over the heads, for the picks that carry a
+    gradient."""
+    H, B = d_ap.shape
+    M = torch.zeros(H, B, B, dtype=torch.bool, device=d_ap.device)
+    rows = torch.arange(B, device=d_ap.device).expand(H, B)
+    heads = torch.arange(H, device=d_ap.device)[:, None].expand(H, B)
+    for d, j in ((d_ap, i_ap), (d_an, i_an)):
+        live = (d > tri._DIST_MIN) & (d < tri._BIG) & (j != rows)
+        M[heads[live], rows[live], j[live]] = True
+    return int((M | M.transpose(1, 2)).sum())
+
+
+def phase_triplet(torch, tri, losses_mod, device, flush):
+    """K3 vs its plain versions on the card; returns the train-shape record."""
+    plain_loss = plain_triplet_heads(tri, losses_mod)
     rec = {}
-    for label, B, seed in (("train B=16 (4x4)", 16, 0), ("ragged B=15", 15, 1),
-                           ("B=64 (16x4)", 64, 2)):
-        f, labels = triplet_batch(torch, B, device, seed)
-        d_ap, d_an, i_ap, i_an = tri.hard_mine_kernel(f, labels)
-        w_ap, w_an, wi_ap, wi_an = tri.hard_mine_reference(f, labels)
-        grads = []
-        for fn in (tri.hard_mine_fused, lambda x, y: tri.hard_mine(tri.pairwise_euclidean(x), y)):
-            x = f.clone().requires_grad_(True)
-            a, n = fn(x, labels)
-            torch.nn.functional.softplus(a - n).mean().backward()
-            grads.append(x.grad)
+    for H, B in ((TRAIN_HEADS, BATCH), (1, 15), (TRAIN_HEADS, 64), (3, 256)):
+        heads, labels = triplet_heads(torch, H, B, FEATURE_DIM, device, seed=B)
+        got = tri.hard_mine_heads_kernel(heads, labels)
+        again = tri.hard_mine_heads_kernel(heads, labels)
+        want = tri.hard_mine_heads_reference(heads, labels)
+        kernel_term = triplet_term(torch, losses_mod.batch_hard_triplet_heads, heads, labels)
+        grads, grads_again = kernel_term(), kernel_term()
+        plain_grads = triplet_term(torch, plain_loss, heads, labels)()
         torch.cuda.synchronize()
-        err = max(float((d_ap - w_ap).abs().max()), float((d_an - w_an).abs().max()))
-        picks = bool(torch.equal(i_ap, wi_ap) and torch.equal(i_an, wi_an))
-        gerr = float((grads[0] - grads[1]).abs().max())
-        log(f"[triplet] {label} D={FEATURE_DIM}: max|kernel - plain| = {err:.3e} (atol 1e-4), "
-            f"picks equal: {picks}, gradient max|diff| = {gerr:.3e} (atol 1e-5)")
-        if not (err <= 1e-4 and picks and gerr <= 1e-5):
-            raise AssertionError(f"hard_mine kernel disagrees with plain at {label}")
-        if B == 16:
-            calls = dict(
-                kernel=lambda: tri.hard_mine_kernel(f, labels),
-                plain=lambda: tri.hard_mine(tri.pairwise_euclidean(f), labels),
-                library=lambda: torch.cdist(f, f),
-            )
-            rec = dict(max_abs_err=err, grad_max_abs_err=gerr)
-            for name, fn in calls.items():
-                prefix = "" if name == "kernel" else f"{name}_"
-                rec[f"{prefix}ms"] = device_ms_per_call(torch, fn)
-                rec[f"{prefix}call_ms"] = time_cuda(torch, fn, flush)
-            rec["bound_ms"], rec["bound_by"] = triplet_bound_ms(B, FEATURE_DIM)
-    log(f"[triplet] train shape, device time per call: kernel {rec['ms']:.4f} ms, plain "
-        f"{rec['plain_ms']:.4f} ms, torch.cdist(f, f) alone {rec['library_ms']:.4f} ms, bound "
-        f"{rec['bound_ms']:.6f} ms ({rec['bound_by']}); event-timed calls with the L2 flushed "
-        f"(host dispatch included): kernel {rec['call_ms']:.4f} ms, plain "
-        f"{rec['plain_call_ms']:.4f} ms, cdist {rec['library_call_ms']:.4f} ms")
+        err = max(float((got[0] - want[0]).abs().max()), float((got[1] - want[1]).abs().max()))
+        picks = bool(torch.equal(got[2], want[2]) and torch.equal(got[3], want[3]))
+        gerr = max(float((a - b).abs().max()) for a, b in zip(grads, plain_grads))
+        same = (all(torch.equal(a, b) for a, b in zip(got, again))
+                and all(torch.equal(a, b) for a, b in zip(grads, grads_again)))
+        log(f"[triplet] H={H} B={B} D={FEATURE_DIM}: max|kernel - plain| = {err:.3e} (atol "
+            f"1e-4), picks equal: {picks}; gradients of the multi-head loss (backward "
+            f"kernel) vs the plain path's autograd max|diff| = {gerr:.3e} (atol 1e-5); two "
+            f"calls bit-equal (forward, backward): {same}")
+        if not (err <= 1e-4 and picks and gerr <= 1e-5 and same):
+            raise AssertionError(f"hard_mine kernels disagree with plain at H={H} B={B}")
+        if (H, B) != (TRAIN_HEADS, BATCH):
+            continue
+        gen = torch.Generator(device=device).manual_seed(0)
+        g_ap, g_an = (torch.rand(H, B, generator=gen, device=device) / B for _ in range(2))
+        stacked = torch.stack(heads)
+        calls = dict(
+            kernel=lambda: tri.hard_mine_heads_kernel(heads, labels),
+            backward=lambda: tri.hard_mine_heads_backward_kernel(heads, *got, g_ap, g_an),
+            plain=lambda: tri.hard_mine_heads_reference(heads, labels),
+            plain_backward=lambda: tri.hard_mine_backward_reference(heads, *got, g_ap, g_an),
+            library=lambda: torch.cdist(stacked, stacked),
+        )
+        rec = dict(max_abs_err=err, grad_max_abs_err=gerr, two_calls_bit_equal=same)
+        for name, fn in calls.items():
+            prefix = "" if name == "kernel" else f"{name}_"
+            rec[f"{prefix}ms"] = device_ms_per_call(torch, fn)
+            rec[f"{prefix}call_ms"] = time_cuda(torch, fn, flush)
+        rec["launch_floor_ms"] = time_cuda(torch, lambda: tri.empty_launch(device), flush)
+        rec["bound_ms"], rec["bound_by"] = triplet_bound_ms(H, B, FEATURE_DIM)
+        nnz = s_nonzeros(torch, tri, *got)
+        rec["backward_bound_ms"], rec["backward_bound_by"] = triplet_bound_ms(
+            H, B, FEATURE_DIM, s_nnz=nnz)
+        # the whole triplet term of a step, forward and backward: the
+        # kernels, the per-head path through them (H = 1 each) and the
+        # earlier design's structure (a forward launch per head, the plain
+        # backward)
+        def earlier_design(xs, y):
+            total = 0.0
+            for x in xs:
+                d_ap, d_an = tri._HardMineHeads.apply(y, tri.hard_mine_heads_kernel,
+                                                      tri.hard_mine_backward_reference, x)
+                total = total + losses_mod.triplet_from_distances(d_ap[0], d_an[0]).mean()
+            return total / len(xs)
+
+        for name, fn in (("term", losses_mod.batch_hard_triplet_heads),
+                         ("per_head_term", lambda xs, y: losses_mod.deep_supervision(
+                             losses_mod.batch_hard_triplet, xs, y)),
+                         ("parent_term", earlier_design)):
+            run = triplet_term(torch, fn, heads, labels)
+            rec[f"{name}_ms"], rec[f"{name}_kernels"], rec[f"{name}_call_ms"], rows = \
+                measure_term(torch, run, flush)
+            if name == "term":
+                rec["term_rows"] = rows
+        rec["s_nonzeros"] = nnz
+    log(f"[triplet] train shape H={TRAIN_HEADS} B={BATCH} D={FEATURE_DIM}, device time per "
+        f"call: forward kernel {rec['ms']:.4f} ms (bound {rec['bound_ms']:.6f} ms, "
+        f"{rec['bound_by']}), backward kernel {rec['backward_ms']:.4f} ms (bound "
+        f"{rec['backward_bound_ms']:.6f} ms, {rec['backward_bound_by']}; S has "
+        f"{rec['s_nonzeros']} non-zeros), plain {rec['plain_ms']:.4f} + "
+        f"{rec['plain_backward_ms']:.4f} ms, batched torch.cdist {rec['library_ms']:.4f} ms; "
+        f"event-timed calls with the L2 flushed (host dispatch included): forward "
+        f"{rec['call_ms']:.4f} ms, backward {rec['backward_call_ms']:.4f} ms, plain "
+        f"{rec['plain_call_ms']:.4f} + {rec['plain_backward_call_ms']:.4f} ms, cdist "
+        f"{rec['library_call_ms']:.4f} ms, an empty kernel {rec['launch_floor_ms']:.4f} ms")
+    for name, what in (("term", "batch_hard_triplet_heads (the kernels)"),
+                       ("per_head_term", "deep_supervision(batch_hard_triplet) (the kernels "
+                                         "at H = 1, per head)"),
+                       ("parent_term", "the earlier design's structure (a forward launch "
+                                       "per head, the plain backward)")):
+        log(f"[triplet] triplet term, forward and backward over {TRAIN_HEADS} heads, {what}: "
+            f"device {rec[name + '_ms']:.4f} ms in {rec[name + '_kernels']} device operations; "
+            f"event-timed {rec[name + '_call_ms']:.4f} ms")
+    for name, ms, count in rec.pop("term_rows")[:12]:
+        log(f"[triplet]   {ms:8.4f} ms x{count:<3d} {name[:90]}")
     return rec
+
+
+def main_term_only(root: Path) -> int:
+    """`chip_smoke.py --term-only ROOT`: the triplet term of one train step,
+    forward and backward over 5 heads of (16, 2048), as the agrl_torch
+    package found in ROOT (e.g. an unpacked earlier commit) computes it:
+    batch_hard_triplet_heads where the package has it, else
+    deep_supervision(batch_hard_triplet, ...); prints one JSON line."""
+    if not (root / "agrl_torch" / "csrc" / "triplet.cu").exists():
+        print(f"chip_smoke.py: no agrl_torch package in {root}", file=sys.stderr)
+        return 2
+    import torch
+
+    if not torch.cuda.is_available():
+        print("chip_smoke.py: torch.cuda.is_available() is False", file=sys.stderr)
+        return 3
+    sys.path.insert(0, str(root))
+    from agrl_torch import losses
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    device = torch.device("cuda")
+    heads, labels = triplet_heads(torch, TRAIN_HEADS, BATCH, FEATURE_DIM, device, 0)
+    def per_head(xs, y):
+        return losses.deep_supervision(losses.batch_hard_triplet, xs, y)
+
+    if hasattr(losses, "batch_hard_triplet_heads"):
+        name, loss = "batch_hard_triplet_heads", losses.batch_hard_triplet_heads
+    else:
+        name, loss = "deep_supervision(batch_hard_triplet)", per_head
+    dev_ms, ops, call_ms, rows = measure_term(
+        torch, triplet_term(torch, loss, heads, labels), L2Flusher(torch, device))
+    smi = nvidia_smi_line()
+    log(f"[term] {root}: {name} over {TRAIN_HEADS} heads of ({BATCH}, {FEATURE_DIM}), forward "
+        f"and backward: device {dev_ms:.4f} ms in {ops} device operations; event-timed "
+        f"{call_ms:.4f} ms (L2 flushed); {smi}")
+    for name, ms, count in rows[:25]:
+        log(f"[term]   {ms:8.4f} ms x{count:<3d} {name[:90]}")
+    print(json.dumps({"triplet_term": dict(
+        root=str(root), loss=name, device_ms=dev_ms, device_ops=ops, call_ms=call_ms, rows=rows,
+        card=smi, kind=torch.cuda.get_device_name(0))}))
+    return 0
 
 
 def colour_clips(n, seed):
@@ -607,9 +769,10 @@ def grads_of(model):
             if p.grad is not None}
 
 
-def profile_train_step(torch, tri, step, batch, generator):
+def profile_train_step(torch, step, batch, generator):
     """Device time by kernel over one train step (torch.profiler), the
-    busy share of its event-timed window, and K3's share."""
+    busy share of its event-timed window, and K3's share (its forward and
+    backward kernels)."""
     from torch.profiler import ProfilerActivity, profile
 
     imgs, pids, _, adjs = batch
@@ -622,15 +785,21 @@ def profile_train_step(torch, tri, step, batch, generator):
     window_ms = start.elapsed_time(end)
     rows = device_rows(prof, 1)
     busy_ms = sum(r[1] for r in rows)
-    k3 = [r for r in rows if TRIPLET_KERNEL in r[0]]
-    k3_ms = sum(r[1] for r in k3)
+    k3 = {k: [r for r in rows if f"{k}(" in r[0]] for k in TRIPLET_KERNELS}
+    k3_ms = {k: sum(r[1] for r in v) for k, v in k3.items()}
+    k3_n = {k: sum(r[2] for r in v) for k, v in k3.items()}
+    fwd, bwd = TRIPLET_KERNELS
+    total = k3_ms[fwd] + k3_ms[bwd]
     log(f"[profile] one train step: device busy {busy_ms:.2f} ms, "
-        f"{busy_ms / window_ms:.1%} of the {window_ms:.2f} ms window; "
-        f"hard_mine {k3_ms:.4f} ms x{sum(r[2] for r in k3)} ({k3_ms / max(busy_ms, 1e-9):.3%})")
+        f"{busy_ms / window_ms:.1%} of the {window_ms:.2f} ms window; hard_mine forward "
+        f"{k3_ms[fwd]:.4f} ms x{k3_n[fwd]}, backward {k3_ms[bwd]:.4f} ms x{k3_n[bwd]} "
+        f"({total / max(busy_ms, 1e-9):.3%})")
     for name, ms, count in rows[:15]:
         log(f"[profile]   {ms:8.3f} ms x{count:<4d} {name[:90]}")
     return dict(device_busy_ms=busy_ms, window_ms=window_ms, busy_share=busy_ms / window_ms,
-                hard_mine_ms=k3_ms, hard_mine_share=k3_ms / max(busy_ms, 1e-9), top=rows[:15])
+                hard_mine_ms=k3_ms[fwd], hard_mine_launches=k3_n[fwd],
+                hard_mine_backward_ms=k3_ms[bwd], hard_mine_backward_launches=k3_n[bwd],
+                hard_mine_share=total / max(busy_ms, 1e-9), top=rows[:15])
 
 
 def phase_train(torch, tri, gc, device):
@@ -677,7 +846,7 @@ def phase_train(torch, tri, gc, device):
 
         torch.cuda.reset_peak_memory_stats()
         history, times = [], []
-        tri.launches = 0  # main path starts here
+        tri.launches = tri.backward_launches = 0  # main path starts here
         for i, (imgs, pids, _, adjs) in enumerate(batches):
             torch.cuda.synchronize()
             t0 = time.perf_counter()
@@ -688,12 +857,12 @@ def phase_train(torch, tri, gc, device):
             history.append(row)
             log(f"[train] step {i + 1:2d}: loss {row['loss']:.4f} xent {row['xent_loss']:.4f} "
                 f"htri {row['htri_loss']:.4f} top1 {row['top1']:.3f} ({times[-1]:.1f} ms)")
-        launches = tri.launches  # main path ends here
+        launches, backward_launches = tri.launches, tri.backward_launches  # main path ends here
         peak_gb = torch.cuda.max_memory_allocated() / 1e9
 
-        if launches != TRAIN_HEADS * TRAIN_STEPS:
-            raise AssertionError(f"{launches} hard_mine launches, want "
-                                 f"{TRAIN_HEADS} per step x {TRAIN_STEPS}")
+        if not launches == backward_launches == TRAIN_STEPS:
+            raise AssertionError(f"{launches} hard_mine forward and {backward_launches} backward "
+                                 f"launches, want one each per step x {TRAIN_STEPS}")
         if not all(math.isfinite(v) for row in history for v in row.values()):
             raise AssertionError("a train metric is not finite")
         first = float(np.mean([r["xent_loss"] for r in history[:5]]))
@@ -706,8 +875,9 @@ def phase_train(torch, tri, gc, device):
         q1, med, q3 = (float(v) for v in np.percentile(steady, [25, 50, 75]))
         log(f"[train] step (device synced): median {med:.2f} ms (quartiles {q1:.2f}-{q3:.2f}) "
             f"over steps 4-{TRAIN_STEPS}, {BATCH / med * 1e3:.1f} clips/s; peak device memory "
-            f"{peak_gb:.2f} GB; hard_mine launches {launches}")
-        prof = profile_train_step(torch, tri, step, batches[0], gen)
+            f"{peak_gb:.2f} GB; hard_mine launches {launches} forward, {backward_launches} "
+            f"backward ({TRAIN_HEADS} heads each)")
+        prof = profile_train_step(torch, step, batches[0], gen)
 
         gc.launches = 0
         r1, mAP = Evaluator(model, test_sample="evenly", device=device).evaluate(
@@ -718,7 +888,7 @@ def phase_train(torch, tri, gc, device):
         if not (0.0 <= r1 <= 1.0 and 0.0 <= mAP <= 1.0) or gc.launches == 0:
             raise AssertionError(f"evaluator after training: rank-1 {r1}, mAP {mAP}")
         log(f"[train] evenly evaluator on the trained model: rank-1 {r1:.4f}, mAP {mAP:.4f}")
-    return model, launches, dict(
+    return model, (launches, backward_launches), dict(
         steps=TRAIN_STEPS, history=history, step_ms=med, step_q1_ms=q1, step_q3_ms=q3,
         step_all_ms=times, clips_per_s=BATCH / med * 1e3, peak_mem_gb=peak_gb,
         xent_first5=first, xent_last5=last, profile=prof, eval_rank1=r1, eval_mAP=mAP,
@@ -727,8 +897,11 @@ def phase_train(torch, tri, gc, device):
 
 def phase_train_paths(torch, tri, losses_mod, model):
     """One train step, kernel path vs plain path on the same batch, flips
-    and subclips (only the triplet op differs), with deterministic cuDNN
-    so that nothing else changes between the two."""
+    and subclips (only the multi-head triplet loss differs: its plain path
+    mines each head with pairwise_euclidean + hard_mine), with
+    deterministic cuDNN so that nothing else changes between the two."""
+    from agrl_torch.engine import trainer as trainer_mod
+
     step = frozen_step(torch, model)
     imgs = colour_clips(BATCH, 40)
     pids = np.repeat(np.arange(BATCH // 4), 4)
@@ -739,11 +912,11 @@ def phase_train_paths(torch, tri, losses_mod, model):
     try:
         kern = step(imgs, pids, adjs, flip=flip, subclip_indices=subs)
         g_kern = grads_of(model)
-        losses_mod.hard_mine_fused = lambda f, y: tri.hard_mine(tri.pairwise_euclidean(f), y)
+        trainer_mod.batch_hard_triplet_heads = plain_triplet_heads(tri, losses_mod)
         try:
             plain = step(imgs, pids, adjs, flip=flip, subclip_indices=subs)
         finally:
-            losses_mod.hard_mine_fused = tri.hard_mine_fused
+            trainer_mod.batch_hard_triplet_heads = losses_mod.batch_hard_triplet_heads
         g_plain = grads_of(model)
     finally:
         torch.backends.cudnn.deterministic = False
@@ -1160,7 +1333,7 @@ def main() -> int:
     flush = L2Flusher(torch, device)
     krec = phase_kernels(torch, gc, device, flush)
     # 8. K3 vs plain (run here, beside the other kernel checks)
-    trec = phase_triplet(torch, tri, device, flush)
+    trec = phase_triplet(torch, tri, losses_mod, device, flush)
     # 12. K4 vs plain at the JAX package's test shapes
     phase_minsum_shapes(torch, ms, device)
 
@@ -1197,7 +1370,7 @@ def main() -> int:
     # 9. the train step at the paper config, then the evaluator
     del fx, model
     torch.cuda.empty_cache()
-    trained, tri_launches, training = phase_train(torch, tri, gc, device)
+    trained, (tri_launches, tri_backward_launches), training = phase_train(torch, tri, gc, device)
 
     # 10. kernel path vs plain path, one train step
     training["step_kernel_vs_plain_loss_rel_err"], training[
@@ -1254,24 +1427,50 @@ def main() -> int:
     }
     triplet = {
         "name": "hard_mine",
+        "kernels": list(TRIPLET_KERNELS),
         "route": "cuda",
         "source": "agrl_torch/csrc/triplet.cu",
         "replaces": "agrl_tpu/ops/triplet.py:48",
+        "heads": TRAIN_HEADS,
         "launches": tri_launches,
+        "backward_launches": tri_backward_launches,
         "max_abs_err": trec["max_abs_err"],
+        "grad_max_abs_err": trec["grad_max_abs_err"],
+        "two_calls_bit_equal": trec["two_calls_bit_equal"],
         "ms": trec["ms"],
         "plain_ms": trec["plain_ms"],
         "bound_ms": trec["bound_ms"],
         "bound_by": trec["bound_by"],
+        "backward_ms": trec["backward_ms"],
+        "plain_backward_ms": trec["plain_backward_ms"],
+        "backward_bound_ms": trec["backward_bound_ms"],
+        "backward_bound_by": trec["backward_bound_by"],
         "library_ms": trec["library_ms"],
-        "library_call": "torch.cdist(f, f): the distance matrix alone",
-        "timing": "device time per call (torch.profiler, L2 warm); *_call_ms: CUDA events "
-                  "around one call with the L2 flushed, host dispatch included",
+        "library_call": "torch.cdist(F, F) on the stacked (5, 16, 2048) heads: the distances "
+                        "alone",
+        "term_ms": trec["term_ms"],
+        "term_kernels": trec["term_kernels"],
+        "term_call_ms": trec["term_call_ms"],
+        "per_head_term_ms": trec["per_head_term_ms"],
+        "per_head_term_kernels": trec["per_head_term_kernels"],
+        "per_head_term_call_ms": trec["per_head_term_call_ms"],
+        "parent_term_ms": trec["parent_term_ms"],
+        "parent_term_kernels": trec["parent_term_kernels"],
+        "parent_term_call_ms": trec["parent_term_call_ms"],
+        "parent_term_note": "the earlier design's structure rebuilt in this run: one forward "
+                            "launch per head (this tree's kernel at H = 1) and the plain "
+                            "backward",
+        "launch_floor_ms": trec["launch_floor_ms"],
+        "timing": "ms, backward_ms, plain_*, library_ms, *term_ms: device time per call "
+                  "(torch.profiler, L2 warm); *_call_ms, launch_floor_ms: CUDA events around "
+                  "one call with the L2 flushed, host dispatch included; *term*: loss forward "
+                  "and backward over the 5 heads; *_kernels: device operations per term",
         "call_ms": trec["call_ms"],
+        "backward_call_ms": trec["backward_call_ms"],
         "plain_call_ms": trec["plain_call_ms"],
+        "plain_backward_call_ms": trec["plain_backward_call_ms"],
         "library_call_ms": trec["library_call_ms"],
-        "grad_max_abs_err": trec["grad_max_abs_err"],
-        "shape": f"B=16 (4x4) D={FEATURE_DIM} fp32",
+        "shape": f"H={TRAIN_HEADS} B={BATCH} D={FEATURE_DIM} fp32",
     }
     min_sum = {
         "name": "min_sum",
@@ -1328,4 +1527,9 @@ def main() -> int:
 
 
 if __name__ == "__main__":
+    if sys.argv[1:2] == ["--term-only"] and len(sys.argv) == 3:
+        sys.exit(main_term_only(Path(sys.argv[2]).resolve()))
+    if len(sys.argv) > 1:
+        print("usage: chip_smoke.py [--term-only ROOT]", file=sys.stderr)
+        sys.exit(2)
     sys.exit(main())

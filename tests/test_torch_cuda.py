@@ -161,8 +161,12 @@ def test_hard_mine_kernel_self_distance_is_exact(cuda):
 def test_hard_mine_kernel_rejects_what_it_does_not_take(cuda):
     f, labels = _triplet_batch(16, 2048, cuda)
     with pytest.raises(ValueError):  # B above the kernel's maximum
-        triplet.hard_mine_kernel(torch.zeros(1025, 8, device=cuda),
-                                 torch.zeros(1025, dtype=torch.int64, device=cuda))
+        triplet.hard_mine_kernel(torch.zeros(257, 8, device=cuda),
+                                 torch.zeros(257, dtype=torch.int64, device=cuda))
+    with pytest.raises(ValueError):  # more heads than the kernel takes
+        triplet.hard_mine_heads_kernel([f] * 9, labels)
+    with pytest.raises(ValueError):  # heads of different shapes
+        triplet.hard_mine_heads_kernel([f, f[:, :1024].contiguous()], labels)
     with pytest.raises(ValueError):  # D not a multiple of 4
         triplet.hard_mine_kernel(f[:, :2046].contiguous(), labels)
     with pytest.raises(ValueError):  # float64
@@ -173,6 +177,90 @@ def test_hard_mine_kernel_rejects_what_it_does_not_take(cuda):
         triplet.hard_mine_kernel(f, labels.cpu())
     with pytest.raises(ValueError):  # labels of another length
         triplet.hard_mine_kernel(f, labels[:8])
+
+
+def _heads_batch(H, B, D, dev, seed=0, K=4, scale=0.5):
+    """H heads over one P x K batch: identity centres plus noise, no tied
+    distances in a row, norms that do not grow with the label."""
+    rng = np.random.RandomState(seed)
+    labels = np.repeat(np.arange(-(-B // K)), K)[:B]
+    heads = [(rng.randn(B, D) + rng.randn(labels[-1] + 1, D)[labels] * 0.3) * scale
+             for _ in range(H)]
+    return ([torch.from_numpy(h.astype(np.float32)).to(dev) for h in heads],
+            torch.from_numpy(labels.astype(np.int64)).to(dev))
+
+
+@pytest.mark.parametrize("H,B,D", [
+    (5, 16, 2048),   # the train step: one chunk per block
+    (1, 15, 2048),   # ragged band
+    (5, 64, 2048),   # 4 bands, a 3-chunk ring
+    (3, 256, 2048),  # the largest B: 16 bands, 10 chunks per block
+    (2, 16, 256),    # 8 columns per block
+    (2, 20, 260),    # slices of 8 and 9 float4 columns
+    (2, 16, 16),     # D < 32: blocks with no columns
+    (1, 16, 8192),   # the widest D: 2 chunks
+    (8, 16, 2048),   # the most heads
+])
+def test_hard_mine_heads_kernels_match_plain(cuda, H, B, D):
+    """One forward launch for all heads: values atol 1e-4, picks equal
+    (tie-free input); one backward launch: the gradients of random incoming
+    g_ap, g_an against the plain S-matrix backward (atol 1e-5); both
+    bit-equal across two calls."""
+    heads, labels = _heads_batch(H, B, D, cuda, seed=H * B + D)
+    before = (triplet.launches, triplet.backward_launches)
+    got = triplet.hard_mine_heads_kernel(heads, labels)
+    torch.cuda.synchronize()
+    assert triplet.launches == before[0] + 1
+    want = triplet.hard_mine_heads_reference(heads, labels)
+    torch.testing.assert_close(got[0], want[0], atol=1e-4, rtol=0)
+    torch.testing.assert_close(got[1], want[1], atol=1e-4, rtol=0)
+    assert torch.equal(got[2], want[2]) and torch.equal(got[3], want[3])
+    again = triplet.hard_mine_heads_kernel(heads, labels)
+    assert all(torch.equal(a, b) for a, b in zip(got, again))
+
+    gen = torch.Generator(device=cuda).manual_seed(B)
+    g_ap, g_an = (torch.randn(H, B, generator=gen, device=cuda) for _ in range(2))
+    grads = triplet.hard_mine_heads_backward_kernel(heads, *got, g_ap, g_an)
+    torch.cuda.synchronize()
+    assert triplet.backward_launches == before[1] + 1
+    plain = triplet.hard_mine_backward_reference(heads, *got, g_ap, g_an)
+    for a, b in zip(grads, plain):
+        torch.testing.assert_close(a, b, atol=1e-5, rtol=0)
+    grads_again = triplet.hard_mine_heads_backward_kernel(heads, *got, g_ap, g_an)
+    assert all(torch.equal(a, b) for a, b in zip(grads, grads_again))
+    only_ap = triplet.hard_mine_heads_backward_kernel(heads, *got, g_ap, None)
+    plain_ap = triplet.hard_mine_backward_reference(heads, *got, g_ap, None)
+    for a, b in zip(only_ap, plain_ap):
+        torch.testing.assert_close(a, b, atol=1e-5, rtol=0)
+
+
+@pytest.mark.parametrize("soft", [True, False])
+def test_batch_hard_triplet_heads_one_launch_each_way(cuda, soft):
+    """The multi-head loss of a train step (5 heads of (16, 2048)): one
+    forward and one backward launch per call; loss and every head's
+    gradient against deep_supervision over the plain mining. Entries of
+    ~0.05 (distances ~3): the hinge's d_ap - d_an cancels, so larger
+    distances would magnify the Grams' fp32 rounding past the loss's bar."""
+    from agrl_torch import losses
+
+    heads, labels = _heads_batch(5, 16, 2048, cuda, seed=7, scale=0.05)
+    xs = [h.clone().requires_grad_(True) for h in heads]
+    before = (triplet.launches, triplet.backward_launches)
+    loss = losses.batch_hard_triplet_heads(xs, labels, soft=soft)
+    loss.backward()
+    torch.cuda.synchronize()
+    assert (triplet.launches, triplet.backward_launches) == (before[0] + 1, before[1] + 1)
+
+    def plain(f, y, margin, soft):
+        d_ap, d_an = triplet.hard_mine(triplet.pairwise_euclidean(f), y)
+        return losses.triplet_from_distances(d_ap, d_an, margin, soft).mean()
+
+    ys = [h.clone().requires_grad_(True) for h in heads]
+    want = losses.deep_supervision(plain, ys, labels, margin=0.3, soft=soft)
+    want.backward()
+    assert abs(float(loss) - float(want)) <= 1e-5 * abs(float(want))
+    for x, y in zip(xs, ys):
+        torch.testing.assert_close(x.grad, y.grad, atol=1e-5, rtol=0)
 
 
 @pytest.mark.parametrize("shape", [(37, 53, 100), (130, 260, 515), (8, 8, 8),

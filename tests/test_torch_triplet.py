@@ -65,6 +65,14 @@ def _jax_soft_grad(feats, labels):
     return np.asarray(jax.grad(loss)(jnp.asarray(feats)))
 
 
+def _heads_path(f, labels):
+    """The kernel path's autograd.Function with H = 1, its plain twins
+    injected for the two kernels."""
+    d_ap, d_an = triplet._HardMineHeads.apply(
+        labels, triplet.hard_mine_heads_reference, triplet.hard_mine_backward_reference, f)
+    return d_ap[0], d_an[0]
+
+
 @pytest.mark.parametrize("path", ["plain", "kernel_backward"])
 def test_feature_gradient_matches_jax(path):
     """The plain path's autograd, and the kernel path's hand-written
@@ -75,7 +83,7 @@ def test_feature_gradient_matches_jax(path):
     if path == "plain":
         d_ap, d_an = triplet.hard_mine_fused(f, lab)
     else:
-        d_ap, d_an = triplet._HardMine.apply(f, lab, triplet.hard_mine_reference)
+        d_ap, d_an = _heads_path(f, lab)
     torch.nn.functional.softplus(d_ap - d_an).mean().backward()
     np.testing.assert_allclose(f.grad.numpy(), _jax_soft_grad(feats, labels), atol=1e-5, rtol=0)
 
@@ -95,10 +103,7 @@ def test_tied_duplicates_give_the_same_parameter_gradient():
     def torch_grad(mine):
         wt = torch.from_numpy(w).requires_grad_(True)
         f = torch.from_numpy(x) @ wt
-        if mine is None:
-            d_ap, d_an = triplet.hard_mine_fused(f, torch.from_numpy(labels))
-        else:
-            d_ap, d_an = triplet._HardMine.apply(f, torch.from_numpy(labels), mine)
+        d_ap, d_an = mine(f, torch.from_numpy(labels))
         torch.nn.functional.softplus(d_ap - d_an).mean().backward()
         return wt.grad.numpy()
 
@@ -111,7 +116,7 @@ def test_tied_duplicates_give_the_same_parameter_gradient():
         torch.from_numpy(x @ w), torch.from_numpy(labels)
     )
     assert int(i_ap[0]) in (1, 2)  # a tie the picks resolve to one twin
-    for mine in (None, triplet.hard_mine_reference):
+    for mine in (triplet.hard_mine_fused, _heads_path):
         np.testing.assert_allclose(torch_grad(mine), want, atol=1e-5, rtol=0)
 
 
@@ -119,7 +124,7 @@ def test_anchor_without_negative_carries_no_gradient():
     feats = np.random.RandomState(4).randn(4, 8).astype(np.float32)
     f = torch.from_numpy(feats).requires_grad_(True)
     lab = torch.zeros(4, dtype=torch.int32)
-    d_ap, d_an = triplet._HardMine.apply(f, lab, triplet.hard_mine_reference)
+    d_ap, d_an = _heads_path(f, lab)
     assert torch.all(d_an == torch.finfo(torch.float32).max)
     d_an.sum().backward()
     assert torch.all(f.grad == 0)
