@@ -1,13 +1,19 @@
-"""Dataset catalog registry (counterpart of agrl_tpu/data/datasets).
-
-Only the synthetic fixture is ported so far; the MARS, iLIDS-VID,
-PRID2011 and DukeMTMC-VideoReID catalogs follow later."""
+"""Dataset catalog registry (copy of agrl_tpu/data/datasets/__init__.py;
+parity: data_manager/__init__.py:10-25)."""
 
 from __future__ import annotations
 
+from agrl_torch.data.datasets.dukemtmcvidreid import DukeMTMCVidReID
+from agrl_torch.data.datasets.ilidsvid import iLIDSVID
+from agrl_torch.data.datasets.mars import Mars
+from agrl_torch.data.datasets.prid2011 import PRID2011
 from agrl_torch.data.datasets.synthetic import SyntheticVidReid
 
 __vidreid_factory = {
+    "mars": Mars,
+    "ilidsvid": iLIDSVID,
+    "prid2011": PRID2011,
+    "dukemtmcvidreid": DukeMTMCVidReID,
     "synthetic": SyntheticVidReid,
 }
 

@@ -84,7 +84,9 @@ class Evaluator:
     def extract(self, loader, name: str = "query"):
         """Returns (features (N, D) on the device, pids, camids, batch_time
         meter). Batch times are host time around each forward, synchronized
-        with the card."""
+        with the card. The model goes to eval mode first: a trainer between
+        two evaluations leaves it in train mode."""
+        self.model.eval()
         feats, pids, camids = [], [], []
         batch_time = AverageMeter()
         for imgs, bpids, bcamids, adjs in loader:

@@ -37,6 +37,7 @@ def make_train_step(
     margin: float = 0.3,
     soft_margin: bool = True,
     aug: dict | None = None,
+    start_step: int = 0,
 ):
     """Returns train_step(imgs, pids, adj, *, generator, flip=None,
     subclip_indices=None) -> metrics.
@@ -48,6 +49,9 @@ def make_train_step(
     `flip` and `subclip_indices` inject them instead. Each call sets every
     param group's lr to `lr_fn(step)` (step = updates taken so far)
     before the optimizer step, as optax reads lr(count) before counting.
+    `start_step` is the count already taken: a run resumed after epoch e
+    passes (e + 1) * steps_per_epoch, as agrl_tpu's CLI sets its state's
+    step, so the schedule goes on where it stopped.
 
     The metrics `loss`, `xent_loss`, `htri_loss` and `top1` (argmax
     accuracy averaged over heads) are 0-d device tensors: nothing syncs
@@ -60,7 +64,7 @@ def make_train_step(
     torch.backends.cudnn.allow_tf32 = False
     xent_fn = partial(cross_entropy_label_smooth, epsilon=0.1 if label_smooth else 0.0)
     device = next(model.parameters()).device
-    step = 0
+    step = start_step
 
     def train_step(imgs, pids, adj, *, generator=None, flip=None, subclip_indices=None):
         nonlocal step

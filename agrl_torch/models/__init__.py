@@ -12,22 +12,25 @@ from __future__ import annotations
 import torch
 
 from agrl_torch import resolve_device
-from agrl_torch.models.vmgn import VMGN, vmgn
+from agrl_torch.models.vmgn import VMGN, check_factory_kwargs, vmgn
 
 
-def vmgn_tiny(num_classes, loss=frozenset({"xent", "htri"}), **kwargs):
+def vmgn_tiny(num_classes, loss=frozenset({"xent", "htri"}), last_stride=1, num_split=4,
+              pyramid_part=True, num_gb=2, use_pose=True, learn_graph=True,
+              consistent_loss=False, **kwargs):
     """Depth-(1,1,1,1) VMGN for tests/smoke runs (not in the reference)."""
+    check_factory_kwargs(**kwargs)
     return VMGN(
         num_classes=num_classes,
         loss=loss,
-        consistent_loss=kwargs.pop("consistent_loss", False),
+        consistent_loss=consistent_loss,
         layers=(1, 1, 1, 1),
-        last_stride=kwargs.pop("last_stride", 1),
-        num_split=kwargs.pop("num_split", 4),
-        pyramid_part=kwargs.pop("pyramid_part", True),
-        num_gb=kwargs.pop("num_gb", 2),
-        use_pose=kwargs.pop("use_pose", True),
-        learn_graph=kwargs.pop("learn_graph", True),
+        last_stride=last_stride,
+        num_split=num_split,
+        pyramid_part=pyramid_part,
+        num_gb=num_gb,
+        use_pose=use_pose,
+        learn_graph=learn_graph,
     )
 
 

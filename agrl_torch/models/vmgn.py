@@ -179,13 +179,28 @@ class VMGN(ResNetTrunk):
         ]
 
 
+def check_factory_kwargs(num_scale=1, dtype=None, num_parts=None, bnneck=False, **unknown):
+    """The registry keywords the training CLI passes (agrl_tpu's
+    `init_model` call) that do not shape this model. `num_parts` sizes the
+    pose graph's part sets on the data side; `bnneck` is accepted and
+    unused, as in agrl_tpu (its VMGN always has BNNecks). A value that
+    would change the model raises instead of being ignored."""
+    if unknown:
+        raise TypeError(f"unexpected model keywords: {sorted(unknown)}")
+    if num_scale != 1:
+        raise ValueError(f"vmgn's pooling produces one scale of vertices, got "
+                         f"num_scale={num_scale}")
+    if dtype not in (None, torch.float32):
+        raise ValueError(f"VMGN runs in float32 here, got dtype={dtype} (bf16 training is "
+                         "not ported yet)")
+
+
 def vmgn(
     num_classes,
     loss=frozenset({"xent", "htri"}),
     last_stride=1,
     num_split=4,
     num_gb=2,
-    num_scale=1,
     pyramid_part=True,
     use_pose=True,
     learn_graph=True,
@@ -193,8 +208,7 @@ def vmgn(
     **kwargs,
 ):
     """Factory matching the reference factory signature (vmgn.py:373-390)."""
-    if num_scale != 1:
-        raise ValueError("vmgn's pooling produces one scale of vertices")
+    check_factory_kwargs(**kwargs)
     return VMGN(
         num_classes=num_classes,
         layers=(3, 4, 6, 3),

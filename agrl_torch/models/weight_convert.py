@@ -14,7 +14,11 @@ The name map is a copy of the VMGN-family part of
 agrl_tpu/models/weight_convert.py:_split_torch_name. Every state-dict
 entry must find its leaf and every leaf must be used, except the
 entries with no flax counterpart: `num_batches_tracked` and the BNNeck
-biases, which are frozen at zero.
+biases, which are frozen at zero. `partial=True` gives `--load-weights`
+semantics instead (agrl_tpu core/checkpoint.py:shape_filtered_merge).
+
+`init_pretrained_weights` loads a torchvision-style ImageNet ResNet
+state dict into the backbone (`--pretrained-weights`).
 """
 
 from __future__ import annotations
@@ -100,11 +104,19 @@ def _flatten(tree, prefix=()):
             yield prefix + (k,), v
 
 
-def from_jax_variables(variables, model: torch.nn.Module) -> None:
-    """Load agrl_tpu variables into `model` in place. Raises KeyError on a
-    missing or unused leaf and ValueError on a shape mismatch."""
+def from_jax_variables(variables, model: torch.nn.Module, partial: bool = False):
+    """Load agrl_tpu variables into `model` in place.
+
+    Strict (default): raises KeyError on a missing or unused leaf and
+    ValueError on a shape mismatch. `partial=True`: every leaf of
+    `params` and `batch_stats` whose entry exists in the model with the
+    same shape is copied, the rest (a head for another class count, a
+    leaf of another arch) is skipped; other collections (`opt_state`) are
+    ignored. Returns (matched, skipped) leaf paths such as
+    "params/global_classifier/kernel", as agrl_tpu's load_weights_partial
+    reports them."""
     extra_collections = set(variables) - {"params", "batch_stats"}
-    if extra_collections:
+    if extra_collections and not partial:
         raise KeyError(f"unexpected variable collections: {sorted(extra_collections)}")
     leaves = {
         (collection,) + path: leaf
@@ -122,12 +134,49 @@ def from_jax_variables(variables, model: torch.nn.Module) -> None:
             path, collection, kind = mapped
             key = (collection,) + path
             if key not in leaves:
+                if partial:
+                    continue
                 raise KeyError(f"{name}: variables lack {'/'.join(key)}")
             arr = _to_torch_layout(np.asarray(leaves[key], np.float32), kind).copy()
             if tuple(arr.shape) != tuple(tensor.shape):
+                if partial:
+                    continue
                 raise ValueError(f"{name}: shape {tuple(arr.shape)} != {tuple(tensor.shape)}")
             tensor.copy_(torch.from_numpy(arr))
             used.add(key)
     unused = sorted("/".join(k) for k in set(leaves) - used)
+    if partial:
+        return sorted("/".join(k) for k in used), unused
     if unused:
         raise KeyError(f"variables hold leaves the model has no entry for: {unused[:5]}")
+
+
+def init_pretrained_weights(model: torch.nn.Module, source):
+    """ImageNet-pretrained backbone init (`--pretrained-weights`; the
+    reference's init_pretrained_weights, vmgn.py:360-370, as agrl_tpu's
+    weight_convert.init_pretrained_weights applies it).
+
+    `source` is a torchvision-style ResNet state dict or a path to one
+    (.pth/.pth.tar through torch, .npz/.npy through numpy). The `fc.*`
+    head is dropped; the reference loads the backbone before it deep-copies
+    layer4 (vmgn.py:224-234), so each `layer4.*` entry goes to every
+    `layer4*` branch of the model (VMGN: layer4_1 and layer4_2). Then a
+    shape-filtered partial load: returns (matched, skipped) names; what is
+    not matched keeps its initialization."""
+    from agrl_torch.core.checkpoint import load_weights_partial, read_state_dict
+
+    if isinstance(source, str):
+        source = read_state_dict(source)
+    branches = sorted({name.split(".", 1)[0] for name in model.state_dict()
+                       if re.match(r"^layer4(_\d+)?\.", name)})
+    fanned = {}
+    for name, value in source.items():
+        name = re.sub(r"^module\.", "", name)
+        if name.startswith("fc."):
+            continue
+        if name.startswith("layer4."):
+            for branch in branches:
+                fanned[branch + name[len("layer4"):]] = value
+        else:
+            fanned[name] = value
+    return load_weights_partial(model, fanned)

@@ -31,6 +31,9 @@ import functools
 import torch
 
 BN_EPS = 1e-5
+# the most vertices a clip may have on the card: csrc/graph_conv.cu holds a
+# clip's V rows in one 128-row block (graph_conv_max_vertices() returns it)
+MAX_VERTICES = 128
 
 # Launches of the CUDA kernel (one per graph_propagate/_v2 call on CUDA
 # tensors). A plain integer: callers reset it to 0 and read it back.

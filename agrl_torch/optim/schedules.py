@@ -7,6 +7,9 @@ Parity targets:
   * warmup_multistep_lr — torchreid/lr_scheduler.py:9-51: linear or constant
     warmup for `warmup_iters` epochs, multiplied by the multistep decay.
 
+`zero_wd_schedule` is the CLI's `--zero-wd` rule
+(agrl_tpu/cli/train_vidreid_xent_htri.py:409-413).
+
 The reference steps its scheduler once per EPOCH; `per_step` converts an
 epoch schedule to a per-update-step one. As in agrl_tpu, the decay applies
 AT the milestone epoch (torch's post-1.1 `scheduler.step()` after each
@@ -62,5 +65,17 @@ def per_step(epoch_schedule: Callable, steps_per_epoch: int):
 
     def schedule(step):
         return epoch_schedule(step // steps_per_epoch)
+
+    return schedule
+
+
+def zero_wd_schedule(weight_decay: float, zero_wd: int):
+    """Epoch -> weight decay for `--zero-wd N`: 0 from epoch N on when
+    N > 0, else `weight_decay` throughout. agrl_tpu switches at step
+    N * steps_per_epoch, the first step of epoch N, so setting the groups
+    at each epoch's start is the same rule."""
+
+    def schedule(epoch):
+        return 0.0 if 0 < zero_wd <= epoch else weight_decay
 
     return schedule

@@ -44,7 +44,9 @@ Phases (any failure exits non-zero before the result lines):
      1e-4 wd 5e-4, soft-margin triplet, no label smoothing: 20 steps with
      finite losses, one K3 forward and one backward launch per step and
      falling xent; step time, clips/s, peak memory, a profiler table of
-     one step; then the evenly Evaluator on the trained model;
+     one step, how long a step holds the host (until step() returns vs
+     until the card is done; host waits inside CUDA calls); then the
+     evenly Evaluator on the trained model;
  10. one train step's loss and gradients, kernel path vs plain path (only
      the multi-head triplet loss differs);
  11. one train step at full width, B=4 (2x2), card vs CPU;
@@ -71,9 +73,24 @@ Phases (any failure exits non-zero before the result lines):
      algorithm (agrl_torch.metrics.rerank), atol 2e-4, on integer
      features whose distances are exact on every device; then card vs
      CPU on continuous cosine features, reported only;
+ 16. the training CLI as a user runs it (python -m
+     agrl_torch.cli.train_vidreid_xent_htri): a synthetic MARS layout at
+     256x128 (16 train and 8 test ids, 2 cameras, 16-24 frames a
+     tracklet), `-d mars` with VMGN_ARGS read from scripts/_vmgn_common.sh,
+     3 epochs at --stepsize 2 with an eval and a checkpoint after each, in
+     a subprocess: a finite meter line per step, a CMC block per eval, the
+     checkpoints; the Time and Data meters. Then in this process through
+     main(argv), the wrappers counted: --evaluate --resume best_model
+     prints the best Rank-1 again (2 K1 launches per eval batch),
+     --evaluate --re-rank makes one min_sum_sparse call, --resume
+     checkpoint_ep2 trains epoch 3 at the schedule's lr (one K3 forward
+     and one backward launch per step); the train loader alone (PIL
+     decode and pose graphs on 8 threads and on one); epochs 2-3 again at
+     the scripts' --print-freq 200 (one sync per epoch);
 then one {"serving": ...} line, one {"training": ...} line, one
-{"reranking": ...} line, one {"kernels": [...]} line, the card's name and
-power limit, and {"ok": true, "device": {...}} as the last line.
+{"reranking": ...} line, one {"cli": ...} line, one {"kernels": [...]}
+line, the card's name and power limit, and {"ok": true, "device": {...}}
+as the last line.
 
     python3 chip_smoke.py --term-only ROOT
 
@@ -84,8 +101,12 @@ unpacked earlier commit, and prints one JSON line.
 
 from __future__ import annotations
 
+import io
 import json
 import math
+import os
+import re
+import shlex
 import subprocess
 import sys
 import tempfile
@@ -131,8 +152,6 @@ def log(msg: str) -> None:
 def ptxas_summary(log_text: str) -> list:
     """One line per kernel of an nvcc -Xptxas -v log: its name (and
     template argument), registers, spills and static shared memory."""
-    import re
-
     lines, name, spill = [], "?", ""
     for line in log_text.splitlines():
         m = re.search(r"Compiling entry function '.*?\d([a-z][a-z_]*_kernel)(?:ILi(\d+)E)?", line)
@@ -802,6 +821,38 @@ def profile_train_step(torch, step, batch, generator):
                 hard_mine_share=total / max(busy_ms, 1e-9), top=rows[:15])
 
 
+def host_side_of_step(torch, step, batches, generator):
+    """How long the host is held by one train step: host time until
+    step() returns (no sync before the return) vs until the card is done,
+    unprofiled, median over the batches; then, in one profiled step, the
+    host's time inside CUDA calls that wait for the card (stream syncs and
+    the blocking copies)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    ret, done = [], []
+    for imgs, pids, _, adjs in batches:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        step(imgs, pids, adjs, generator=generator)
+        ret.append((time.perf_counter() - t0) * 1e3)
+        torch.cuda.synchronize()
+        done.append((time.perf_counter() - t0) * 1e3)
+    imgs, pids, _, adjs = batches[0]
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        step(imgs, pids, adjs, generator=generator)
+        torch.cuda.synchronize()
+    waits = {e.key: e.self_cpu_time_total / 1e3 for e in prof.key_averages()
+             if e.key.startswith("cuda") and ("Synchronize" in e.key or "Memcpy" in e.key)}
+    out = dict(return_ms=float(np.median(ret)), done_ms=float(np.median(done)),
+               profiled_waits_ms=waits, torch_ops=sum(e.count for e in prof.key_averages()
+                                                      if e.key.startswith("aten::")))
+    log(f"[profile] host side of a train step: step() returns after {out['return_ms']:.2f} ms "
+        f"of {out['done_ms']:.2f} ms until the card is done (median of {len(ret)}); profiled "
+        f"host waits in CUDA calls {', '.join(f'{k} {v:.2f} ms' for k, v in waits.items())}; "
+        f"{out['torch_ops']} aten op calls, nested calls included")
+    return out
+
+
 def phase_train(torch, tri, gc, device):
     """Main path: TRAIN_STEPS steps of the paper recipe's train step on
     synthetic 256x128 data, then the evenly Evaluator on the result."""
@@ -878,6 +929,7 @@ def phase_train(torch, tri, gc, device):
             f"{peak_gb:.2f} GB; hard_mine launches {launches} forward, {backward_launches} "
             f"backward ({TRAIN_HEADS} heads each)")
         prof = profile_train_step(torch, step, batches[0], gen)
+        prof["host_side"] = host_side_of_step(torch, step, batches[-5:], gen)
 
         gc.launches = 0
         r1, mAP = Evaluator(model, test_sample="evenly", device=device).evaluate(
@@ -1282,6 +1334,238 @@ def phase_rerank_cpu(torch, rr, device):
     return e_cpu, e_host, float(diff.max()), rows
 
 
+CLI_MODULE = "agrl_torch.cli.train_vidreid_xent_htri"
+CLI_EPOCHS = 3
+# the [cli] fixture: MARS's layout at 256x128, 16 train and 8 test ids on 2
+# cameras, one tracklet per camera, 16-24 frames each (~1,000 JPEGs)
+CLI_DATA = dict(num_train_pids=16, num_test_pids=8, num_cams=2, tracklets_per_cam=1,
+                frames_range=(16, 24), height=HEIGHT, width=WIDTH, seed=0)
+METER = re.compile(r"Epoch: \[(\d+)\]\[(\d+)/(\d+)\]\tTime (\S+) \(\S+\)\tSpeed \S+ samples/s\t"
+                   r"Data (\S+) \(\S+\)\tXent (\S+) \(\S+\)\tHtri (\S+) \(\S+\)")
+
+
+def vmgn_args() -> list:
+    """VMGN_ARGS of scripts/_vmgn_common.sh (the paper preset), read as text."""
+    text = (REPO / "scripts" / "_vmgn_common.sh").read_text()
+    return shlex.split(re.search(r"VMGN_ARGS=\((.*?)\)", text, re.S).group(1), comments=True)
+
+
+def cmc_blocks(out: str) -> list:
+    """(rank-1, mAP) of each printed result block, as fractions."""
+    return [(float(r1) / 100, float(m) / 100) for m, r1 in re.findall(
+        r"Results -+\nmAP: (\S+)%\nCMC curve\nRank-1\s*: (\S+)%", out)]
+
+
+def run_cli_in_process(cli, argv):
+    """cli.main(argv) in this process; returns (result, its console output)."""
+    buf, stdout = io.StringIO(), sys.stdout
+    sys.stdout = buf
+    try:
+        result = cli.main(argv)
+    finally:
+        sys.stdout = stdout
+    return result, buf.getvalue()
+
+
+def host_input_breakdown(root: str, args) -> dict:
+    """Where the CLI's Data meter goes: the train loader as the CLI builds
+    it (MARS catalog, restricted clips, pose graphs), 3 batches (after a
+    first) on args.workers threads and on one; on one thread, the time
+    inside the PIL decode (host_decode_resize) and inside the pose graphs
+    (_clip_adj)."""
+    from agrl_torch.data import loader as loader_mod
+    from agrl_torch.data.datasets import init_vidreid_dataset
+    from agrl_torch.data.samplers import init_sampler
+
+    ds = init_vidreid_dataset("mars", root=root, verbose=False, use_pose=True)
+    dset = loader_mod.VideoClipDataset(
+        ds.train, seq_len=args.seq_len, sample=args.train_sample, height=args.height,
+        width=args.width, pose_info=ds.process_poses, num_split=args.num_split,
+        num_parts=args.num_parts, pyramid_part=args.pyramid_part, enable_pose=args.use_pose)
+    spent = {"decode": 0.0, "graph": 0.0}
+
+    def timed(key, fn):
+        def run(*a, **k):
+            t0 = time.perf_counter()
+            try:
+                return fn(*a, **k)
+            finally:
+                spent[key] += time.perf_counter() - t0
+        return run
+
+    def batches_ms(workers, n=3):
+        loader = loader_mod.ClipLoader(dset, batch_size=args.train_batch, drop_last=True,
+                                       num_workers=workers, seed=0, sampler=init_sampler(
+                                           args.train_sampler, ds.train, args.train_batch,
+                                           args.num_instances, seed=0))
+        it = iter(loader)
+        next(it)  # warm: first reads of the files
+        spent.update(decode=0.0, graph=0.0)
+        t0 = time.perf_counter()
+        for _ in range(n):
+            next(it)
+        return (time.perf_counter() - t0) / n * 1e3
+
+    threaded = batches_ms(args.workers)
+    real_decode, real_adj = loader_mod.host_decode_resize, dset._clip_adj
+    loader_mod.host_decode_resize = timed("decode", real_decode)
+    dset._clip_adj = timed("graph", real_adj)
+    try:
+        single = batches_ms(1)
+    finally:
+        loader_mod.host_decode_resize = real_decode
+    return dict(batch_ms_threads=threaded, threads=args.workers, batch_ms_one_thread=single,
+                decode_ms_one_thread=spent["decode"] / 3 * 1e3,
+                graph_ms_one_thread=spent["graph"] / 3 * 1e3, os_cpu_count=os.cpu_count())
+
+
+def phase_cli(torch, tri, gc, ms):
+    """The training CLI as a user runs it: the paper preset through the
+    MARS catalog on a synthetic MARS layout, 3 epochs with an eval and a
+    checkpoint after each (a subprocess), then in this process with the
+    kernel wrappers counted: --evaluate --resume best_model (the best
+    Rank-1 again; K1 launches per eval batch), --evaluate --re-rank (one
+    min_sum_sparse call), --resume checkpoint_ep2 (epoch 3 at the
+    schedule's lr; K3 launches per step) and --resume checkpoint_ep1 at
+    the scripts' --print-freq 200; and the train loader alone."""
+    from agrl_torch.cli import train_vidreid_xent_htri as cli
+    from agrl_torch.data.datasets import init_vidreid_dataset
+    from agrl_torch.data.datasets.synthetic_mars import materialize_mars_layout
+    from agrl_torch.engine import trainer
+    from agrl_torch.optim import multistep_lr
+
+    t_phase = time.perf_counter()
+    build_dir = REPO / "agrl_torch" / "_build"
+    build_dir.mkdir(parents=True, exist_ok=True)
+    preset = vmgn_args()
+    with tempfile.TemporaryDirectory(dir=build_dir) as tmp:
+        root, save_dir = f"{tmp}/data", f"{tmp}/log"
+        t0 = time.perf_counter()
+        materialize_mars_layout(root, **CLI_DATA)
+        ds = init_vidreid_dataset("mars", root=root, verbose=False)
+        test_batch = int(preset[preset.index("--test-batch") + 1])
+        eval_batches = -(-len(ds.query) // test_batch) + -(-len(ds.gallery) // test_batch)
+        log(f"[cli] MARS layout at {HEIGHT}x{WIDTH} written in {time.perf_counter() - t0:.1f} s: "
+            f"{ds.num_train_pids} train ids, {len(ds.train)} train / {len(ds.query)} query / "
+            f"{len(ds.gallery)} gallery tracklets; preset: {' '.join(preset)}")
+
+        base = ["-d", "mars", *preset, "--root", root]
+        argv = base + ["--max-epoch", str(CLI_EPOCHS), "--stepsize", "2", "--eval-step", "1",
+                       "--print-freq", "1", "--save-dir", save_dir]
+        t0 = time.perf_counter()
+        proc = subprocess.run([sys.executable, "-m", CLI_MODULE, *argv], cwd=REPO,
+                              capture_output=True, text=True, timeout=900)
+        train_s = time.perf_counter() - t0
+        out = proc.stdout
+        (build_dir / "cli_train.log").write_text(out + proc.stderr)
+        if proc.returncode != 0:
+            raise AssertionError(f"the CLI exited {proc.returncode}: {proc.stderr[-3000:]}")
+        meters = [m.groups() for m in METER.finditer(out)]
+        steps_per_epoch = int(meters[0][2]) if meters else 0
+        step_ms = [float(m[3]) * 1e3 for m in meters]
+        data_ms = [float(m[4]) * 1e3 for m in meters]
+        losses = [(float(m[5]), float(m[6])) for m in meters]
+        evals = cmc_blocks(out)
+        ckpts = [f"checkpoint_ep{e}.pth.tar" for e in range(1, CLI_EPOCHS + 1)]
+        missing = [c for c in ckpts + ["best_model.pth.tar"]
+                   if not (Path(save_dir) / c).exists()]
+        best = re.search(r"==> Best Rank-1 (\S+)%", out)
+        log(f"[cli] train: {len(meters)} steps in {train_s:.1f} s (process start, catalog, model, "
+            f"{CLI_EPOCHS} evals and checkpoints included); evals (rank-1, mAP) {evals}")
+        if not (len(meters) == CLI_EPOCHS * steps_per_epoch > 0
+                and all(math.isfinite(v) for pair in losses for v in pair)
+                and len(evals) == CLI_EPOCHS and not missing and best):
+            raise AssertionError(f"CLI run: {len(meters)} meter lines, {len(evals)} evals, "
+                                 f"losses {losses}, missing {missing}")
+        steady = step_ms[1:]
+        med, data_med = float(np.median(steady)), float(np.median(data_ms[1:]))
+        log(f"[cli] Time meter: median {med:.2f} ms over steps 2-{len(step_ms)} (first "
+            f"{step_ms[0]:.2f}), {BATCH / med * 1e3:.1f} clips/s; Data meter: median "
+            f"{data_med:.2f} ms, max {max(data_ms[1:]):.2f} ms (first {data_ms[0]:.2f})")
+        host = host_input_breakdown(root, cli.build_parser().parse_args(argv))
+        log(f"[cli] host input, the train loader alone: {host['batch_ms_threads']:.1f} ms a "
+            f"batch on {host['threads']} threads, {host['batch_ms_one_thread']:.1f} ms on one, of "
+            f"which PIL decode {host['decode_ms_one_thread']:.1f} ms and pose graphs "
+            f"{host['graph_ms_one_thread']:.1f} ms ({host['os_cpu_count']} CPUs)")
+
+        # in process, with the wrappers counted
+        best_ckpt = f"{save_dir}/best_model.pth.tar"
+        eval_argv = base + ["--save-dir", f"{tmp}/eval", "--resume", best_ckpt, "--evaluate"]
+        gc.launches = 0
+        (r1, mAP), _ = run_cli_in_process(cli, eval_argv)
+        k1_eval = gc.launches
+        log(f"[cli] --evaluate --resume best_model: rank-1 {r1:.2%} (training's best "
+            f"{best.group(1)}%), mAP {mAP:.2%}; graph kernel launches {k1_eval} for "
+            f"{eval_batches} eval batches")
+        if f"{r1 * 100:.2f}" != best.group(1) or k1_eval != 2 * eval_batches:
+            raise AssertionError("--evaluate --resume best_model: another rank-1 or K1 count")
+        ms.sparse_launches = 0
+        (rr1, rmap), _ = run_cli_in_process(cli, eval_argv + ["--re-rank"])
+        k4 = ms.sparse_launches
+        log(f"[cli] --evaluate --re-rank: rank-1 {rr1:.2%}, mAP {rmap:.2%}; min_sum_sparse "
+            f"calls {k4}")
+        if k4 != 1 or not (0.0 <= rr1 <= 1.0 and 0.0 <= rmap <= 1.0):
+            raise AssertionError(f"--re-rank: {k4} min_sum_sparse calls, rank-1 {rr1}")
+
+        seen, real = {"lr": []}, trainer.make_train_step
+
+        def recording(model, optimizer, lr_fn, **kw):
+            step = real(model, optimizer, lr_fn, **kw)
+            seen["start_step"] = kw["start_step"]
+
+            def counted(*args, **kwargs):
+                out = step(*args, **kwargs)
+                seen["lr"].append(optimizer.param_groups[0]["lr"])
+                return out
+            return counted
+
+        trainer.make_train_step = recording
+        tri.launches = tri.backward_launches = gc.launches = 0  # main path starts here
+        try:
+            run_cli_in_process(cli, base + [
+                "--max-epoch", str(CLI_EPOCHS), "--stepsize", "2", "--print-freq", "1",
+                "--save-dir", f"{tmp}/resumed", "--resume", f"{save_dir}/checkpoint_ep2.pth.tar"])
+        finally:
+            trainer.make_train_step = real
+        fwd, bwd, k1 = tri.launches, tri.backward_launches, gc.launches  # and ends here
+        n = len(seen["lr"])
+        want_lr = multistep_lr(float(preset[preset.index("--lr") + 1]), [2])(2)
+        log(f"[cli] --resume checkpoint_ep2: {n} steps of epoch 3 from step "
+            f"{seen.get('start_step')}, lr {sorted(set(seen['lr']))} (schedule: {want_lr:g}); "
+            f"hard_mine launches {fwd} forward, {bwd} backward; graph kernel launches {k1} "
+            f"in its eval")
+        if not (n == steps_per_epoch and seen["start_step"] == 2 * steps_per_epoch
+                and all(lr == want_lr for lr in seen["lr"]) and fwd == bwd == n
+                and k1 == 2 * eval_batches):
+            raise AssertionError("--resume checkpoint_ep2: wrong step count, lr or launches")
+
+        # the scripts' --print-freq 200 (and --print-last): one meter line, one
+        # sync, per epoch; epoch 3's line averages its steps over one window
+        _, out = run_cli_in_process(cli, base + [
+            "--max-epoch", str(CLI_EPOCHS), "--stepsize", "2", "--save-dir", f"{tmp}/freq200",
+            "--resume", f"{save_dir}/checkpoint_ep1.pth.tar"])
+        lines = [m.groups() for m in METER.finditer(out)]
+        if [m[0] for m in lines] != ["2", "3"]:
+            raise AssertionError(f"--print-freq 200: meter lines {lines}")
+        freq200_ms = float(lines[-1][3]) * 1e3
+        log(f"[cli] --print-freq 200: epoch 3's Time meter {freq200_ms:.2f} ms a step over its "
+            f"{steps_per_epoch} steps in one window (--print-freq 1: median {med:.2f} ms)")
+    torch.cuda.empty_cache()
+    return dict(
+        steps=len(meters), steps_per_epoch=steps_per_epoch, step_ms_median=med,
+        step_ms_all=step_ms, clips_per_s=BATCH / med * 1e3, data_ms_median=data_med,
+        data_ms_max=max(data_ms[1:]), data_ms_all=data_ms,
+        workers=cli.build_parser().parse_args(argv).workers,
+        evals=[{"epoch": e + 1, "rank1": a, "mAP": b} for e, (a, b) in enumerate(evals)],
+        best_rank1=float(best.group(1)) / 100, resumed_eval_rank1=r1, resumed_eval_mAP=mAP,
+        rerank_rank1=rr1, rerank_mAP=rmap, k3_per_step=[fwd / n, bwd / n],
+        k1_per_eval_batch=k1 / eval_batches, k4_per_rerank_eval=k4, eval_batches=eval_batches,
+        train_subprocess_s=train_s, resumed_lr=seen["lr"][0], host_input=host,
+        step_ms_print_freq_200=freq200_ms,
+        phase_seconds=time.perf_counter() - t_phase,
+    )
+
+
 def main() -> int:
     if not all((REPO / "agrl_torch" / "csrc" / f"{n}.cu").exists() for n in LIBS):
         print("chip_smoke.py: the agrl_torch package is not beside this script", file=sys.stderr)
@@ -1397,10 +1681,15 @@ def main() -> int:
     reranking["evaluator_synthetic"] = reranked_eval
 
     serving["smoke_seconds"] = training["smoke_seconds"] = time.perf_counter() - t_start
+    reranking["smoke_seconds"] = time.perf_counter() - t_start
+    # 16. the training CLI: the paper preset through the MARS catalog
+    cli = phase_cli(torch, tri, gc, ms)
+
     print(json.dumps({"serving": serving}))
     print(json.dumps({"training": training}))
-    reranking["smoke_seconds"] = time.perf_counter() - t_start
     print(json.dumps({"reranking": reranking}))
+    cli["smoke_seconds"] = time.perf_counter() - t_start
+    print(json.dumps({"cli": cli}))
     kernel = {
         "name": "graph_propagate",
         "route": "cuda",
@@ -1408,6 +1697,7 @@ def main() -> int:
         "replaces": "agrl_tpu/ops/graph_conv.py:127",
         "also_replaces": "agrl_tpu/ops/graph_conv_v2.py:102",
         "launches": launches,
+        "cli_launches_per_eval_batch": cli["k1_per_eval_batch"],
         "max_abs_err": krec["max_abs_err"],
         "ms": krec["ms"],
         "kernel_ms": krec["ms"],
@@ -1434,6 +1724,7 @@ def main() -> int:
         "heads": TRAIN_HEADS,
         "launches": tri_launches,
         "backward_launches": tri_backward_launches,
+        "cli_launches_per_step": cli["k3_per_step"],
         "max_abs_err": trec["max_abs_err"],
         "grad_max_abs_err": trec["grad_max_abs_err"],
         "two_calls_bit_equal": trec["two_calls_bit_equal"],
@@ -1502,6 +1793,7 @@ def main() -> int:
         "source": "agrl_torch/csrc/minsum_sparse.cu",
         "replaces": "agrl_tpu/ops/minsum.py:59",
         "launches": k4_launches,
+        "cli_launches_per_rerank_eval": cli["k4_per_rerank_eval"],
         "max_abs_err": srec["max_abs_err"],
         "ms": srec["ms"],
         "plain_ms": srec["plain_ms"],

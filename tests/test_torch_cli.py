@@ -1,0 +1,274 @@
+"""The port's training CLI held against agrl_tpu's: the parser flag for
+flag, the pre-flight refusals, a CPU run end to end at vmgn_tiny on the
+synthetic set (64x32, seq_len 4), and --resume's step count and Adam
+state."""
+
+import copy
+import glob
+import io
+import os.path as osp
+import re
+import sys
+
+import numpy as np
+import pytest
+import torch
+
+from agrl_torch.cli import train_vidreid_xent_htri as tcli
+from agrl_torch.optim import zero_wd_schedule
+from agrl_tpu.cli import train_vidreid_xent_htri as jcli
+from agrl_tpu.optim import multistep_lr as jax_multistep_lr
+from agrl_tpu.optim import per_step as jax_per_step
+
+torch.set_num_threads(2)
+
+JAX_ACTIONS = {a.dest: a for a in jcli.build_parser()._actions}
+PORT_ACTIONS = {a.dest: a for a in tcli.build_parser()._actions}
+
+
+def test_parser_has_every_flag_of_agrl_tpu():
+    assert len(JAX_ACTIONS) == 77  # 76 add_argument calls and -h
+    assert PORT_ACTIONS.keys() == JAX_ACTIONS.keys()
+
+
+@pytest.mark.parametrize("dest", sorted(JAX_ACTIONS))
+def test_parser_flag_matches_agrl_tpu(dest):
+    want, got = JAX_ACTIONS[dest], PORT_ACTIONS[dest]
+    assert type(got) is type(want)
+    assert got.option_strings == want.option_strings
+    assert got.dest == want.dest
+    assert got.default == want.default
+    assert got.type is want.type
+    assert got.nargs == want.nargs
+    assert got.const == want.const
+    assert (None if got.choices is None else list(got.choices)) == (
+        None if want.choices is None else list(want.choices))
+
+
+# the refusals: extra argv -> (flag the message names, value it names)
+REFUSALS = {
+    "arch": (["-a", "gsta"], "--arch", "gsta"),
+    "optim": (["--optim", "sgd"], "--optim", "sgd"),
+    "test_sample_default": ([], "--test-sample", "dense"),
+    "test_sample_all": (["--test-sample", "all"], "--test-sample", "all"),
+    "rand_erase": (["--rand-erase"], "--rand-erase", "True"),
+    "rand_crop": (["--rand-crop"], "--rand-crop", "True"),
+    "misalign_aug": (["--misalign-aug"], "--misalign-aug", "True"),
+    "bf16_train": (["--bf16-train"], "--bf16-train", "True"),
+    "bf16_eval": (["--bf16-eval"], "--bf16-eval", "True"),
+    "remat": (["--remat", "dots"], "--remat", "dots"),
+    "mesh_dp": (["--mesh-dp", "2"], "--mesh-dp", "2"),
+    "mesh_mp": (["--mesh-mp", "2"], "--mesh-mp", "2"),
+    "dist_coordinator": (["--dist-coordinator", "localhost:1234"], "--dist-coordinator",
+                         "localhost:1234"),
+    "dist_num_processes": (["--dist-num-processes", "2"], "--dist-num-processes", "2"),
+    "dist_process_id": (["--dist-process-id", "0"], "--dist-process-id", "0"),
+    "cache_frames": (["--cache-frames"], "--cache-frames", "True"),
+    "frame_cache_dir": (["--frame-cache-dir", "frames"], "--frame-cache-dir", "frames"),
+    "decode_native": (["--decode", "native"], "--decode", "native"),
+    "async_ckpt": (["--async-ckpt"], "--async-ckpt", "True"),
+    "profile_dir": (["--profile-dir", "trace"], "--profile-dir", "trace"),
+    # the card's kernel limits, checked without --use-cpu before the device
+    "card_train_batch": (["--train-batch", "257"], "--train-batch", "257"),
+    "card_seq_len": (["--seq-len", "19", "--num-split", "4", "--pyramid-part"], "--seq-len",
+                     "19"),
+}
+
+
+@pytest.mark.parametrize("case", sorted(REFUSALS))
+def test_preflight_refuses_before_reading_data(case, tmp_path, monkeypatch):
+    extra, flag, value = REFUSALS[case]
+
+    def no_data(*args, **kwargs):
+        raise AssertionError("the catalog was read before the refusal")
+
+    monkeypatch.setattr("agrl_torch.data.datasets.init_vidreid_dataset", no_data)
+    base = ["--root", str(tmp_path / "absent"), "--save-dir", str(tmp_path / "log"),
+            "-a", "vmgn_tiny"]
+    if not case.startswith("card_"):
+        base.append("--use-cpu")
+    if not case.startswith("test_sample"):
+        base += ["--test-sample", "evenly"]
+    stdout = sys.stdout
+    with pytest.raises(SystemExit) as exc:
+        tcli.main(base + extra)
+    assert sys.stdout is stdout
+    msg = str(exc.value)
+    assert flag in msg and value in msg and "ROADMAP" in msg, msg
+    assert not (tmp_path / "log").exists()
+
+
+def test_preflight_lets_the_cpu_take_the_card_limits():
+    args = tcli.build_parser().parse_args([
+        "--use-cpu", "-a", "vmgn_tiny", "--test-sample", "evenly", "--train-batch", "257",
+        "--seq-len", "19", "--pyramid-part",
+    ])
+    tcli.preflight(args)
+
+
+def test_zero_wd_schedule_matches_agrl_tpu_rule():
+    """agrl_tpu's wd_fn (cli :409-413): 0 from step zero_wd * steps_per_epoch
+    on when zero_wd > 0; the port sets it per epoch."""
+    spe = 3
+    for zero_wd in (-1, 0, 2):
+        sched = zero_wd_schedule(5e-4, zero_wd)
+        for step in range(12):
+            want = 0.0 if zero_wd > 0 and step >= zero_wd * spe else 5e-4
+            assert sched(step // spe) == want
+
+
+METER = re.compile(
+    r"^CurTime: \S+ \S+\tEpoch: \[\d+\]\[\d+/\d+\]\tTime \d+\.\d{3} \(\d+\.\d{3}\)\t"
+    r"Speed \d+\.\d{3} samples/s\tData \d+\.\d{4} \(\d+\.\d{4}\)\tXent (\S+) \(\S+\)\t"
+    r"Htri (\S+) \(\S+\)\tTop1 \d\.\d{4} \(\d\.\d{4}\)\tEta \d+:\d\d:\d\d$"
+)
+
+
+def _run_cli(argv):
+    """main(argv) with stdout captured; returns (result, output)."""
+    buf, stdout = io.StringIO(), sys.stdout
+    sys.stdout = buf
+    try:
+        result = tcli.main(argv)
+        assert sys.stdout is buf  # run restored the stream it was given
+    finally:
+        sys.stdout = stdout
+    return result, buf.getvalue()
+
+
+@pytest.fixture(scope="module")
+def trained(tmp_path_factory):
+    """2 epochs, --stepsize 1, an eval and a checkpoint after each; the
+    optimizer's state is recorded at each save."""
+    root = tmp_path_factory.mktemp("cli")
+    save_dir = str(root / "log")
+    base = [
+        "--use-cpu", "--root", str(root / "data"), "-d", "synthetic", "-a", "vmgn_tiny",
+        "--height", "64", "--width", "32", "--seq-len", "4", "--train-batch", "4",
+        "--num-instances", "2", "--train-sample", "restricted",
+        "--train-sampler", "RandomIdentitySamplerV1", "--test-sample", "evenly",
+        "--test-batch", "8", "--num-split", "4", "--pyramid-part", "--use-pose",
+        "--learn-graph", "--num-gb", "1", "--flip-aug", "--soft-margin",
+        "--dist-metric", "cosine", "--lr", "1e-3", "--stepsize", "1", "--gamma", "0.1",
+        "--save-dir", save_dir, "-j", "2", "--seed", "1",
+    ]
+    import agrl_torch.core as core
+
+    saved, real_save = {}, core.save_checkpoint
+
+    def recording_save(model, optimizer, fpath, epoch, **kw):
+        saved[epoch] = copy.deepcopy(optimizer.state_dict())
+        return real_save(model, optimizer, fpath, epoch, **kw)
+
+    core.save_checkpoint = recording_save
+    try:
+        result, out = _run_cli(base + ["--max-epoch", "2", "--eval-step", "1", "--print-freq", "1"])
+    finally:
+        core.save_checkpoint = real_save
+    return dict(base=base, save_dir=save_dir, out=out, result=result, saved=saved)
+
+
+def test_cli_trains_evaluates_and_checkpoints(trained):
+    out, save_dir = trained["out"], trained["save_dir"]
+    assert trained["result"] is None
+    meters = [line for line in out.splitlines() if line.startswith("CurTime: ")]
+    assert meters and all(METER.match(line) for line in meters), meters[:2]
+    for line in meters:
+        xent, htri = (float(v) for v in METER.match(line).groups())
+        assert np.isfinite(xent) and np.isfinite(htri)
+    # synthetic: 8 ids x K=2 clips = 16 per epoch, 4 steps of 4
+    assert [re.search(r"Epoch: \[(\d+)\]\[(\d+)/", m).groups() for m in meters] == [
+        (str(e), str(b)) for e in (1, 2) for b in (1, 2, 3, 4)]
+    assert out.count("Computing CMC and mAP on device") == 2
+    for name in ("checkpoint_ep1.pth.tar", "checkpoint_ep2.pth.tar", "best_model.pth.tar",
+                 "args.json", "scalars.jsonl", "vmgn.py"):
+        assert osp.exists(osp.join(save_dir, name)), name
+    assert glob.glob(osp.join(save_dir, "log_train-*.txt"))
+    from agrl_torch.utils.tbevents import decode_scalar_event, read_records
+
+    (events,) = glob.glob(osp.join(save_dir, "events.out.tfevents.*"))
+    scalars = [decode_scalar_event(r) for r in read_records(events)]
+    assert scalars[0]["version"] == "brain.Event:2"
+    tags = [(tag, e["step"]) for e in scalars[1:] for tag, _ in e["scalars"]]
+    assert tags == [(t, ep) for ep in (1, 2) for t in ("loss/xent_loss", "loss/htri_loss",
+                                                       "acc/rank1", "acc/mAP")]
+
+
+def test_meter_line_is_agrl_tpu_letter_for_letter():
+    import inspect
+
+    def meter_block(module):
+        src = inspect.getsource(module.train_one_epoch)
+        block = src[src.index('f"CurTime: '):src.index('f"Eta {eta_str}"')]
+        return re.sub(r"\s+", " ", block)
+
+    assert meter_block(tcli) == meter_block(jcli)
+
+
+def test_evaluate_resume_best_prints_best_rank1(trained, tmp_path):
+    out = trained["out"]
+    best = re.search(r"==> Best Rank-1 (\S+), mAP: (\S+), achieved", out).groups()
+    (r1, mAP), eval_out = _run_cli(trained["base"] + [
+        "--evaluate", "--save-dir", str(tmp_path),
+        "--resume", osp.join(trained["save_dir"], "best_model.pth.tar")])
+    assert (f"{r1:.2%}", f"{mAP:.2%}") == best
+    assert "Evaluate only" in eval_out and "Loaded checkpoint from" in eval_out
+    assert glob.glob(str(tmp_path / "log_test-*.txt"))
+
+
+def test_evaluate_visualize_ranks_returns_the_distmat(trained, tmp_path):
+    distmat, _ = _run_cli(trained["base"] + [
+        "--evaluate", "--visualize-ranks", "--save-dir", str(tmp_path),
+        "--resume", osp.join(trained["save_dir"], "best_model.pth.tar")])
+    assert isinstance(distmat, np.ndarray) and distmat.shape == (24, 24)
+    assert np.isfinite(distmat).all()
+    strips = glob.glob(str(tmp_path / "ranked_results" / "*" / "gallery_top001"))
+    assert len(strips) == 24
+
+
+def test_resume_restores_adam_and_the_step_count(trained, monkeypatch, tmp_path):
+    """--resume checkpoint_ep1 (epoch index 0 saved): the first update of
+    the resumed epoch uses lr_fn(steps_per_epoch), the decayed lr, as
+    agrl_tpu's resumed state (step = (epoch + 1) * steps_per_epoch)
+    gives, from Adam state bit-equal to the state at the save."""
+    from agrl_torch.engine import trainer
+
+    seen, real = {}, trainer.make_train_step
+
+    def recording_make(model, optimizer, lr_fn, **kw):
+        step = real(model, optimizer, lr_fn, **kw)
+        seen["start_step"] = kw["start_step"]
+
+        def first(*args, **kwargs):
+            if "state" not in seen:
+                seen["state"] = copy.deepcopy(optimizer.state_dict())
+                out = step(*args, **kwargs)
+                seen["lr"] = optimizer.param_groups[0]["lr"]
+                return out
+            return step(*args, **kwargs)
+
+        return first
+
+    monkeypatch.setattr(trainer, "make_train_step", recording_make)
+    _, out = _run_cli(trained["base"] + [
+        "--max-epoch", "2", "--eval-step", "1", "--print-freq", "1", "--save-dir", str(tmp_path),
+        "--resume", osp.join(trained["save_dir"], "checkpoint_ep1.pth.tar")])
+    spe = 4
+    assert "- start_epoch: 1" in out and seen["start_step"] == spe
+    want_lr = float(jax_per_step(jax_multistep_lr(1e-3, [1], gamma=0.1), spe)(spe))
+    assert seen["lr"] == pytest.approx(want_lr, rel=1e-12) and want_lr < 1e-3 / 2
+    before, resumed = trained["saved"][0], seen["state"]
+    assert before["state"].keys() == resumed["state"].keys() and before["state"]
+    for k, want in before["state"].items():
+        for field in ("step", "exp_avg", "exp_avg_sq"):
+            assert torch.equal(resumed["state"][k][field], want[field]), (k, field)
+    assert [m for m in out.splitlines() if m.startswith("CurTime: ")][0].split("\t")[1] == \
+        "Epoch: [2][1/4]"
+
+
+def test_resume_refuses_an_agrl_tpu_msgpack(tmp_path, trained):
+    fake = tmp_path / "checkpoint_ep1.msgpack"
+    fake.write_bytes(b"\x82\xa6params\x80\xabbatch_stats\x80")
+    with pytest.raises(SystemExit, match="--load-weights"):
+        _run_cli(trained["base"] + ["--max-epoch", "1", "--save-dir", str(tmp_path / "log"),
+                                    "--resume", str(fake)])

@@ -411,3 +411,48 @@ def test_evaluator_host_scoring_re_ranks_on_the_card(cuda, kw, monkeypatch):
         assert isinstance(out, np.ndarray) and out.shape == (12, 36) and np.isfinite(out).all()
     else:
         assert all(0.0 <= x <= 1.0 for x in out)
+
+
+def test_cli_trains_and_evaluates_through_the_kernels(cuda, tmp_path):
+    """The training CLI's main on the card at vmgn_tiny, in a process of
+    its own: 2 train steps (one K3 forward and one backward launch each)
+    and one eval (2 K1 launches per batch of 16), and no JAX module loaded."""
+    import json
+    import os
+    import subprocess
+    import sys
+    from pathlib import Path
+
+    argv = [
+        "--root", str(tmp_path / "data"), "-d", "synthetic", "-a", "vmgn_tiny",
+        "--height", "128", "--width", "64", "--seq-len", "8", "--train-batch", "16",
+        "--num-instances", "4", "--train-sampler", "RandomIdentitySamplerV1",
+        "--test-sample", "evenly", "--test-batch", "16", "--num-split", "4", "--pyramid-part",
+        "--use-pose", "--learn-graph", "--num-gb", "2", "--consistent-loss", "--soft-margin",
+        "--flip-aug", "--max-epoch", "1", "--print-freq", "1", "-j", "4",
+        "--save-dir", str(tmp_path / "log"),
+    ]
+    code = (
+        "import json, sys\n"
+        "from agrl_torch.cli import train_vidreid_xent_htri as cli\n"
+        "from agrl_torch.ops import graph_conv as gc, triplet as tri\n"
+        f"cli.main({argv!r})\n"
+        "bad = [m for m in sys.modules if m.split('.')[0] in ('jax', 'flax', 'agrl_tpu')]\n"
+        "print(json.dumps(dict(k3=tri.launches, k3_backward=tri.backward_launches,\n"
+        "                      k1=gc.launches, jax_modules=bad)))\n"
+    )
+    root = Path(__file__).resolve().parent.parent
+    env = dict(os.environ, PYTHONPATH=str(root))
+    proc = subprocess.run([sys.executable, "-c", code], cwd=root, env=env, capture_output=True,
+                          text=True, timeout=600)
+    assert proc.returncode == 0, proc.stderr[-3000:]
+    counts = json.loads(proc.stdout.strip().splitlines()[-1])
+    # the synthetic catalog: 8 ids x K=4 = 32 clips (2 steps of 16); 24 query
+    # and 24 gallery tracklets (2 + 2 eval batches of 16)
+    assert counts == dict(k3=2, k3_backward=2, k1=8, jax_modules=[])
+    assert (tmp_path / "log" / "checkpoint_ep1.pth.tar").exists()
+    assert proc.stdout.count("\tXent ") == 2
+
+
+def test_graph_kernel_vertex_limit_is_the_cli_preflight_limit(cuda):
+    assert graph_conv._lib().graph_conv_max_vertices() == graph_conv.MAX_VERTICES
