@@ -65,14 +65,17 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--train-batch", default=32, type=int)
     p.add_argument("--test-batch", default=5, type=int)
     p.add_argument("--clip-batch", default=64, type=int,
-                   help="device batch for dense/skipdense eval (not ported; "
-                        "evenly eval batches by --test-batch)")
+                   help="device batch of clips for dense/skipdense eval (clips pack "
+                        "across tracklets); --test-sample all batches up to "
+                        "clip_batch * 8 frames; evenly eval batches by --test-batch")
     p.add_argument("--num-instances", type=int, default=4)
     p.add_argument("--train-sample", default="restricted",
                    choices=["evenly", "random", "consecutive", "restricted"])
     p.add_argument("--test-sample", default="dense",
                    choices=["evenly", "all", "dense", "skipdense"],
-                   help="only evenly is ported: pass --test-sample evenly")
+                   help="eval clips: evenly (one clip a tracklet, batches of --test-batch), "
+                        "dense/skipdense (every frame in clips, pooled by --pool) or all "
+                        "(whole tracklets, length-bucketed with a frame mask)")
     p.add_argument("--train-sampler", default="RandomIdentitySampler")
     # Optimization
     p.add_argument("--optim", type=str, default="adam", help="only adam is ported")
@@ -182,19 +185,14 @@ def preflight(args) -> None:
     not take: each SystemExit names the flag, its value and the ROADMAP
     item that will port it. Without --use-cpu it also refuses what the
     card's kernels would refuse later (ROADMAP C, limits): a train batch
-    above K3's and clips with more vertices than K1 holds."""
+    above K3's."""
     from agrl_torch.models import get_names
-    from agrl_torch.ops.graph_conv import MAX_VERTICES
     from agrl_torch.ops.triplet import MAX_BATCH
-    from agrl_torch.utils.reidtools import calc_splits
 
     if args.arch not in get_names():
         _refuse("-a/--arch", args.arch, "A7", f"ported: {get_names()}")
     if args.optim != "adam":
         _refuse("--optim", args.optim, "A2", "ported: adam")
-    if args.test_sample != "evenly":
-        _refuse("--test-sample", args.test_sample, "A4" if args.test_sample == "all" else "A3",
-                "pass --test-sample evenly, as every script in scripts/ does")
     for flag, on in (("--rand-erase", args.rand_erase), ("--rand-crop", args.rand_crop),
                      ("--misalign-aug", args.misalign_aug), ("--bf16-train", args.bf16_train)):
         if on:
@@ -228,14 +226,6 @@ def preflight(args) -> None:
         raise SystemExit(
             f"--train-batch {args.train_batch}: the card's batch-hard mining kernel (K3) "
             f"takes at most {MAX_BATCH} clips (ROADMAP C, limits); the CPU path "
-            "(--use-cpu) takes it"
-        )
-    per_frame = sum(calc_splits(args.num_split)) if args.pyramid_part else args.num_split
-    if args.num_gb > 0 and args.seq_len * per_frame > MAX_VERTICES:
-        raise SystemExit(
-            f"--seq-len {args.seq_len}: {args.seq_len} frames x {per_frame} parts = "
-            f"{args.seq_len * per_frame} graph vertices, above the {MAX_VERTICES} the card's "
-            "graph kernel (K1) holds (ROADMAP B1 tiles it; ROADMAP C, limits); the CPU path "
             "(--use-cpu) takes it"
         )
 
@@ -318,8 +308,10 @@ def _run(args, device, writer):
     )
     trainloader = ClipLoader(train_ds, batch_size=args.train_batch, sampler=sampler,
                              drop_last=True, num_workers=args.workers, seed=args.seed)
-    queryloader = ClipLoader(query_ds, batch_size=args.test_batch, num_workers=args.workers)
-    galleryloader = ClipLoader(gallery_ds, batch_size=args.test_batch, num_workers=args.workers)
+    # dense/skipdense/all items vary in length: one tracklet a loader batch
+    test_batch = 1 if args.test_sample in ("dense", "skipdense", "all") else args.test_batch
+    queryloader = ClipLoader(query_ds, batch_size=test_batch, num_workers=args.workers)
+    galleryloader = ClipLoader(gallery_ds, batch_size=test_batch, num_workers=args.workers)
 
     print(f"Initializing model: {args.arch}")
     model = models.init_model(
@@ -376,7 +368,8 @@ def _run(args, device, writer):
         print(f"- rank1: {best_rank1}")
         print(f"- mAP: {best_mAP}")
 
-    evaluator = Evaluator(model, test_sample=args.test_sample, device=device)
+    evaluator = Evaluator(model, test_sample=args.test_sample, pool=args.pool,
+                          clip_batch=args.clip_batch, device=device)
     if args.evaluate:
         print("Evaluate only")
         result = evaluator.evaluate(

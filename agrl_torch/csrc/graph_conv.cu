@@ -3,18 +3,26 @@
 // Replaces the TPU kernels agrl_tpu/ops/graph_conv.py:graph_propagate_pallas
 // and agrl_tpu/ops/graph_conv_v2.py:graph_propagate_pallas_v2 (two Pallas
 // schedules of one function). Per clip b, with f_b (V, C), adj_b (V, V),
-// W (C, C):
+// W (C, C) and an optional 0/1 vertex mask m_b (V,):
 //
 //   h    = f_b @ W
-//   A    = row_l1(adj_b)
-//   S    = row_l1(2 * sigmoid(-sqrt(max(d2, 1e-12)))),  d2_ij = |f_i - f_j|^2
+//   P    = m_b m_b^T (all ones without a mask)
+//   A    = row_l1(adj_b * P)
+//   S    = row_l1(2 * sigmoid(-sqrt(max(d2, 1e-12))) * P),  d2_ij = |f_i - f_j|^2
 //   G    = (A + S) / 2
 //   out  = (1 - gamma) f_b + gamma * lrelu_0.1(bn_eval(G @ h))
+//
+// The mask is agrl_tpu's GraphConvLayer vertex_mask (padding frames of the
+// bucketed `--test-sample all` eval): pairs with a padded end drop out of
+// both row sums, and a padded row sums to 0 and, through the 1e-12 floor,
+// gives a zero row of G.
 //
 // W arrives as Wt = W^T, i.e. a torch Linear weight (out, in), row-major:
 // both operands of f_b @ W are then contiguous along the reduction axis.
 //
-// Three launches on the caller's stream:
+// Two schedules, chosen by graph_conv_forward from V.
+//
+// V <= 128, three launches on the caller's stream:
 //   gram_partial    grid (B, KS): block (b, s) accumulates the V x V Gram
 //                   of f_b over the s-th of KS slices of the channels, in
 //                   fp32 registers, into a scratch buffer. Splitting the
@@ -23,8 +31,8 @@
 //   graph_blend     grid (B, ceil(V / 8)): the diagonal of the Gram first,
 //                   then one warp per row sums the KS partials in a fixed
 //                   order (so d2_ii is exactly 0), forms the l2 affinity,
-//                   row-normalizes it and the pose adjacency, and writes G
-//                   (B, V, V).
+//                   masks it and the pose adjacency, row-normalizes both
+//                   and writes G (B, V, V).
 //   graph_propagate grid (C / BN, ceil(B / clips)): block (t, p) computes
 //                   the (BM, BN) tile t of h = f @ W for the clips of
 //                   group p on the tensor cores, keeps it in shared
@@ -32,6 +40,29 @@
 //                   applies BN (running stats), LeakyReLU(0.1) and the
 //                   convex residual on the same tile. h never goes to
 //                   device memory.
+//
+// V > 128 (long clips, up to 8288 vertices for a 1184-frame bucket): a
+// block cannot hold a clip's rows of G, and a k-split Gram scratch would
+// take B * 32 * V^2 floats, so four launches with G and h in scratch:
+//   gram_tile       grid (ceil(V / 64), ceil(V / 64), B): one 64 x 64 tile
+//                   of the Gram over all C channels (no k-split), fp32 on
+//                   the FMA pipe; diagonal tiles also write the diagonal
+//                   (B, V), the same fp32 values, so d2_ii is exactly 0.
+//   graph_blend_long grid (V, B): one block per row, masked row sums over
+//                   the full row in a fixed order (no atomics), then G
+//                   written over the row's Gram entries in place.
+//   graph_propagate the short schedule's tensor-core mainloop over the
+//                   flattened (B * V, C) rows, 128 rows a block (clip
+//                   boundaries fall inside a block; the product does not
+//                   care), stored into an h scratch (B, V, C).
+//   graph_apply_long grid (C / 128, ceil(V / 128), B): a (128 x 128) tile of
+//                   G_b @ h_b with K running over V, fp32 FMA, each 32-deep
+//                   chunk summed apart and added into the total; BN,
+//                   LeakyReLU and the residual on the tile.
+// At V = 8288, C = 2048 the Gram and G @ h are 281 GFLOP each against 69.5
+// for f @ W: on the FP32 pipe they take ~8.4 ms per layer, where the three
+// products in 3xTF32, with only the Gram's upper half (it is symmetric),
+// would take ~3.0; tensor cores for them are later work.
 //
 // Bound on an H100 SXM (B=16, V=56, C=2048, one call): f@W is
 // 2*896*2048^2 = 7.52 GFLOP, the Gram and G@h add 0.21 GFLOP each; the
@@ -43,8 +74,9 @@
 // take lo*hi + hi*lo + hi*hi (lo*lo, ~2^-22 of the product, is dropped).
 // A single TF32 pass keeps only ~11 bits of each operand (~3e-4 of the
 // output's scale at the serving shape), far outside the kernel's fp32
-// bars. Three tf32 passes over 7.52 GFLOP at 495 TFLOP/s, plus the Gram
-// and G@h on the FMA pipe, bound the call at ~0.052 ms.
+// bars. Three tf32 passes at 495 TFLOP/s over f@W, the Gram's upper half
+// and G@h bound the call at ~0.047 ms (~0.052 with the Gram and G@h on the
+// FMA pipe, where this design runs them).
 //
 // graph_propagate's design:
 //   * a block holds BM = 128 rows: two clips of up to 64 vertices (V=56
@@ -262,7 +294,7 @@ gram_partial_kernel(const float* __restrict__ f, float* __restrict__ partial, in
 template <int R>
 __global__ void __launch_bounds__(kThreads)
 graph_blend_kernel(const float* __restrict__ partial, int slices, const float* __restrict__ adj,
-                   float* __restrict__ graph, int V) {
+                   const float* __restrict__ mask, float* __restrict__ graph, int V) {
   constexpr int VP = 16 * R;
   constexpr int JPL = (VP + 31) / 32;  // columns per lane
   __shared__ float diag[VP];
@@ -285,6 +317,7 @@ graph_blend_kernel(const float* __restrict__ partial, int slices, const float* _
   if (i < V) {
     const float gii = diag[i];
     const float* adj_row = adj + ((size_t)b * V + i) * V;
+    const float* mb = mask == nullptr ? nullptr : mask + (size_t)b * V;
     float s[JPL], a[JPL];
     float s_sum = 0.f, a_sum = 0.f;
 #pragma unroll
@@ -295,8 +328,9 @@ graph_blend_kernel(const float* __restrict__ partial, int slices, const float* _
       if (j < V) {
         const float d2 = gii + diag[j] - 2.f * gram(i, j);  // exactly 0 when i == j
         const float d = sqrtf(fmaxf(d2, kNormEps));
-        s[q] = 2.f / (1.f + expf(d));  // 2 * sigmoid(-d); exp overflow gives 0
-        a[q] = adj_row[j];
+        const float pm = mb == nullptr ? 1.f : mb[i] * mb[j];  // the pair's mask
+        s[q] = 2.f / (1.f + expf(d)) * pm;  // 2 * sigmoid(-d); exp overflow gives 0
+        a[q] = adj_row[j] * pm;
       }
       s_sum += fabsf(s[q]);
       a_sum += fabsf(a[q]);
@@ -352,7 +386,11 @@ struct PropagateSmem {
       sizeof(float) * (PIPE > TILES ? PIPE : TILES) + 8 * STAGES + 1024;  // + alignment slack
 };
 
-template <int VP>
+// STORE_H: the long schedule's h = f @ W alone. f is then one (1, V, C)
+// matrix of the flattened rows, block y takes rows 128 y .. 128 y + 127,
+// and the tile is stored into out (the h scratch) as it comes from the
+// accumulators.
+template <int VP, bool STORE_H>
 __global__ void __launch_bounds__(kThreads, 1)
 graph_propagate_kernel(const __grid_constant__ CUtensorMap f_map,
                        const __grid_constant__ CUtensorMap wt_map,
@@ -370,7 +408,8 @@ graph_propagate_kernel(const __grid_constant__ CUtensorMap f_map,
   unsigned long long* full = reinterpret_cast<unsigned long long*>(prop_smem + L::PIPE);
 
   const int col0 = blockIdx.x * BN;
-  const int b0 = blockIdx.y * L::CLIPS;  // first clip of the block
+  const int v0 = STORE_H ? blockIdx.y * BM : 0;            // first row of the block
+  const int b0 = STORE_H ? 0 : blockIdx.y * L::CLIPS;  // first clip of the block
   const int clips = min(L::CLIPS, B - b0);
   // block row r is vertex r % VP of clip b0 + r / VP
   auto row_valid = [&](int r) { return r % VP < V && b0 + r / VP < B; };
@@ -392,7 +431,7 @@ graph_propagate_kernel(const __grid_constant__ CUtensorMap f_map,
     float* rs = raw + stage * L::RAW;
     mbar_expect_tx(full + stage, (unsigned)(sizeof(float) * (clips * VP + BN) * KC));
     for (int p = 0; p < clips; ++p)
-      tma_load_3d(rs + p * VP * KC, &f_map, kt * KC, 0, b0 + p, full + stage);
+      tma_load_3d(rs + p * VP * KC, &f_map, kt * KC, v0, b0 + p, full + stage);
     tma_load_2d(rs + BM * KC, &wt_map, kt * KC, col0, full + stage);
   };
   // raw chunk -> hi/lo planes of buffer buf: x = hi + lo, hi = tf32(x),
@@ -477,6 +516,20 @@ graph_propagate_kernel(const __grid_constant__ CUtensorMap f_map,
     pin(acc[e]);
     tot[e] += acc[e];
   }
+  if constexpr (STORE_H) {
+    const int warp = threadIdx.x / 32 % 4, lane = threadIdx.x % 32;
+    const int r = v0 + wg * 64 + warp * 16 + lane / 4, c = col0 + 2 * (lane % 4);
+#pragma unroll
+    for (int i = 0; i < BN / 8; ++i) {
+      if (r < V)
+        *reinterpret_cast<float2*>(out + (size_t)r * C + c + 8 * i) =
+            make_float2(tot[4 * i], tot[4 * i + 1]);
+      if (r + 8 < V)
+        *reinterpret_cast<float2*>(out + (size_t)(r + 8) * C + c + 8 * i) =
+            make_float2(tot[4 * i + 2], tot[4 * i + 3]);
+    }
+    return;
+  }
   __syncthreads();  // the buffers now hold the h tile and each clip's G_b
 
   float* hs = prop_smem;            // [BM][HS]
@@ -539,6 +592,198 @@ graph_propagate_kernel(const __grid_constant__ CUtensorMap f_map,
   }
 }
 
+// ---- long clips (V > 128) -------------------------------------------------
+
+constexpr int GT = 64;        // Gram tile: 64 x 64 entries, 4 x 4 a thread
+constexpr int GTS = GT + 1;   // odd stride: the transposed stores hit distinct banks
+constexpr int AT = 128;       // G @ h tile: 128 rows x 128 columns, 8 x 8 a thread
+constexpr int ATS = AT + 1;
+
+// Gram tile (i0.., j0..) of clip b over all C channels, in 32-deep chunks
+// whose sums are added into the total (a chain of C fmaf on one register
+// would drift further from the plain product). Symmetric entries see the
+// same products in the same order, so G2_ij == G2_ji and, on the diagonal,
+// the values written to diag are the Gram's own.
+__global__ void __launch_bounds__(kThreads)
+gram_tile_kernel(const float* __restrict__ f, float* __restrict__ gram,
+                 float* __restrict__ diag, int V, int C) {
+  __shared__ float fa[KC * GTS], fb[KC * GTS];
+  const int i0 = blockIdx.y * GT, j0 = blockIdx.x * GT, b = blockIdx.z;
+  const int tx = threadIdx.x % 16, ty = threadIdx.x / 16;
+  const float* fc = f + (size_t)b * V * C;
+
+  float part[4][4], tot[4][4];
+#pragma unroll
+  for (int r = 0; r < 4; ++r)
+#pragma unroll
+    for (int c = 0; c < 4; ++c) tot[r][c] = 0.f;
+
+  for (int k0 = 0; k0 < C; k0 += KC) {
+    for (int idx = threadIdx.x; idx < GT * KC; idx += kThreads) {
+      const int v = idx / KC, k = idx % KC;
+      fa[k * GTS + v] = i0 + v < V ? fc[(size_t)(i0 + v) * C + k0 + k] : 0.f;
+      fb[k * GTS + v] = j0 + v < V ? fc[(size_t)(j0 + v) * C + k0 + k] : 0.f;
+    }
+    __syncthreads();
+#pragma unroll
+    for (int r = 0; r < 4; ++r)
+#pragma unroll
+      for (int c = 0; c < 4; ++c) part[r][c] = 0.f;
+#pragma unroll 8
+    for (int k = 0; k < KC; ++k) {
+      float a[4], bv[4];
+#pragma unroll
+      for (int r = 0; r < 4; ++r) {
+        a[r] = fa[k * GTS + ty + 16 * r];
+        bv[r] = fb[k * GTS + tx + 16 * r];
+      }
+#pragma unroll
+      for (int r = 0; r < 4; ++r)
+#pragma unroll
+        for (int c = 0; c < 4; ++c) part[r][c] = fmaf(a[r], bv[c], part[r][c]);
+    }
+#pragma unroll
+    for (int r = 0; r < 4; ++r)
+#pragma unroll
+      for (int c = 0; c < 4; ++c) tot[r][c] += part[r][c];
+    __syncthreads();
+  }
+#pragma unroll
+  for (int r = 0; r < 4; ++r) {
+    const int i = i0 + ty + 16 * r;
+    if (i >= V) continue;
+#pragma unroll
+    for (int c = 0; c < 4; ++c) {
+      const int j = j0 + tx + 16 * c;
+      if (j >= V) continue;
+      gram[((size_t)b * V + i) * V + j] = tot[r][c];
+      if (i == j) diag[(size_t)b * V + i] = tot[r][c];
+    }
+  }
+}
+
+// Sum of v over the block's 256 threads, in a fixed order; every thread
+// gets the total.
+__device__ __forceinline__ float block_sum(float v, float* red) {
+#pragma unroll
+  for (int off = 16; off > 0; off >>= 1) v += __shfl_xor_sync(0xffffffffu, v, off);
+  __syncthreads();  // red is free (an earlier call's reads are done)
+  if (threadIdx.x % 32 == 0) red[threadIdx.x / 32] = v;
+  __syncthreads();
+  float t = 0.f;
+#pragma unroll
+  for (int w = 0; w < kThreads / 32; ++w) t += red[w];
+  return t;
+}
+
+// Row i of clip b: the masked affinity and pose rows, their L1 sums over
+// the whole row, then G's row written over the Gram's. A thread writes
+// only the entries it read, so the row is rewritten in place.
+__global__ void __launch_bounds__(kThreads)
+graph_blend_long_kernel(float* __restrict__ graph, const float* __restrict__ diag,
+                        const float* __restrict__ adj, const float* __restrict__ mask, int V) {
+  __shared__ float red[kThreads / 32];
+  const int i = blockIdx.x, b = blockIdx.y;
+  float* row = graph + ((size_t)b * V + i) * V;
+  const float* adj_row = adj + ((size_t)b * V + i) * V;
+  const float* db = diag + (size_t)b * V;
+  const float* mb = mask == nullptr ? nullptr : mask + (size_t)b * V;
+  const float gii = db[i], mi = mb == nullptr ? 1.f : mb[i];
+  auto entries = [&](int j, float& s, float& a) {
+    const float pm = mb == nullptr ? 1.f : mi * mb[j];
+    const float d2 = gii + db[j] - 2.f * row[j];  // exactly 0 when i == j
+    s = 2.f / (1.f + expf(sqrtf(fmaxf(d2, kNormEps)))) * pm;
+    a = adj_row[j] * pm;
+  };
+  float s_sum = 0.f, a_sum = 0.f;
+  for (int j = threadIdx.x; j < V; j += kThreads) {
+    float s, a;
+    entries(j, s, a);
+    s_sum += fabsf(s);
+    a_sum += fabsf(a);
+  }
+  const float s_den = fmaxf(block_sum(s_sum, red), kNormEps);
+  const float a_den = fmaxf(block_sum(a_sum, red), kNormEps);
+  for (int j = threadIdx.x; j < V; j += kThreads) {
+    float s, a;
+    entries(j, s, a);
+    row[j] = 0.5f * (a / a_den + s / s_den);
+  }
+}
+
+// Tile (rows i0.., columns col0..) of G_b @ h_b, K over V in 32-deep
+// chunks (each chunk's 32 products summed apart, then added into the
+// total), then BN (running stats), LeakyReLU(0.1) and the convex residual.
+// Thread (tx, ty) owns rows ty + 16 i and columns tx + 16 c.
+__global__ void __launch_bounds__(kThreads)
+graph_apply_long_kernel(const float* __restrict__ graph, const float* __restrict__ h,
+                        const float* __restrict__ f, const float* __restrict__ scale,
+                        const float* __restrict__ bias, const float* __restrict__ mean,
+                        const float* __restrict__ var, float gamma, float* __restrict__ out,
+                        int V, int C) {
+  __shared__ float gs[KC * ATS];  // gs[k][r] = G_b[i0 + r, k0 + k]
+  __shared__ float hs[KC * AT];   // hs[k][c] = h_b[k0 + k, col0 + c]
+  const int col0 = blockIdx.x * AT, i0 = blockIdx.y * AT, b = blockIdx.z;
+  const int tx = threadIdx.x % 16, ty = threadIdx.x / 16;
+  const float* gb = graph + (size_t)b * V * V;
+  const float* hb = h + (size_t)b * V * C;
+
+  float part[AT / 16][AT / 16], tot[AT / 16][AT / 16];
+#pragma unroll
+  for (int i = 0; i < AT / 16; ++i)
+#pragma unroll
+    for (int c = 0; c < AT / 16; ++c) tot[i][c] = 0.f;
+
+  for (int k0 = 0; k0 < V; k0 += KC) {
+    for (int idx = threadIdx.x; idx < AT * KC; idx += kThreads) {
+      const int r = idx / KC, k = idx % KC;  // consecutive threads: consecutive k of a row
+      gs[k * ATS + r] = i0 + r < V && k0 + k < V ? gb[(size_t)(i0 + r) * V + k0 + k] : 0.f;
+    }
+    for (int idx = threadIdx.x; idx < KC * AT; idx += kThreads) {
+      const int k = idx / AT, c = idx % AT;
+      hs[k * AT + c] = k0 + k < V ? hb[(size_t)(k0 + k) * C + col0 + c] : 0.f;
+    }
+    __syncthreads();
+#pragma unroll
+    for (int i = 0; i < AT / 16; ++i)
+#pragma unroll
+      for (int c = 0; c < AT / 16; ++c) part[i][c] = 0.f;
+#pragma unroll 4
+    for (int k = 0; k < KC; ++k) {
+      float gv[AT / 16], hv[AT / 16];
+#pragma unroll
+      for (int i = 0; i < AT / 16; ++i) gv[i] = gs[k * ATS + ty + 16 * i];
+#pragma unroll
+      for (int c = 0; c < AT / 16; ++c) hv[c] = hs[k * AT + tx + 16 * c];
+#pragma unroll
+      for (int i = 0; i < AT / 16; ++i)
+#pragma unroll
+        for (int c = 0; c < AT / 16; ++c) part[i][c] = fmaf(gv[i], hv[c], part[i][c]);
+    }
+#pragma unroll
+    for (int i = 0; i < AT / 16; ++i)
+#pragma unroll
+      for (int c = 0; c < AT / 16; ++c) tot[i][c] += part[i][c];
+    __syncthreads();
+  }
+
+#pragma unroll
+  for (int c = 0; c < AT / 16; ++c) {
+    const int col = col0 + tx + 16 * c;
+    const float mul = rsqrtf(var[col] + kBnEps) * scale[col];
+    const float sub = mean[col], add = bias[col];
+#pragma unroll
+    for (int i = 0; i < AT / 16; ++i) {
+      const int r = i0 + ty + 16 * i;
+      if (r >= V) continue;
+      const size_t at = ((size_t)b * V + r) * C + col;
+      float y = (tot[i][c] - sub) * mul + add;
+      y = y >= 0.f ? y : 0.1f * y;
+      out[at] = (1.f - gamma) * f[at] + gamma * y;
+    }
+  }
+}
+
 // cuTensorMapEncodeTiled, a CUDA driver API entry point, fetched through
 // the runtime (no link to libcuda needed).
 using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
@@ -576,9 +821,9 @@ bool tensor_map(CUtensorMap* map, const float* base, cuuint32_t rank, const cuui
 }
 
 template <int R>
-int launch(const float* f, const float* adj, const float* wt, const float* scale,
-           const float* bias, const float* mean, const float* var, float gamma,
-           float* scratch, float* out, int B, int V, int C, cudaStream_t stream) {
+int launch(const float* f, const float* adj, const float* mask, const float* wt,
+           const float* scale, const float* bias, const float* mean, const float* var,
+           float gamma, float* scratch, float* out, int B, int V, int C, cudaStream_t stream) {
   constexpr int VP = 16 * R;
   const int slices = gram_slices(C);
   float* partial = scratch;                            // (B, slices, VP, VP)
@@ -589,7 +834,7 @@ int launch(const float* f, const float* adj, const float* wt, const float* scale
   if (err != cudaSuccess) return (int)err;
 
   graph_blend_kernel<R><<<dim3(B, (V + kThreads / 32 - 1) / (kThreads / 32)), kThreads, 0,
-                           stream>>>(partial, slices, adj, graph, V);
+                           stream>>>(partial, slices, adj, mask, graph, V);
   err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
 
@@ -601,12 +846,55 @@ int launch(const float* f, const float* adj, const float* wt, const float* scale
   const cuuint32_t wt_box[2] = {KC, BN};
   if (!tensor_map(&f_map, f, 3, f_dims, f_box) || !tensor_map(&wt_map, wt, 2, wt_dims, wt_box))
     return (int)cudaErrorInvalidValue;
-  err = cudaFuncSetAttribute(graph_propagate_kernel<VP>,
+  err = cudaFuncSetAttribute(graph_propagate_kernel<VP, false>,
                              cudaFuncAttributeMaxDynamicSharedMemorySize, (int)L::BYTES);
   if (err != cudaSuccess) return (int)err;
   const dim3 grid(C / BN, (B + L::CLIPS - 1) / L::CLIPS);
-  graph_propagate_kernel<VP><<<grid, kThreads, L::BYTES, stream>>>(
+  graph_propagate_kernel<VP, false><<<grid, kThreads, L::BYTES, stream>>>(
       f_map, wt_map, f, graph, scale, bias, mean, var, gamma, out, B, V, C);
+  return (int)cudaGetLastError();
+}
+
+// V > 128: scratch holds h (B, V, C), then the Gram, overwritten by G
+// (B, V, V), then the Gram's diagonal (B, V).
+int launch_long(const float* f, const float* adj, const float* mask, const float* wt,
+                const float* scale, const float* bias, const float* mean, const float* var,
+                float gamma, float* scratch, float* out, int B, int V, int C,
+                cudaStream_t stream) {
+  const size_t rows = (size_t)B * V;
+  float* h = scratch;
+  float* graph = h + rows * C;
+  float* diag = graph + rows * V;
+
+  const int gt = (V + GT - 1) / GT;
+  gram_tile_kernel<<<dim3(gt, gt, B), kThreads, 0, stream>>>(f, graph, diag, V, C);
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return (int)err;
+
+  graph_blend_long_kernel<<<dim3(V, B), kThreads, 0, stream>>>(graph, diag, adj, mask, V);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return (int)err;
+
+  // h = f @ W over the flattened rows: f as one (1, B * V, C) matrix
+  using L = PropagateSmem<BM>;
+  CUtensorMap f_map, wt_map;
+  const cuuint64_t f_dims[3] = {(cuuint64_t)C, (cuuint64_t)rows, 1};
+  const cuuint32_t f_box[3] = {KC, BM, 1};
+  const cuuint64_t wt_dims[2] = {(cuuint64_t)C, (cuuint64_t)C};
+  const cuuint32_t wt_box[2] = {KC, BN};
+  if (!tensor_map(&f_map, f, 3, f_dims, f_box) || !tensor_map(&wt_map, wt, 2, wt_dims, wt_box))
+    return (int)cudaErrorInvalidValue;
+  err = cudaFuncSetAttribute(graph_propagate_kernel<BM, true>,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize, (int)L::BYTES);
+  if (err != cudaSuccess) return (int)err;
+  graph_propagate_kernel<BM, true><<<dim3(C / BN, (unsigned)((rows + BM - 1) / BM)), kThreads,
+                                      L::BYTES, stream>>>(
+      f_map, wt_map, f, nullptr, scale, bias, mean, var, gamma, h, 1, (int)rows, C);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return (int)err;
+
+  graph_apply_long_kernel<<<dim3(C / AT, (V + AT - 1) / AT, B), kThreads, 0, stream>>>(
+      graph, h, f, scale, bias, mean, var, gamma, out, V, C);
   return (int)cudaGetLastError();
 }
 
@@ -617,27 +905,33 @@ extern "C" {
 // C must be a multiple of this.
 int graph_conv_column_tile() { return BN; }
 
-// Largest vertex count the kernels take.
-int graph_conv_max_vertices() { return 128; }
-
-// Floats of scratch graph_conv_forward needs: Gram partials, then G.
+// Floats of scratch graph_conv_forward needs. V <= 128: Gram partials,
+// then G. V > 128: h, G, the Gram's diagonal.
 long long graph_conv_scratch_floats(int B, int V, int C) {
+  if (V > 128) return (long long)B * V * C + (long long)B * V * V + (long long)B * V;
   const long long vp = V <= 64 ? 64 : 128;
   return (long long)B * gram_slices(C) * vp * vp + (long long)B * V * V;
 }
 
-// f, out (B, V, C); adj (B, V, V); wt (C, C) = W^T (a torch Linear weight);
-// scale/bias/mean/var (C,); scratch of graph_conv_scratch_floats(B, V, C).
-// All fp32, contiguous, on the current device; f and wt 16-byte aligned.
-// Returns 0 or the cudaError_t of the first failing call.
-int graph_conv_forward(const float* f, const float* adj, const float* wt, const float* scale,
-                       const float* bias, const float* mean, const float* var, float gamma,
-                       float* scratch, float* out, int B, int V, int C, void* stream) {
-  if (B <= 0 || V <= 0 || V > 128 || C <= 0 || C % BN != 0) return (int)cudaErrorInvalidValue;
+// f, out (B, V, C); adj (B, V, V); mask (B, V) of 0/1 or null; wt (C, C) =
+// W^T (a torch Linear weight); scale/bias/mean/var (C,); scratch of
+// graph_conv_scratch_floats(B, V, C). All fp32, contiguous, on the current
+// device; f and wt 16-byte aligned. Any V >= 1; B and B * V / 128 within a
+// grid dimension (65535). Returns 0 or the cudaError_t of the first
+// failing call.
+int graph_conv_forward(const float* f, const float* adj, const float* mask, const float* wt,
+                       const float* scale, const float* bias, const float* mean,
+                       const float* var, float gamma, float* scratch, float* out, int B, int V,
+                       int C, void* stream) {
+  if (B <= 0 || B > 65535 || V <= 0 || C <= 0 || C % BN != 0 ||
+      ((long long)B * V + BM - 1) / BM > 65535)
+    return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (V <= 64)
-    return launch<4>(f, adj, wt, scale, bias, mean, var, gamma, scratch, out, B, V, C, s);
-  return launch<8>(f, adj, wt, scale, bias, mean, var, gamma, scratch, out, B, V, C, s);
+    return launch<4>(f, adj, mask, wt, scale, bias, mean, var, gamma, scratch, out, B, V, C, s);
+  if (V <= 128)
+    return launch<8>(f, adj, mask, wt, scale, bias, mean, var, gamma, scratch, out, B, V, C, s);
+  return launch_long(f, adj, mask, wt, scale, bias, mean, var, gamma, scratch, out, B, V, C, s);
 }
 
 const char* graph_conv_error_string(int code) {

@@ -2,12 +2,16 @@
 
 Item contract (parity with dataset_loader.py:83-215): imgs (S, H, W, 3)
 uint8, pid, camid, adj (V, V) float32; enable_pose=False -> all-ones
-adjacency. Clip strategies: `evenly` (eval) and `random`, `consecutive`,
-`restricted` (train), each from a per-item numpy RandomState that the
-loader seeds as agrl_tpu's does, so items are bit-equal to agrl_tpu's for
-the same seed. Frames are decoded with PIL; agrl_tpu's RAM/disk frame
-caches, native decoder and the all/dense/skipdense strategies follow in
-later slices.
+adjacency. All seven clip strategies of agrl_tpu: `evenly`, `dense`,
+`skipdense` and `all` (eval) and `random`, `consecutive`, `restricted`
+(train), each from a per-item numpy RandomState that the loader seeds as
+agrl_tpu's does, so items are bit-equal to agrl_tpu's for the same seed.
+A `dense`/`skipdense` item is the tracklet's n clips, imgs (n, S, H, W, 3)
+and adjs (n, V, V); an `all` item is the whole tracklet (truncated at
+max_len), imgs (num, H, W, 3) and adj (num * parts, num * parts). Those
+vary in length, so their loaders take batches of one. Frames are decoded
+with PIL; agrl_tpu's RAM/disk frame caches and native decoder follow in a
+later slice.
 """
 
 from __future__ import annotations
@@ -18,10 +22,8 @@ import numpy as np
 
 from agrl_torch.data.graph import GraphBuilder
 from agrl_torch.data.pose import pose_key_for_path
-from agrl_torch.data.sampling import sample_clip_indices
+from agrl_torch.data.sampling import SAMPLE_METHODS, sample_clip_indices
 from agrl_torch.data.transforms import host_decode_resize
-
-CLIP_SAMPLES = ("evenly", "random", "consecutive", "restricted")
 
 
 class VideoClipDataset:
@@ -42,9 +44,8 @@ class VideoClipDataset:
         enable_pose: bool = True,
         max_len: int = 1000,
     ):
-        if sample not in CLIP_SAMPLES:
-            raise NotImplementedError(f"sample={sample!r} is not ported yet; "
-                                      f"ported: {CLIP_SAMPLES}")
+        if sample not in SAMPLE_METHODS:
+            raise KeyError(f"Unknown sample method: {sample}. Expected one of {SAMPLE_METHODS}")
         self.tracklets = tracklets
         self.seq_len = seq_len
         self.sample = sample
@@ -67,8 +68,13 @@ class VideoClipDataset:
     def num_vertices(self):
         return self.graph_builder.num_vertices(self.seq_len)
 
+    def decode(self, paths):
+        """(len(paths), H, W, 3) uint8 frames and their source sizes."""
+        return host_decode_resize(paths, self.height, self.width)
+
     def _clip_adj(self, paths, sizes):
         if not self.graph_builder.enable_pose:
+            # sized by the clip's length: an `all` item carries the whole tracklet
             return self.graph_builder.ones(len(paths))
         keys = []
         for p in paths:
@@ -85,7 +91,15 @@ class VideoClipDataset:
         num = min(len(img_paths), self.max_len)
         indices = sample_clip_indices(num, self.seq_len, self.sample, rng, self.max_len)
         chosen = [img_paths[int(i)] for i in indices]
-        imgs, sizes = host_decode_resize(chosen, self.height, self.width)
+        imgs, sizes = self.decode(chosen)
+        if self.sample in ("dense", "skipdense"):
+            n, S = len(indices) // self.seq_len, self.seq_len
+            imgs = imgs.reshape(n, S, *imgs.shape[1:])
+            adjs = np.stack([
+                self._clip_adj(chosen[i * S:(i + 1) * S], sizes[i * S:(i + 1) * S])
+                for i in range(n)
+            ])
+            return imgs, pid, camid, adjs
         return imgs, pid, camid, self._clip_adj(chosen, sizes)
 
 

@@ -108,3 +108,11 @@ def sample_clip_indices(
     raise KeyError(
         f"Unknown sample method: {method}. Expected one of {SAMPLE_METHODS}"
     )
+
+
+def num_clips(num: int, seq_len: int, method: str, max_len: int = 1000) -> int:
+    """How many seq_len clips a tracklet yields under dense/skipdense."""
+    num = min(num, max_len)
+    if method in ("dense", "skipdense"):
+        return (num + (seq_len - num % seq_len)) // seq_len
+    return 1

@@ -1,10 +1,18 @@
 """Evaluation: feature extraction -> distances (optionally re-ranked) ->
 CMC/mAP.
 
-Counterpart of agrl_tpu/engine/evaluator.py for `--test-sample evenly`
-(reference test(), train_vidreid_xent_htri.py:450-546): every tracklet is
-one clip and its features stay on the device. The ranking stage takes
-agrl_tpu's branches and console lines:
+Counterpart of agrl_tpu/engine/evaluator.py on one device (reference
+test(), train_vidreid_xent_htri.py:450-546). Extraction by test_sample:
+  * `evenly`: every tracklet is one clip;
+  * `dense`/`skipdense`: a tracklet's n clips; the clip streams of
+    consecutive tracklets pack into (clip_batch, ...) device batches (a
+    tracklet may straddle two), and each tracklet's clip features pool
+    (avg or max) on the host in float64 as the slices arrive;
+  * `all`: each tracklet pads to the next `_bucket_len` frame count with
+    a frame mask the model honours exactly, and same-bucket tracklets
+    batch together under a frame budget of clip_batch * 8.
+Features end on the Evaluator's device as (N, 4096) float32 in every case.
+The ranking stage takes agrl_tpu's branches and console lines:
   * device path (the default): the protocol scores on the card — MARS as
     a streaming top-k, market1501/cuhk03/dukev from the full distance
     matrix; with `re_rank`, k-reciprocal re-ranking on the card first
@@ -18,8 +26,8 @@ agrl_tpu's branches and console lines:
     With `device_rank=False` the distances are computed on the device
     and re-ranked on the host by the host algorithm, as in agrl_tpu.
 
-Not ported yet (raise NotImplementedError): dense/skipdense clip packing,
-bucketed `all` with frame masks, a mesh.
+Not ported yet: the mesh Evaluator (ROADMAP A8) and the
+`pad_eval_adjacency` hook of msppn/msppgn (A7).
 """
 
 from __future__ import annotations
@@ -54,7 +62,8 @@ _DEVICE_SCORERS = {
 def make_eval_forward(model, device):
     """The eval forward: uint8 clips (B, S, H, W, 3) and adjacencies
     (B, V, V) as numpy arrays or tensors in, (B, D) float32 features out,
-    on `device`. Preprocess (normalize) runs on the device.
+    on `device`. Preprocess (normalize) runs on the device. A (B, S) 0/1
+    `frame_mask` goes to a model that takes one (`supports_frame_mask`).
 
     Sets both TF32 switches off — process-wide — so every fp32 product
     and convolution runs in full fp32 (this slice serves fp32 only; the
@@ -63,23 +72,33 @@ def make_eval_forward(model, device):
     torch.backends.cudnn.allow_tf32 = False
     model.eval()
 
-    def fwd(imgs, adjs) -> torch.Tensor:
+    def fwd(imgs, adjs, frame_mask=None) -> torch.Tensor:
         x = torch.as_tensor(imgs).to(device)
         a = torch.as_tensor(adjs, dtype=torch.float32).to(device)
+        kw = {}
+        if frame_mask is not None:
+            kw["frame_mask"] = torch.as_tensor(frame_mask, dtype=torch.float32).to(device)
         with torch.inference_mode():
-            return model(preprocess_clips(x), a)
+            return model(preprocess_clips(x), a, **kw)
 
     return fwd
 
 
 class Evaluator:
-    def __init__(self, model, test_sample: str = "evenly", device="cuda"):
-        if test_sample != "evenly":
-            raise NotImplementedError(f"test_sample={test_sample!r} is not ported yet")
+    def __init__(self, model, test_sample: str = "evenly", pool: str = "avg",
+                 clip_batch: int = 64, device="cuda"):
+        if pool not in ("avg", "max"):
+            raise ValueError(f"pool must be avg or max, got {pool!r}")
         self.device = resolve_device(device)
         self.model = model.to(self.device)
         self.test_sample = test_sample
+        self.pool = pool
+        self.clip_batch = clip_batch
         self._fwd = make_eval_forward(self.model, self.device)
+
+    def _sync(self):
+        if self.device.type == "cuda":
+            torch.cuda.synchronize(self.device)
 
     def extract(self, loader, name: str = "query"):
         """Returns (features (N, D) on the device, pids, camids, batch_time
@@ -87,23 +106,162 @@ class Evaluator:
         with the card. The model goes to eval mode first: a trainer between
         two evaluations leaves it in train mode."""
         self.model.eval()
+        if self.test_sample in ("dense", "skipdense"):
+            return self._extract_dense_packed(loader, name)
+        if self.test_sample == "all" and getattr(self.model, "supports_frame_mask", False):
+            return self._extract_all_bucketed(loader, name)
         feats, pids, camids = [], [], []
         batch_time = AverageMeter()
         for imgs, bpids, bcamids, adjs in loader:
             t0 = time.time()
             feats.append(self._fwd(imgs, adjs))
-            if self.device.type == "cuda":
-                torch.cuda.synchronize(self.device)
+            self._sync()
             batch_time.update(time.time() - t0)
             pids.extend(np.asarray(bpids).tolist())
             camids.extend(np.asarray(bcamids).tolist())
         if not feats:
             raise ValueError(f"{name} loader yielded no tracklets")
         features = torch.cat(feats, dim=0)
-        print(
-            f"Extracted features for {name} set, obtained "
-            f"{features.shape[0]}-by-{features.shape[1]} matrix"
-        )
+        _print_extracted(name, features)
+        return features, np.asarray(pids), np.asarray(camids), batch_time
+
+    @staticmethod
+    def _bucket_len(num: int, lo: int = 8) -> int:
+        """Bucket ladder of `--test-sample all`: geometric ~1.25x steps
+        rounded up to multiples of 8, floored at `lo` (8, 16, 24, 32, 40,
+        56, 72, 96, 120, 152, 192, 240, 304, 384, 480, 600, 752, 944, 1184,
+        ...; agrl_tpu/engine/evaluator.py:180-192)."""
+        b = lo
+        while b < num:
+            b = -(-5 * b // 32) * 8  # ceil(b * 1.25 / 8) * 8
+        return b
+
+    def _extract_all_bucketed(self, loader, name: str):
+        """`all` extraction: each tracklet pads to `_bucket_len` frames with a
+        frame mask (masked global mean, masked graph rows, masked attention:
+        models/vmgn.py), so its feature equals the unpadded forward's, and
+        same-bucket tracklets batch together up to clip_batch * 8 frames.
+        The adjacency pads with a trailing zero block (frame-major
+        vertices). A bucket's last batch runs at its own size. Loader batches
+        hold whole tracklets: imgs (b, num, H, W, 3), adjs (b, V, V)."""
+        frame_budget = max(self.clip_batch, 1) * 8
+        batch_time = AverageMeter()
+        pend: dict[int, list] = {}  # bucket -> [(idx, imgs, adj, fmask)]
+        out: dict[int, torch.Tensor] = {}  # idx -> feature row
+        pids, camids = [], []
+        n_items = 0
+
+        def ab_for(Sp: int) -> int:
+            return max(1, frame_budget // Sp)
+
+        def flush(Sp: int, final: bool = False):
+            q = pend[Sp]
+            ab = ab_for(Sp)
+            while q and (final or len(q) >= ab):
+                chunk = q[:ab]
+                del q[:ab]
+                t0 = time.time()
+                imgs = np.stack([c[1] for c in chunk])
+                adjs = np.stack([c[2] for c in chunk])
+                fmasks = np.stack([c[3] for c in chunk])
+                f = self._fwd(imgs, adjs, fmasks)
+                self._sync()
+                batch_time.update(time.time() - t0)
+                for (idx, *_), row in zip(chunk, f):
+                    out[idx] = row
+
+        for imgs, bpids, bcamids, adjs in loader:
+            for bi in range(imgs.shape[0]):
+                clip, adj = imgs[bi], adjs[bi]  # (num, H, W, 3), (V, V)
+                num = clip.shape[0]
+                if adj.shape[0] % num:
+                    raise ValueError(f"adjacency ({adj.shape[0]} vertices) is not a multiple of "
+                                     f"the frame count ({num}): bucketed 'all' eval needs the "
+                                     "frame-major layout")
+                Sp = self._bucket_len(num)
+                if Sp > num:  # trailing pad frames and a trailing zero block of the adjacency
+                    clip = np.concatenate([clip, np.zeros((Sp - num, *clip.shape[1:]), clip.dtype)])
+                    Vp = Sp * (adj.shape[0] // num)
+                    adj_p = np.zeros((Vp, Vp), adj.dtype)
+                    adj_p[: adj.shape[0], : adj.shape[1]] = adj
+                    adj = adj_p
+                fmask = np.zeros(Sp, np.float32)
+                fmask[:num] = 1.0
+                pend.setdefault(Sp, []).append((n_items, clip, adj, fmask))
+                pids.append(int(np.asarray(bpids)[bi]))
+                camids.append(int(np.asarray(bcamids)[bi]))
+                n_items += 1
+                if len(pend[Sp]) >= ab_for(Sp):
+                    flush(Sp)
+        for Sp in sorted(pend):
+            flush(Sp, final=True)
+
+        if not n_items:
+            raise ValueError(f"{name} loader yielded no tracklets")
+        features = torch.stack([out[i] for i in range(n_items)])
+        _print_extracted(name, features)
+        return features, np.asarray(pids), np.asarray(camids), batch_time
+
+    def _extract_dense_packed(self, loader, name: str):
+        """dense/skipdense extraction with cross-tracklet clip packing: the
+        clip streams of consecutive tracklets fill (clip_batch, ...) device
+        batches (the last one runs at its own size), a tracklet's clips may straddle
+        two batches, and its avg/max pooling accumulates in float64 on the
+        host as slices arrive: the same mean/max over the same clips.
+        Loader batches hold whole tracklets: imgs (b, n, S, H, W, 3), adjs
+        (b, n, V, V)."""
+        CB = self.clip_batch
+        batch_time = AverageMeter()
+        pend_imgs, pend_adjs, pend_seg = [], [], []  # the flat clip stream
+        pids, camids = [], []
+        acc = {}  # tracklet idx -> [sum or max (D,) float64, clip count]
+
+        def accumulate(f, segs):
+            for row, seg in zip(f, segs):
+                entry = acc.get(seg)
+                if entry is None:
+                    acc[seg] = [row.astype(np.float64), 1]
+                elif self.pool == "avg":
+                    entry[0] += row
+                    entry[1] += 1
+                else:
+                    np.maximum(entry[0], row, out=entry[0])
+                    entry[1] += 1
+
+        def flush(final: bool = False):
+            while pend_imgs and (final or len(pend_imgs) >= CB):
+                take = min(CB, len(pend_imgs))
+                t0 = time.time()
+                imgs = np.stack(pend_imgs[:take])
+                adjs = np.stack(pend_adjs[:take])
+                segs = pend_seg[:take]
+                del pend_imgs[:take], pend_adjs[:take], pend_seg[:take]
+                f = self._fwd(imgs, adjs).cpu().numpy()  # syncs with the card
+                batch_time.update(time.time() - t0)
+                accumulate(f, segs)
+
+        n_tracklets = 0
+        for imgs, bpids, bcamids, adjs in loader:
+            for bi in range(imgs.shape[0]):
+                pids.append(int(np.asarray(bpids)[bi]))
+                camids.append(int(np.asarray(bcamids)[bi]))
+                for ci in range(imgs.shape[1]):
+                    pend_imgs.append(imgs[bi, ci])
+                    pend_adjs.append(adjs[bi, ci])
+                    pend_seg.append(n_tracklets)
+                n_tracklets += 1
+            flush()
+        flush(final=True)
+
+        if not acc:
+            raise ValueError(f"{name} loader yielded no tracklets")
+        D = next(iter(acc.values()))[0].shape[0]
+        features = np.empty((n_tracklets, D), np.float32)
+        for seg in range(n_tracklets):
+            total, cnt = acc[seg]
+            features[seg] = total / cnt if self.pool == "avg" else total
+        features = torch.from_numpy(features).to(self.device)
+        _print_extracted(name, features)
         return features, np.asarray(pids), np.asarray(camids), batch_time
 
     def evaluate(
@@ -186,6 +344,13 @@ class Evaluator:
             gen = torch.Generator(device=dm.device).manual_seed(0)
             return cuhk03_cmc_map(dm, *ids, generator=gen)
         return _DEVICE_SCORERS[metric_protocol](dm, *ids)
+
+
+def _print_extracted(name, features):
+    print(
+        f"Extracted features for {name} set, obtained "
+        f"{features.shape[0]}-by-{features.shape[1]} matrix"
+    )
 
 
 def _print_results(cmc, mAP, ranks):

@@ -11,8 +11,9 @@ Parity targets in the reference:
   * temporal attention — vmgn.py:270-278: per-vertex L2 feature norms,
     L1-normalized over the clip axis, used as fusion weights.
 
-`l1_normalize` and `l2_affinity` live beside the fused op they feed
-(ops/graph_conv.py) and are re-exported here, where agrl_tpu keeps them.
+`l1_normalize`, `l2_affinity` and the vertex pair mask live beside the
+fused op they feed (ops/graph_conv.py) and are re-exported here, where
+agrl_tpu keeps them.
 """
 
 from __future__ import annotations
@@ -22,7 +23,13 @@ import torch.nn.functional as F
 from torch import nn
 
 from agrl_torch.models.backbone import BN_EPS, BatchNorm1d
-from agrl_torch.ops.graph_conv import blended_graph, graph_propagate, l1_normalize, l2_affinity
+from agrl_torch.ops.graph_conv import (
+    blended_graph,
+    graph_propagate,
+    l1_normalize,
+    l2_affinity,
+)
+from agrl_torch.ops.graph_conv import pair_mask as _pair_mask
 
 __all__ = [
     "BNNeck", "GraphConvLayer", "l1_normalize", "l2_affinity", "temporal_attention",
@@ -40,8 +47,7 @@ class GraphConvLayer(nn.Module):
     of agrl_tpu/models/layers.py:219-251 under autograd (BN on batch
     statistics, which the eval kernel's fusion cannot take). Variants no
     path of the port runs yet raise NotImplementedError: `dot` affinity,
-    `mask_diag`, the `additive` residual, pose-only or learned-only graphs,
-    `vertex_mask`.
+    `mask_diag`, the `additive` residual, pose-only or learned-only graphs.
     """
 
     def __init__(
@@ -77,17 +83,21 @@ class GraphConvLayer(nn.Module):
             self.linear.weight.normal_(0.0, 0.01, generator=generator)
 
     def forward(self, x: torch.Tensor, adj: torch.Tensor, vertex_mask=None) -> torch.Tensor:
-        """x: (B, V, C); adj: (B, V, V) pose graph. Returns (B, V, C)."""
-        if vertex_mask is not None:
-            raise NotImplementedError("GraphConvLayer vertex_mask is not ported yet")
+        """x: (B, V, C); adj: (B, V, V) pose graph. Returns (B, V, C).
+
+        `vertex_mask` (B, V) of 0/1 marks padding vertices (0): both the pose
+        adjacency and the learned affinity are zeroed to and from them
+        before row normalization, so real vertices aggregate exactly what an
+        unpadded run would (agrl_tpu/models/layers.py:192-236). In train
+        mode BN's batch statistics still take every row, as agrl_tpu's do."""
         bn = self.bn
         if not self.training:
             return graph_propagate(
                 x, adj, self.linear.weight.t(), bn.weight, bn.bias,
-                bn.running_mean, bn.running_var, self.gamma,
+                bn.running_mean, bn.running_var, self.gamma, vertex_mask=vertex_mask,
             )
         B, V, C = x.shape
-        h_prime = torch.matmul(blended_graph(x, adj), self.linear(x))
+        h_prime = torch.matmul(blended_graph(x, adj, vertex_mask), self.linear(x))
         # BatchNorm over all (B * V) vertex rows, as BN1d(view(N * V, C))
         h_prime = F.leaky_relu(bn(h_prime.reshape(B * V, C)).reshape(B, V, C), 0.1)
         return (1.0 - self.gamma) * x + self.gamma * h_prime
@@ -102,11 +112,15 @@ class BNNeck(BatchNorm1d):
         self.bias.requires_grad_(False)
 
 
-def temporal_attention(feat: torch.Tensor) -> torch.Tensor:
+def temporal_attention(feat: torch.Tensor, frame_mask=None) -> torch.Tensor:
     """Norm-driven temporal fusion (vmgn.py:270-278).
 
     feat: (B, S, P, C) -> (B, P, C); weights = L1-normalized (over S)
-    per-(frame, part) L2 feature norms."""
+    per-(frame, part) L2 feature norms. `frame_mask` (B, S) zeroes the
+    weights of padding frames before the normalization, so the fused
+    feature equals an unpadded run's (bucketed `--test-sample all`)."""
     att = torch.linalg.vector_norm(feat, dim=3, keepdim=True)  # (B, S, P, 1)
+    if frame_mask is not None:
+        att = att * frame_mask[:, :, None, None]
     att = l1_normalize(att, dim=1)
     return (feat * att).sum(dim=1)

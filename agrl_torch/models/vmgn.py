@@ -27,8 +27,10 @@ tensors in channels_last memory order, no copy).
 Submodule names are the reference's, so agrl_tpu's name map
 (weight_convert._split_torch_name) covers every entry.
 
-Not ported yet (raises NotImplementedError): `frame_mask`
-(`--test-sample all`).
+`frame_mask` (eval only, the bucketed `--test-sample all`): padding
+frames drop out of the global mean, of every graph layer (a vertex mask,
+frame-major) and of the temporal attention, so a padded tracklet's
+feature equals its unpadded one (agrl_tpu/models/vmgn.py:118-162).
 """
 
 from __future__ import annotations
@@ -51,6 +53,8 @@ FEATURE_DIM = 512 * Bottleneck.expansion  # layer4 width: 2048
 
 
 class VMGN(ResNetTrunk):
+    supports_frame_mask = True
+
     def __init__(
         self,
         num_classes: int,
@@ -116,21 +120,30 @@ class VMGN(ResNetTrunk):
     ):
         """x: (B, S, H, W, 3) float; adj: (B, V, V), V = S * total_split.
 
-        Eval mode: the (B, 4096) eval feature. Train mode: (logits list,
+        Eval mode: the (B, 4096) eval feature; `frame_mask` (B, S) of 0/1
+        marks padding frames (eval only). Train mode: (logits list,
         feature list), or the logits list alone for loss {'xent'}. With the
         consistent loss, `subclip_indices` gives the three sorted frame
         subsets (S-3, S-2 and S-1 frames); else `generator` draws them."""
-        if frame_mask is not None:
-            raise NotImplementedError("VMGN frame_mask (--test-sample all) is not ported yet")
+        if frame_mask is not None and self.training:
+            raise ValueError("frame_mask is an eval-only contract (batch BN mixes rows)")
         B, S, H, W, C = x.shape
         x = x.reshape(B * S, H, W, C).permute(0, 3, 1, 2)
         x3 = self.forward_trunk(x)
         x4_1 = self.layer4_1(x3)
         x4_2 = self.layer4_2(x3)
         _, c, h, w = x4_1.shape
+        fm = vmask = None
+        if frame_mask is not None:
+            fm = frame_mask.to(x4_1.dtype)  # (B, S)
+            vmask = fm.repeat_interleave(self.total_split, dim=1)  # (B, V), frame-major
 
-        # global branch
-        g_f = x4_1.reshape(B, S, c, h, w).mean(dim=(1, 3, 4))
+        # global branch; with a mask, the mean over real frames only
+        if fm is None:
+            g_f = x4_1.reshape(B, S, c, h, w).mean(dim=(1, 3, 4))
+        else:
+            g_sum = (x4_1.reshape(B, S, c, h, w) * fm[:, :, None, None, None]).sum(dim=(1, 3, 4))
+            g_f = g_sum / (fm.sum(dim=1)[:, None] * (h * w))
         g_bn = self.global_bottleneck(g_f)
 
         # attention branch: pyramid part pooling
@@ -138,10 +151,10 @@ class VMGN(ResNetTrunk):
         v_f = torch.matmul(self._pool_matrix(h, fmap), fmap.transpose(1, 2))  # (B*S, P, c)
         f = v_f.reshape(B, S * self.total_split, c)
         for layer in self.graph_layers:
-            f = layer(f, adj)
+            f = layer(f, adj, vertex_mask=vmask)
         f = f.reshape(B, S, self.total_split, c)
 
-        att_f = temporal_attention(f).mean(dim=1)
+        att_f = temporal_attention(f, frame_mask=fm).mean(dim=1)
         att_bn = self.att_bottleneck(att_f)
         if not self.training:
             return torch.cat([g_bn, att_bn], dim=1)

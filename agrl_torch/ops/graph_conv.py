@@ -2,17 +2,20 @@
 
 Counterpart of agrl_tpu/ops/graph_conv.py (graph_propagate_pallas) and
 agrl_tpu/ops/graph_conv_v2.py (graph_propagate_pallas_v2), two Pallas
-schedules of one function — the eval-mode VMGN GraphConvLayer, per clip:
+schedules of one function — the eval-mode VMGN GraphConvLayer, per clip,
+with an optional 0/1 vertex mask m (agrl_tpu's `vertex_mask`; P = m m^T,
+all ones without it):
 
     h   = f @ W
-    A   = row_l1(adj)
-    S   = row_l1(2 * sigmoid(-pdist(f)))
+    A   = row_l1(adj * P)
+    S   = row_l1(2 * sigmoid(-pdist(f)) * P)
     G   = (A + S) / 2
     out = (1 - gamma) * f + gamma * lrelu_0.1(bn_eval(G @ h))
 
 On the card this op IS the hand-written kernel (csrc/graph_conv.cu: f @ W
 on the tensor cores in 3xTF32, each K chunk promoted into fp32 registers,
-which keeps fp32 accuracy; the Gram and G @ h in fp32);
+which keeps fp32 accuracy; the Gram and G @ h in fp32), for any number
+of vertices: clips of more than 128 take the kernel's long schedule;
 `graph_propagate_reference` is its plain PyTorch
 version, used for CPU tensors and to check the kernel.
 `graph_propagate` dispatches on the tensor's device: CPU -> plain
@@ -31,9 +34,6 @@ import functools
 import torch
 
 BN_EPS = 1e-5
-# the most vertices a clip may have on the card: csrc/graph_conv.cu holds a
-# clip's V rows in one 128-row block (graph_conv_max_vertices() returns it)
-MAX_VERTICES = 128
 
 # Launches of the CUDA kernel (one per graph_propagate/_v2 call on CUDA
 # tensors). A plain integer: callers reset it to 0 and read it back.
@@ -58,15 +58,27 @@ def l2_affinity(v: torch.Tensor) -> torch.Tensor:
     return 2.0 * torch.sigmoid(-torch.sqrt(torch.clamp(d2, min=1e-12)))
 
 
-def blended_graph(f: torch.Tensor, adj: torch.Tensor) -> torch.Tensor:
-    """G = (row_l1(adj) + row_l1(l2_affinity(f))) / 2, (B, V, V)."""
-    return (l1_normalize(adj, dim=2) + l1_normalize(l2_affinity(f), dim=2)) / 2.0
+def pair_mask(vertex_mask: torch.Tensor) -> torch.Tensor:
+    """(B, V) 0/1 vertex mask -> (B, V, V): entry (i, j) is 1 iff both ends
+    are real vertices (agrl_tpu/models/layers.py:_pair_mask)."""
+    return vertex_mask[:, :, None] * vertex_mask[:, None, :]
 
 
-def graph_propagate_reference(f, adj, W, scale, bias, mean, var, gamma=0.1):
-    """Plain PyTorch version: (B, V, C) -> (B, V, C), eval-mode BN."""
+def blended_graph(f: torch.Tensor, adj: torch.Tensor, vertex_mask=None) -> torch.Tensor:
+    """G = (row_l1(adj * P) + row_l1(l2_affinity(f) * P)) / 2, (B, V, V),
+    P = pair_mask(vertex_mask) (no mask: P = 1)."""
+    sim = l2_affinity(f)
+    if vertex_mask is not None:
+        pair = pair_mask(vertex_mask)
+        adj, sim = adj * pair, sim * pair
+    return (l1_normalize(adj, dim=2) + l1_normalize(sim, dim=2)) / 2.0
+
+
+def graph_propagate_reference(f, adj, W, scale, bias, mean, var, gamma=0.1, vertex_mask=None):
+    """Plain PyTorch version: (B, V, C) -> (B, V, C), eval-mode BN;
+    `vertex_mask` (B, V) of 0/1 or None."""
     h = torch.matmul(f, W)
-    hp = torch.matmul(blended_graph(f, adj), h)
+    hp = torch.matmul(blended_graph(f, adj, vertex_mask), h)
     hp = (hp - mean) / torch.sqrt(var + BN_EPS) * scale + bias
     hp = torch.where(hp >= 0, hp, 0.1 * hp)
     return (1.0 - gamma) * f + gamma * hp
@@ -79,14 +91,13 @@ def _lib() -> ctypes.CDLL:
 
     lib = load_library("graph_conv")
     p, i = ctypes.c_void_p, ctypes.c_int
-    lib.graph_conv_forward.argtypes = [p, p, p, p, p, p, p, ctypes.c_float, p, p, i, i, i, p]
+    lib.graph_conv_forward.argtypes = [p, p, p, p, p, p, p, p, ctypes.c_float, p, p, i, i, i, p]
     lib.graph_conv_forward.restype = i
     lib.graph_conv_scratch_floats.argtypes = [i, i, i]
     lib.graph_conv_scratch_floats.restype = ctypes.c_longlong
     lib.graph_conv_error_string.argtypes = [i]
     lib.graph_conv_error_string.restype = ctypes.c_char_p
     lib.graph_conv_column_tile.restype = i
-    lib.graph_conv_max_vertices.restype = i
     return lib
 
 
@@ -100,7 +111,7 @@ def _check(name: str, t: torch.Tensor, shape: tuple, device, aligned: bool = Fal
         raise ValueError(f"{name} must be 16-byte aligned")
 
 
-def _launch(f, adj, W, scale, bias, mean, var, gamma):
+def _launch(f, adj, W, scale, bias, mean, var, gamma, vertex_mask):
     """Run csrc/graph_conv.cu on CUDA tensors; raises on anything it does
     not take (never falls back)."""
     global launches
@@ -110,10 +121,11 @@ def _launch(f, adj, W, scale, bias, mean, var, gamma):
                          f"{tuple(W.shape)}")
     B, V, C = f.shape
     dev = f.device
-    tile, v_max = lib.graph_conv_column_tile(), lib.graph_conv_max_vertices()
-    if B == 0 or V == 0 or V > v_max or C % tile:
-        raise ValueError(f"kernel takes B > 0, 0 < V <= {v_max}, C % {tile} == 0; "
-                         f"got B={B} V={V} C={C}")
+    tile = lib.graph_conv_column_tile()
+    # grid limits: B clips in one grid dimension, B * V rows in 128-row blocks in another
+    if not (0 < B <= 65535 and V > 0 and -(-B * V // 128) <= 65535) or C % tile:
+        raise ValueError(f"kernel takes 0 < B <= 65535, V > 0, B * V <= {65535 * 128}, "
+                         f"C % {tile} == 0; got B={B} V={V} C={C}")
     # the kernel reads W^T (a torch Linear weight): free for the layer's
     # `linear.weight.t()`, one copy for a row-major (in, out) W
     wt = W.t().contiguous()
@@ -122,13 +134,16 @@ def _launch(f, adj, W, scale, bias, mean, var, gamma):
     _check("W", wt, (C, C), dev, aligned=True)
     for name, t in (("scale", scale), ("bias", bias), ("mean", mean), ("var", var)):
         _check(name, t, (C,), dev)
+    if vertex_mask is not None:
+        _check("vertex_mask", vertex_mask, (B, V), dev)
 
     out = torch.empty_like(f)
     scratch = torch.empty(lib.graph_conv_scratch_floats(B, V, C), dtype=torch.float32, device=dev)
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         rc = lib.graph_conv_forward(
-            f.data_ptr(), adj.data_ptr(), wt.data_ptr(), scale.data_ptr(), bias.data_ptr(),
+            f.data_ptr(), adj.data_ptr(), None if vertex_mask is None else vertex_mask.data_ptr(),
+            wt.data_ptr(), scale.data_ptr(), bias.data_ptr(),
             mean.data_ptr(), var.data_ptr(), float(gamma), scratch.data_ptr(),
             out.data_ptr(), B, V, C, stream,
         )
@@ -139,14 +154,15 @@ def _launch(f, adj, W, scale, bias, mean, var, gamma):
     return out
 
 
-def graph_propagate(f, adj, W, scale, bias, mean, var, gamma=0.1):
-    """Fused eval graph conv. CPU tensors: the plain version. CUDA
-    tensors: the kernel (csrc/graph_conv.cu), or an exception."""
+def graph_propagate(f, adj, W, scale, bias, mean, var, gamma=0.1, vertex_mask=None):
+    """Fused eval graph conv, any V; `vertex_mask` (B, V) of 0/1 or None.
+    CPU tensors: the plain version. CUDA tensors: the kernel
+    (csrc/graph_conv.cu), or an exception."""
     if f.device.type == "cpu":
-        return graph_propagate_reference(f, adj, W, scale, bias, mean, var, gamma)
+        return graph_propagate_reference(f, adj, W, scale, bias, mean, var, gamma, vertex_mask)
     if f.device.type != "cuda":
         raise ValueError(f"no graph_propagate for device {f.device}")
-    return _launch(f, adj, W, scale, bias, mean, var, gamma)
+    return _launch(f, adj, W, scale, bias, mean, var, gamma, vertex_mask)
 
 
 def round_bf16(x: torch.Tensor) -> torch.Tensor:

@@ -86,11 +86,36 @@ Phases (any failure exits non-zero before the result lines):
      checkpoint_ep2 trains epoch 3 at the schedule's lr (one K3 forward
      and one backward launch per step); the train loader alone (PIL
      decode and pose graphs on 8 threads and on one); epochs 2-3 again at
-     the scripts' --print-freq 200 (one sync per epoch);
+     the scripts' --print-freq 200 (one sync per epoch); --evaluate with
+     --test-sample unset (dense, agrl_tpu's default) and with all (buckets
+     of 16 and 24 frames: 112 and 168 graph vertices), 2 K1 launches per
+     device batch;
+ 17. (run after phase 3) K1 masked and long vs its plain version at the
+     shapes the `all` Evaluator packs at clip_batch 64: (B, V) = (64, 56),
+     (32, 112), (21, 168), (9, 392), (3, 1064), (1, 2128), (1, 8288), each
+     with trailing pad frames masked, and (16, 56) unmasked (bit-equal to
+     phase 3's output): max|kernel - plain| / max|plain| (tol 1e-5, pad rows
+     included), CUDA-event times (L2 flushed) of the kernel, the plain
+     version and torch.bmm(G, h) alone, the bound (all three products in
+     3xTF32, the symmetric Gram's upper half only) and the kernel's share
+     of it, and the device kernels by name (torch.profiler);
+ 18. (run after phase 7) dense, skipdense and all evaluation at the paper
+     config (the serving model): 24 query tracklets of 16-300 frames and
+     one of 1,000 (the top bucket, V = 8288), 40 gallery tracklets of
+     16-300 frames, seeded in memory (a VideoClipDataset whose decode
+     reads them; pose graphs from seeded poses): extraction frames/s and
+     tracklets/s (host clock, synced), frames pushed, device batches and
+     how many of them fill the frame budget, K1 launches (one
+     per graph layer and batch), peak memory, CMC/mAP through evaluate;
+     the query features of the kernel path vs the plain path (tol 1e-5);
+     for all, the 1,000-frame tracklet's masked, padded feature vs its
+     unpadded forward (atol 2e-4);
 then one {"serving": ...} line, one {"training": ...} line, one
-{"reranking": ...} line, one {"cli": ...} line, one {"kernels": [...]}
-line, the card's name and power limit, and {"ok": true, "device": {...}}
-as the last line.
+{"reranking": ...} line, one {"cli": ...} line, one {"evaluation": ...}
+line, one {"kernels": [...]} line (each kernel's `slower_than_plain`
+lists the shapes where this run timed it above its plain version), the
+card's name and power limit, and
+{"ok": true, "device": {...}} as the last line.
 
     python3 chip_smoke.py --term-only ROOT
 
@@ -231,19 +256,27 @@ def graph_inputs(torch, B, V, C, seed, device):
     return t
 
 
-def graph_bound_ms(B, V, C):
-    """Least time for one fused call: f@W as three tf32 products (3xTF32,
-    the least that keeps fp32 accuracy on the tensor cores) over the
-    tf32 peak, plus the Gram and G@h in fp32 over the FMA peak, vs bytes
-    of f, adj, W, BN vectors in and out over the HBM rate; the larger one
-    bounds. Also the first design's bound, every FLOP at the fp32 FMA
-    peak. Returns (bound ms, bound_by, fp32 FMA bound ms)."""
-    mm, small = 2.0 * B * V * C * C, 2 * (2.0 * B * V * V * C)
-    nbytes = 4.0 * (2 * B * V * C + B * V * V + C * C + 4 * C)
-    t_ops = 3 * mm / PEAK_TF32_FLOPS + small / PEAK_FP32_FLOPS
+def graph_bound_ms(B, V, C, masked=False):
+    """Least time for one fused call: its three products as three tf32
+    products each (3xTF32, the least that keeps fp32 accuracy on the tensor
+    cores) over the tf32 peak — f@W, the Gram f f^T on and above its
+    diagonal (it is symmetric), and G@h — vs bytes of f, adj, W, BN vectors
+    (and the vertex mask) in and out over the HBM rate; the larger one
+    bounds. Also the first design's figure, every FLOP of the three whole
+    products at the fp32 FMA peak. Returns (bound ms, bound_by, fp32 FMA
+    bound ms)."""
+    mm, gram, gh = 2.0 * B * V * C * C, 1.0 * B * V * (V + 1) * C, 2.0 * B * V * V * C
+    nbytes = 4.0 * (2 * B * V * C + B * V * V + C * C + 4 * C + (B * V if masked else 0))
+    t_ops = 3 * (mm + gram + gh) / PEAK_TF32_FLOPS
     t_mem = nbytes / PEAK_HBM_BYTES
-    t_fma = max((mm + small) / PEAK_FP32_FLOPS, t_mem)
+    t_fma = max((mm + 2 * gh) / PEAK_FP32_FLOPS, t_mem)
     return max(t_ops, t_mem) * 1e3, ("operations" if t_ops >= t_mem else "bytes"), t_fma * 1e3
+
+
+def slower_than_plain(*cases) -> list:
+    """The labels of the (label, kernel ms, plain ms) cases where the
+    kernel took longer than its plain version in this run."""
+    return [label for label, ms, plain_ms in cases if ms > plain_ms]
 
 
 def phase_kernels(torch, gc, device, flush):
@@ -279,7 +312,7 @@ def phase_kernels(torch, gc, device, flush):
                 library_ms=time_cuda(torch, lambda: torch.matmul(f2, W), flush),
             )
             rec["bound_ms"], rec["bound_by"], rec["fp32_fma_bound_ms"] = graph_bound_ms(B, V, C)
-            v2_args = args
+            v2_args, serving_out = args, got
     # the v2 entry: f and adj held in bf16, same kernel, fp32 math
     got = gc.graph_propagate_v2(*v2_args)
     want = gc.graph_propagate_reference(
@@ -298,7 +331,89 @@ def phase_kernels(torch, gc, device, flush):
         f"({rec['bound_by']}: 3xTF32 on the tensor cores; fp32-FMA bound "
         f"{rec['fp32_fma_bound_ms']:.4f} ms), v2 {rec['v2_ms']:.4f} ms"
     )
-    return rec
+    return rec, serving_out
+
+
+# (B, V, masked): the `all` Evaluator's packings at clip_batch 64 (buckets of
+# 8, 16, 24, 56, 152, 304 and 1184 frames), then the serving shape unmasked
+K1_LONG_SHAPES = ((64, 56, True), (32, 112, True), (21, 168, True), (9, 392, True),
+                  (3, 1064, True), (1, 2128, True), (1, 8288, True), (16, 56, False))
+
+
+def bucket_ladder(top):
+    """The `all` Evaluator's bucket ladder up to `top` frames."""
+    from agrl_torch.engine.evaluator import Evaluator
+
+    out = [Evaluator._bucket_len(1)]
+    while out[-1] < top:
+        out.append(Evaluator._bucket_len(out[-1] + 1))
+    return out
+
+
+def masked_graph_inputs(torch, gc, B, V, C, seed, device):
+    """graph_inputs with the `all` eval's padding: clip b has a seeded count
+    of real frames above the next smaller bucket; its pose rows and columns
+    past them are 0 (the Evaluator pads the adjacency with a zero block)."""
+    args = graph_inputs(torch, B, V, C, seed, device)
+    frames = V // 7
+    ladder = bucket_ladder(frames)
+    lo = ladder[-2] if len(ladder) > 1 else 0
+    real = np.random.RandomState(seed).randint(lo + 1, frames + 1, size=B)
+    mask = (np.arange(V)[None, :] < real[:, None] * 7).astype(np.float32)
+    mask = torch.from_numpy(mask).to(device)
+    args[1] = args[1] * gc.pair_mask(mask)
+    return args, mask, real
+
+
+def phase_k1_long(torch, gc, device, flush, serving_out):
+    """K1 masked and long vs its plain twin at the `all` Evaluator's shapes
+    (phase 17); the unmasked serving shape must repeat phase 3's output."""
+    from torch.profiler import ProfilerActivity, profile
+
+    C, recs = 2048, []
+    for B, V, masked in K1_LONG_SHAPES:
+        if masked:
+            args, mask, real = masked_graph_inputs(torch, gc, B, V, C, V, device)
+        else:
+            args, mask, real = graph_inputs(torch, B, V, C, 0, device), None, None
+        kernel = lambda: gc.graph_propagate(*args, vertex_mask=mask)  # noqa: E731
+        plain = lambda: gc.graph_propagate_reference(*args, vertex_mask=mask)  # noqa: E731
+        got, want = kernel(), plain()
+        torch.cuda.synchronize()
+        err = float((got - want).abs().max() / want.abs().max())
+        same = None if masked else bool(torch.equal(got, serving_out))
+        G = gc.blended_graph(args[0], args[1], mask)
+        h = torch.matmul(args[0], args[2])
+        iters = 20 if V <= 392 else 5
+        rec = dict(B=B, V=V, masked=masked, max_rel_err=err,
+                   max_abs_err=float((got - want).abs().max()),
+                   ms=time_cuda(torch, kernel, flush, iters=iters),
+                   plain_ms=time_cuda(torch, plain, flush, iters=max(2, iters // 4), warmup=1),
+                   library_ms=time_cuda(torch, lambda: torch.bmm(G, h), flush, iters=iters))
+        rec["bound_ms"], rec["bound_by"], rec["fp32_fma_bound_ms"] = graph_bound_ms(
+            B, V, C, masked)
+        del G, h, got, want
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            for _ in range(3):
+                kernel()
+            torch.cuda.synchronize()
+        rec["kernels"] = [(name[:60], ms) for name, ms, _ in device_rows(prof, 3)]
+        pads = "" if real is None else f", real frames {real.min()}-{real.max()} of {V // 7}"
+        log(f"[k1long] B={B} V={V} {'masked' if masked else 'unmasked'}{pads}: "
+            f"max|kernel - plain|/max|plain| = {err:.3e} (tol 1e-5); kernel {rec['ms']:.4f} ms, "
+            f"plain {rec['plain_ms']:.4f} ms, torch.bmm(G, h) {rec['library_ms']:.4f} ms, "
+            f"bound {rec['bound_ms']:.4f} ms ({rec['bound_by']}; "
+            f"{rec['bound_ms'] / rec['ms']:.1%} of it; fp32-FMA figure "
+            f"{rec['fp32_fma_bound_ms']:.4f} ms)"
+            + ("" if same is None else f"; bit-equal to phase 3: {same}"))
+        log("[k1long]   device: " + ", ".join(f"{n} {m:.4f} ms" for n, m in rec["kernels"]))
+        if not (err <= 1e-5) or same is False:
+            raise AssertionError(f"K1 at B={B} V={V} masked={masked}: rel err {err}, "
+                                 f"bit-equal to phase 3: {same}")
+        recs.append(rec)
+        del args, mask
+        torch.cuda.empty_cache()
+    return recs
 
 
 def random_clips(n, seed):
@@ -537,6 +652,154 @@ def phase_evaluator(torch, gc, ms, model, device):
     if not host_diff <= 1e-6:
         raise AssertionError("re-ranking evaluator: host and device paths disagree")
     return r1, mAP, reranked
+
+
+EVAL_IDS = 20
+EVAL_LONG = 1000  # MARS's max_len: the `all` bucket of 1,184 frames, V = 8288
+
+
+def memory_eval_data(seed=7, frame_range=(16, 301)):
+    """Seeded tracklets held in memory, MARS-like lengths: 24 query of
+    16-300 frames plus one of 1,000, 40 gallery of 16-300, over 20
+    identities (query camera 1, gallery camera 2). Each tracklet is one
+    rendered 256x128 person (synthetic_mars's palette, camera tint and
+    noise) shifted by a few pixels from frame to frame; each frame has a
+    seeded standing pose. Returns (splits, pose_info, frame -> (image,
+    shift), images)."""
+    from agrl_torch.data.datasets.synthetic import _make_pose
+    from agrl_torch.data.datasets.synthetic_mars import _appearance, _cam_nuisance, _render_frame
+
+    rng = np.random.RandomState(seed)
+    looks = [_appearance(pid, rng) for pid in range(EVAL_IDS)]
+    lengths = {"query": [*rng.randint(*frame_range, size=24), EVAL_LONG],
+               "gallery": list(rng.randint(*frame_range, size=40))}
+    splits, pose_info, frames, images = {}, {}, {}, []
+    for cam, split in enumerate(("query", "gallery"), start=1):
+        splits[split] = []
+        for t, num in enumerate(lengths[split]):
+            pid = t % EVAL_IDS
+            colors, freq = looks[pid]
+            gain, bright = _cam_nuisance(cam, rng)
+            images.append(_render_frame(colors, freq, gain, bright, rng, HEIGHT, WIDTH))
+            paths = []
+            for i in range(int(num)):
+                name = f"{pid:04d}C{cam}T{t:04d}F{i:04d}.jpg"
+                frames[name] = (len(images) - 1, i % 9 - 4)
+                pose_info[name] = _make_pose(rng, WIDTH, HEIGHT)
+                paths.append(f"mars/bbox_test/{pid:04d}/{name}")
+            splits[split].append((tuple(paths), pid, cam))
+    return splits, pose_info, frames, images
+
+
+def memory_loader(data, split, sample):
+    """ClipLoader (batches of one tracklet) over a VideoClipDataset whose
+    decode reads the in-memory frames; everything else is the port's."""
+    from agrl_torch.data.loader import ClipLoader, VideoClipDataset
+
+    splits, pose_info, frames, images = data
+
+    class MemoryClipDataset(VideoClipDataset):
+        def decode(self, paths):
+            picks = [frames[p.rsplit("/", 1)[1]] for p in paths]
+            imgs = np.stack([np.roll(images[k], shift, axis=1) for k, shift in picks])
+            return imgs, [(WIDTH, HEIGHT)] * len(paths)
+
+    dset = MemoryClipDataset(splits[split], seq_len=SEQ_LEN, sample=sample, height=HEIGHT,
+                             width=WIDTH, pose_info=pose_info)
+    return ClipLoader(dset, batch_size=1, num_workers=4)
+
+
+def count_device_batches(ev):
+    """Wraps the Evaluator's forward: device batches, frames pushed, and the
+    batches that fill the frame budget (clip_batch clips of 8 frames, or
+    clip_batch * 8 // Sp tracklets of a bucket of Sp frames)."""
+    n = {"batches": 0, "frames": 0, "full_batches": 0}
+    inner = ev._fwd
+
+    def counted(imgs, *rest):
+        n["batches"] += 1
+        n["frames"] += int(imgs.shape[0] * imgs.shape[1])
+        n["full_batches"] += int(imgs.shape[0] == max(1, ev.clip_batch * 8 // imgs.shape[1]))
+        return inner(imgs, *rest)
+
+    ev._fwd = counted
+    return n
+
+
+def phase_eval_strategies(torch, layers_mod, gc, model, device):
+    """dense, skipdense and all evaluation at the paper config (phase 18)."""
+    from agrl_torch.engine.evaluator import Evaluator
+
+    t0 = time.perf_counter()
+    data = memory_eval_data()
+    real = {s: sum(min(len(t[0]), 1000) for t in data[0][s]) for s in ("query", "gallery")}
+    log(f"[evals] {len(data[0]['query'])} query / {len(data[0]['gallery'])} gallery tracklets, "
+        f"{real['query']} / {real['gallery']} frames, made in {time.perf_counter() - t0:.1f} s")
+    out = {}
+    for sample in ("dense", "skipdense", "all"):
+        ev = Evaluator(model, test_sample=sample, device=device)
+        n = count_device_batches(ev)
+        extract, feats = ev.extract, {}
+        torch.cuda.reset_peak_memory_stats()
+        gc.launches = 0  # main path starts here
+        t_extract = {}
+        for split in ("query", "gallery"):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            feats[split] = extract(memory_loader(data, split, sample), split)
+            torch.cuda.synchronize()
+            t_extract[split] = time.perf_counter() - t0
+        ev.extract = lambda loader, name: feats[name]  # evaluate ranks these features
+        r1, mAP = ev.evaluate("query", "gallery", dist_metric="cosine")
+        launches = gc.launches  # main path ends here
+        peak = torch.cuda.max_memory_allocated() / 1e9
+        secs = sum(t_extract.values())
+        frames = real["query"] + real["gallery"]
+        tracklets = len(feats["query"][1]) + len(feats["gallery"][1])
+        rec = dict(extract_s=secs, frames_per_s=frames / secs, tracklets_per_s=tracklets / secs,
+                   real_frames=frames, pushed_frames=n["frames"], device_batches=n["batches"],
+                   full_batches=n["full_batches"],
+                   k1_launches=launches, k1_per_layer_per_batch=launches / 2 / n["batches"],
+                   peak_mem_gb=peak, rank1=r1, mAP=mAP,
+                   query_s=t_extract["query"], gallery_s=t_extract["gallery"])
+        log(f"[evals] {sample}: extraction {secs:.2f} s, {rec['frames_per_s']:.1f} frames/s, "
+            f"{rec['tracklets_per_s']:.2f} tracklets/s ({frames} frames, {n['frames']} pushed in "
+            f"{n['batches']} device batches, {n['full_batches']} of them full); K1 launches {launches} "
+            f"({rec['k1_per_layer_per_batch']:.2f} per graph layer and batch); peak "
+            f"{peak:.2f} GB; rank-1 {r1:.4f}, mAP {mAP:.4f}")
+        if not (launches == 2 * n["batches"] > 0 and math.isfinite(r1) and math.isfinite(mAP)
+                and 0.0 <= r1 <= 1.0 and 0.0 <= mAP <= 1.0):
+            raise AssertionError(f"{sample} evaluation: K1 launches {launches} for "
+                                 f"{n['batches']} batches, rank-1 {r1}, mAP {mAP}")
+
+        # the kernel path vs the plain path on the query split
+        layers_mod.graph_propagate = gc.graph_propagate_reference
+        try:
+            plain = extract(memory_loader(data, "query", sample), "query")[0]
+        finally:
+            layers_mod.graph_propagate = gc.graph_propagate
+        qf = feats["query"][0]
+        rec["kernel_vs_plain_rel_err"] = err = float((qf - plain).abs().max() / plain.abs().max())
+        log(f"[evals] {sample}: query features, kernel path vs plain path: max|diff|/max|plain| "
+            f"= {err:.3e} (tol 1e-5)")
+        if not (torch.isfinite(qf).all() and err <= 1e-5):
+            raise AssertionError(f"{sample} evaluation: kernel path and plain path disagree")
+
+        if sample == "all":  # the 1,000-frame tracklet: padded to 1,184 with a mask vs unpadded
+            imgs, _, _, adj = memory_loader(data, "query", sample).dataset.get_item(24)
+            alone = ev._fwd(imgs[None], adj[None])[0]
+            diff = float((qf[24] - alone).abs().max())
+            rec["padded_vs_unpadded_max_abs"] = diff
+            rec["padded_vs_unpadded_rel"] = float(diff / alone.abs().max())
+            log(f"[evals] all: the {EVAL_LONG}-frame tracklet padded to "
+                f"{Evaluator._bucket_len(EVAL_LONG)} frames with its mask vs unpadded: "
+                f"max|diff| {diff:.3e} (atol 2e-4), relative {rec['padded_vs_unpadded_rel']:.3e}")
+            if not diff <= 2e-4:
+                raise AssertionError("all evaluation: padded feature != unpadded feature")
+        out[sample] = rec
+        del ev, feats, plain, qf
+        torch.cuda.empty_cache()
+    return out
 
 
 def triplet_heads(torch, H, B, D, device, seed):
@@ -1356,6 +1619,32 @@ def cmc_blocks(out: str) -> list:
         r"Results -+\nmAP: (\S+)%\nCMC curve\nRank-1\s*: (\S+)%", out)]
 
 
+def without_flag(argv, flag):
+    """argv with `flag` and its value taken out."""
+    i = argv.index(flag)
+    return argv[:i] + argv[i + 2:]
+
+
+def expected_eval_batches(ds, sample, clip_batch=64):
+    """Device batches of a dense or all evaluation of ds's query and
+    gallery splits: dense packs clips into batches of clip_batch; all
+    batches each bucket's tracklets under clip_batch * 8 frames."""
+    from collections import Counter
+
+    from agrl_torch.data.sampling import num_clips
+    from agrl_torch.engine.evaluator import Evaluator
+
+    total = 0
+    for split in (ds.query, ds.gallery):
+        lengths = [min(len(t[0]), 1000) for t in split]
+        if sample == "all":
+            buckets = Counter(Evaluator._bucket_len(n) for n in lengths)
+            total += sum(-(-c // max(1, clip_batch * 8 // sp)) for sp, c in buckets.items())
+        else:
+            total += -(-sum(num_clips(n, SEQ_LEN, sample) for n in lengths) // clip_batch)
+    return total
+
+
 def run_cli_in_process(cli, argv):
     """cli.main(argv) in this process; returns (result, its console output)."""
     buf, stdout = io.StringIO(), sys.stdout
@@ -1499,6 +1788,27 @@ def phase_cli(torch, tri, gc, ms):
             f"{eval_batches} eval batches")
         if f"{r1 * 100:.2f}" != best.group(1) or k1_eval != 2 * eval_batches:
             raise AssertionError("--evaluate --resume best_model: another rank-1 or K1 count")
+
+        # --evaluate with --test-sample unset (dense, agrl_tpu's default) and with all
+        strategies = {}
+        unset = without_flag(base, "--test-sample")
+        for sample, extra in (("dense", []), ("all", ["--test-sample", "all"])):
+            gc.launches = 0
+            t0 = time.perf_counter()
+            (sr1, smap), sout = run_cli_in_process(cli, unset + extra + [
+                "--save-dir", f"{tmp}/eval_{sample}", "--resume", best_ckpt, "--evaluate"])
+            secs, k1 = time.perf_counter() - t0, gc.launches
+            batches = expected_eval_batches(ds, sample)
+            blocks = cmc_blocks(sout)
+            log(f"[cli] --evaluate, test_sample {sample}{' (unset)' if not extra else ''}: "
+                f"CMC blocks (rank-1, mAP) {blocks}; graph kernel launches {k1} for {batches} "
+                f"device batches; {secs:.1f} s")
+            if not (len(blocks) == 1 and f"test_sample='{sample}'" in sout and k1 == 2 * batches
+                    and 0.0 <= sr1 <= 1.0 and 0.0 <= smap <= 1.0):
+                raise AssertionError(f"--evaluate --test-sample {sample}: blocks {blocks}, K1 "
+                                     f"launches {k1} for {batches} batches")
+            strategies[sample] = dict(rank1=sr1, mAP=smap, k1_launches=k1,
+                                      device_batches=batches, seconds=secs)
         ms.sparse_launches = 0
         (rr1, rmap), _ = run_cli_in_process(cli, eval_argv + ["--re-rank"])
         k4 = ms.sparse_launches
@@ -1561,7 +1871,7 @@ def phase_cli(torch, tri, gc, ms):
         rerank_rank1=rr1, rerank_mAP=rmap, k3_per_step=[fwd / n, bwd / n],
         k1_per_eval_batch=k1 / eval_batches, k4_per_rerank_eval=k4, eval_batches=eval_batches,
         train_subprocess_s=train_s, resumed_lr=seen["lr"][0], host_input=host,
-        step_ms_print_freq_200=freq200_ms,
+        step_ms_print_freq_200=freq200_ms, eval_strategies=strategies,
         phase_seconds=time.perf_counter() - t_phase,
     )
 
@@ -1615,7 +1925,10 @@ def main() -> int:
 
     # 3. kernel vs plain
     flush = L2Flusher(torch, device)
-    krec = phase_kernels(torch, gc, device, flush)
+    krec, serving_out = phase_kernels(torch, gc, device, flush)
+    # 17. K1 masked and long, at the `all` Evaluator's shapes
+    k1_long = phase_k1_long(torch, gc, device, flush, serving_out)
+    del serving_out
     # 8. K3 vs plain (run here, beside the other kernel checks)
     trec = phase_triplet(torch, tri, losses_mod, device, flush)
     # 12. K4 vs plain at the JAX package's test shapes
@@ -1650,6 +1963,11 @@ def main() -> int:
     # 7. evaluator
     r1, mAP, reranked_eval = phase_evaluator(torch, gc, ms, model, device)
     serving.update(eval_rank1=r1, eval_mAP=mAP)
+
+    # 18. dense, skipdense and all evaluation
+    t0 = time.perf_counter()
+    evaluation = phase_eval_strategies(torch, layers_mod, gc, model, device)
+    evaluation["phase_seconds"] = time.perf_counter() - t0
 
     # 9. the train step at the paper config, then the evaluator
     del fx, model
@@ -1690,6 +2008,8 @@ def main() -> int:
     print(json.dumps({"reranking": reranking}))
     cli["smoke_seconds"] = time.perf_counter() - t_start
     print(json.dumps({"cli": cli}))
+    evaluation["cli_k1_launches"] = cli["eval_strategies"]
+    print(json.dumps({"evaluation": evaluation}))
     kernel = {
         "name": "graph_propagate",
         "route": "cuda",
@@ -1714,6 +2034,15 @@ def main() -> int:
         "v2_max_abs_err": krec["v2_max_abs_err"],
         "v2_ms": krec["v2_ms"],
         "shape": "B=16 V=56 C=2048 fp32",
+        "masked_and_long": [{k: v for k, v in r.items() if k != "kernels"} for r in k1_long],
+        "masked_and_long_timing": "CUDA events around one call, L2 flushed: kernel mean of 20 "
+                                  "(5 at V >= 1064), plain of 5 (2), library torch.bmm(G, h) "
+                                  "alone; max_rel_err = max|kernel - plain| / max|plain|",
+        "eval_launches": {s: evaluation[s]["k1_launches"] for s in ("dense", "skipdense", "all")},
+        "slower_than_plain": slower_than_plain(
+            ("B=16 V=56", krec["ms"], krec["plain_ms"]),
+            *((f"B={r['B']} V={r['V']}{' masked' if r['masked'] else ''}", r["ms"], r["plain_ms"])
+              for r in k1_long)),
     }
     triplet = {
         "name": "hard_mine",
@@ -1762,6 +2091,9 @@ def main() -> int:
         "plain_backward_call_ms": trec["plain_backward_call_ms"],
         "library_call_ms": trec["library_call_ms"],
         "shape": f"H={TRAIN_HEADS} B={BATCH} D={FEATURE_DIM} fp32",
+        "slower_than_plain": slower_than_plain(
+            ("forward", trec["ms"], trec["plain_ms"]),
+            ("backward", trec["backward_ms"], trec["plain_backward_ms"])),
     }
     min_sum = {
         "name": "min_sum",
@@ -1786,6 +2118,7 @@ def main() -> int:
         "shape": f"Q={MARS_Q} J=C={MARS_Q + MARS_G} fp32, the re-ranking's membership v "
                  f"({mrec['v_nonzero_share']:.3%} non-zero)",
         "note": "the dense entry; re-ranking calls min_sum_sparse",
+        "slower_than_plain": slower_than_plain(("MARS v", mrec["ms"], mrec["plain_ms"])),
     }
     min_sum_sparse = {
         "name": "min_sum_sparse",
@@ -1808,6 +2141,7 @@ def main() -> int:
         "two_calls_bit_equal": srec["two_calls_bit_equal"],
         "terms_needed": srec["terms_needed"],
         "shape": min_sum["shape"],
+        "slower_than_plain": slower_than_plain(("MARS v", srec["ms"], srec["plain_ms"])),
     }
     print(json.dumps({"kernels": [kernel, triplet, min_sum, min_sum_sparse]}))
     print(smi)

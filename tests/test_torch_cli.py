@@ -49,8 +49,6 @@ def test_parser_flag_matches_agrl_tpu(dest):
 REFUSALS = {
     "arch": (["-a", "gsta"], "--arch", "gsta"),
     "optim": (["--optim", "sgd"], "--optim", "sgd"),
-    "test_sample_default": ([], "--test-sample", "dense"),
-    "test_sample_all": (["--test-sample", "all"], "--test-sample", "all"),
     "rand_erase": (["--rand-erase"], "--rand-erase", "True"),
     "rand_crop": (["--rand-crop"], "--rand-crop", "True"),
     "misalign_aug": (["--misalign-aug"], "--misalign-aug", "True"),
@@ -70,8 +68,6 @@ REFUSALS = {
     "profile_dir": (["--profile-dir", "trace"], "--profile-dir", "trace"),
     # the card's kernel limits, checked without --use-cpu before the device
     "card_train_batch": (["--train-batch", "257"], "--train-batch", "257"),
-    "card_seq_len": (["--seq-len", "19", "--num-split", "4", "--pyramid-part"], "--seq-len",
-                     "19"),
 }
 
 
@@ -87,8 +83,6 @@ def test_preflight_refuses_before_reading_data(case, tmp_path, monkeypatch):
             "-a", "vmgn_tiny"]
     if not case.startswith("card_"):
         base.append("--use-cpu")
-    if not case.startswith("test_sample"):
-        base += ["--test-sample", "evenly"]
     stdout = sys.stdout
     with pytest.raises(SystemExit) as exc:
         tcli.main(base + extra)
@@ -103,6 +97,16 @@ def test_preflight_lets_the_cpu_take_the_card_limits():
         "--use-cpu", "-a", "vmgn_tiny", "--test-sample", "evenly", "--train-batch", "257",
         "--seq-len", "19", "--pyramid-part",
     ])
+    tcli.preflight(args)
+
+
+@pytest.mark.parametrize("extra", [[], ["--test-sample", "all"]])
+def test_preflight_takes_any_seq_len_on_the_card(extra):
+    """The card's graph kernel takes any number of vertices: 19 frames x 7
+    parts = 133, and agrl_tpu's default --test-sample dense (or all, whose
+    buckets reach 8288 vertices), pass without --use-cpu."""
+    args = tcli.build_parser().parse_args(
+        ["-a", "vmgn_tiny", "--seq-len", "19", "--num-split", "4", "--pyramid-part", *extra])
     tcli.preflight(args)
 
 
@@ -264,6 +268,25 @@ def test_resume_restores_adam_and_the_step_count(trained, monkeypatch, tmp_path)
             assert torch.equal(resumed["state"][k][field], want[field]), (k, field)
     assert [m for m in out.splitlines() if m.startswith("CurTime: ")][0].split("\t")[1] == \
         "Epoch: [2][1/4]"
+
+
+@pytest.mark.parametrize("test_sample", ["dense", "all"])
+def test_evaluate_dense_and_all(trained, tmp_path, test_sample):
+    """--evaluate of the best checkpoint with --test-sample unset (dense,
+    agrl_tpu's default) and with all: loader batches of one tracklet, a CMC
+    block, and ranks in [0, 1]."""
+    base = list(trained["base"])
+    i = base.index("--test-sample")
+    del base[i:i + 2]
+    if test_sample != "dense":
+        base += ["--test-sample", test_sample]
+    (r1, mAP), out = _run_cli(base + [
+        "--evaluate", "--save-dir", str(tmp_path), "--clip-batch", "8",
+        "--resume", osp.join(trained["save_dir"], "best_model.pth.tar")])
+    assert f"test_sample='{test_sample}'" in out
+    assert "Extracted features for query set, obtained 24-by-4096 matrix" in out
+    assert "Computing CMC and mAP on device" in out and "Results ----------" in out
+    assert 0.0 <= r1 <= 1.0 and 0.0 <= mAP <= 1.0
 
 
 def test_resume_refuses_an_agrl_tpu_msgpack(tmp_path, trained):

@@ -98,12 +98,58 @@ def test_kernel_within_fp32_of_float64(cuda):
     assert float((got.double() - exact).abs().max()) <= 1e-6 * float(exact.abs().max())
 
 
+def _frame_mask(B, V, per_frame=7, seed=0):
+    """(B, V) 0/1 vertex mask of the bucketed `all` eval: each clip's
+    trailing frames (per_frame vertices each) are padding; clip 0 keeps one
+    real frame, the others a seeded count."""
+    rng = np.random.RandomState(seed)
+    frames = V // per_frame
+    real = rng.randint(1, frames + 1, size=B)
+    real[0] = 1
+    mask = (np.arange(V)[None, :] < real[:, None] * per_frame).astype(np.float32)
+    return mask
+
+
+def _masked_case(dev, B, V, C, masked, seed=0):
+    """Inputs of one graph call in the `all` eval's layout: a padded
+    clip's features, pose rows and columns past its real frames are 0."""
+    t = _to(dev, _inputs(B, V, C, seed=seed, relu_like=True))
+    mask = torch.from_numpy(_frame_mask(B, V, seed=seed)).to(dev) if masked else None
+    if masked:
+        t["adj"] = t["adj"] * graph_conv.pair_mask(mask)
+    return (t["f"], t["adj"], t["W"], t["scale"], t["bias"], t["mean"], t["var"]), mask
+
+
+@pytest.mark.parametrize(
+    "B,V,masked",
+    [
+        (64, 56, True),    # the `all` bucket Sp = 8 at its batch of 64 tracklets
+        (32, 112, True),   # Sp = 16
+        (3, 129, False),   # the smallest long clip
+        (3, 129, True),
+        (21, 168, True),   # Sp = 24
+        (9, 392, True),    # Sp = 56: clip boundaries inside the 128-row product blocks
+    ],
+)
+def test_masked_and_long_kernel_matches_plain(cuda, B, V, masked):
+    """One launch per call; within 1e-5 of max|plain| (fp32 both ways,
+    another summation order; padded rows included: both sides give them
+    a zero graph row)."""
+    args, mask = _masked_case(cuda, B, V, 2048, masked, seed=V)
+    before = graph_conv.launches
+    got = graph_conv.graph_propagate(*args, vertex_mask=mask)
+    torch.cuda.synchronize()
+    assert graph_conv.launches == before + 1
+    want = graph_conv.graph_propagate_reference(*args, vertex_mask=mask)
+    assert float((got - want).abs().max()) <= 1e-5 * float(want.abs().max())
+
+
 def test_kernel_rejects_what_it_does_not_take(cuda):
     t = _to(cuda, _inputs(2, 56, 256))
     rest = (t["W"], t["scale"], t["bias"], t["mean"], t["var"])
-    with pytest.raises(ValueError):  # V > 128
-        big = torch.zeros(1, 129, 256, device=cuda)
-        graph_conv.graph_propagate(big, torch.ones(1, 129, 129, device=cuda), *rest)
+    with pytest.raises(ValueError):  # a mask of the wrong shape
+        graph_conv.graph_propagate(t["f"], t["adj"], *rest, vertex_mask=torch.ones(2, 55,
+                                                                                   device=cuda))
     with pytest.raises(ValueError):  # C not a multiple of the column tile
         t2 = _to(cuda, _inputs(2, 56, 200))
         graph_conv.graph_propagate(*t2.values())
@@ -454,5 +500,47 @@ def test_cli_trains_and_evaluates_through_the_kernels(cuda, tmp_path):
     assert proc.stdout.count("\tXent ") == 2
 
 
+def test_all_extraction_matches_the_plain_path(cuda, monkeypatch):
+    """The bucketed `all` Evaluator at vmgn_tiny, 64x32, on tracklets of 3,
+    12, 20 and 40 frames (buckets 8, 16, 24, 40: up to V = 280, the long
+    schedule): 2 K1 launches per device batch, features within 1e-5 of
+    max|plain| of the plain graph op's path, and each padded row within
+    2e-4 of its tracklet's unpadded forward."""
+    from agrl_torch.engine import evaluator as ev
+    from agrl_torch.models import build_model
+    from agrl_torch.models import layers
+
+    rng = np.random.RandomState(0)
+    batches = []
+    for t, num in enumerate((3, 12, 20, 40)):
+        V = num * 7
+        batches.append(((rng.rand(1, num, 64, 32, 3) * 255).astype(np.uint8), np.asarray([t]),
+                        np.asarray([0]), (rng.rand(1, V, V) > 0.5).astype(np.float32)))
+    torch.manual_seed(0)
+    evaluator = ev.Evaluator(build_model("vmgn_tiny", num_classes=4), test_sample="all",
+                             clip_batch=4, device=cuda)
+    before = graph_conv.launches
+    got = evaluator.extract(batches, "query")[0]
+    assert graph_conv.launches - before == 2 * 4  # one batch per bucket, 2 graph layers
+    monkeypatch.setattr(layers, "graph_propagate", graph_conv.graph_propagate_reference)
+    plain = evaluator.extract(batches, "query")[0]
+    assert float((got - plain).abs().max()) <= 1e-5 * float(plain.abs().max())
+    monkeypatch.undo()
+    for (imgs, _, _, adj), row in zip(batches, got):
+        alone = evaluator._fwd(imgs, adj)[0]
+        assert float((row - alone).abs().max()) <= 2e-4
+
+
 def test_graph_kernel_vertex_limit_is_the_cli_preflight_limit(cuda):
-    assert graph_conv._lib().graph_conv_max_vertices() == graph_conv.MAX_VERTICES
+    """Neither has a vertex limit any more: past the short schedule's 128
+    vertices the kernel takes its long one, so the CLI pre-flight lets any
+    --seq-len through. V = 129 and V = 1064 (a 152-frame bucket) launch and
+    agree with the plain twin, unmasked and masked."""
+    for B, V, masked in ((2, 129, False), (3, 1064, True)):
+        args, mask = _masked_case(cuda, B, V, 2048, masked, seed=B)
+        before = graph_conv.launches
+        got = graph_conv.graph_propagate(*args, vertex_mask=mask)
+        torch.cuda.synchronize()
+        assert graph_conv.launches == before + 1
+        want = graph_conv.graph_propagate_reference(*args, vertex_mask=mask)
+        assert float((got - want).abs().max()) <= 1e-5 * float(want.abs().max())

@@ -115,12 +115,19 @@ def test_unported_layer_variants_raise(kwargs):
 
 
 def test_unported_layer_modes_raise():
-    """`vertex_mask` is still unported; train mode (ported since) is held
-    against JAX's apply(train=True) in test_graph_conv_layer_train_matches_jax."""
+    """No mode of the forward is left unported: `vertex_mask` (held against
+    agrl_tpu in tests/test_torch_graph_conv_mask.py) goes to the fused op
+    in eval, and train mode is held against JAX's apply(train=True) in
+    test_graph_conv_layer_train_matches_jax."""
     layer = TorchGraphConvLayer(128, 128)
     x, adj = torch.zeros(1, 4, 128), torch.ones(1, 4, 4)
-    with pytest.raises(NotImplementedError):
-        layer.eval()(x, adj, vertex_mask=torch.ones(1, 4))
+    mask = torch.tensor([[1.0, 1.0, 0.0, 0.0]])
+    with torch.no_grad():
+        got = layer.eval()(x, adj, vertex_mask=mask)
+        want = tgc.graph_propagate_reference(
+            x, adj, layer.linear.weight.t(), layer.bn.weight, layer.bn.bias,
+            layer.bn.running_mean, layer.bn.running_var, layer.gamma, vertex_mask=mask)
+    assert torch.equal(got, want)
     assert layer.train()(x, adj).shape == (1, 4, 128)
 
 

@@ -99,13 +99,18 @@ def test_bridge_rejects_missing_and_extra_leaves(bridged):
 
 
 def test_unported_model_modes_raise(bridged):
-    """`frame_mask` is still unported; the train forward (ported since)
-    returns a logits list and a feature list, one entry per head."""
+    """`frame_mask` is eval only, as agrl_tpu asserts: a train forward with
+    one raises, an eval forward with an all-ones mask gives the unmasked
+    features (the padded case: tests/test_torch_eval_all.py); the train
+    forward returns a logits list and a feature list, one entry per head."""
     tmodel = bridged[2]
     x = torch.zeros(1, S, H, W, 3)
     adj = torch.ones(1, 28, 28)
-    with pytest.raises(NotImplementedError):
-        tmodel(x, adj, frame_mask=torch.ones(1, S))
+    with torch.inference_mode():
+        torch.testing.assert_close(tmodel(x, adj, frame_mask=torch.ones(1, S)), tmodel(x, adj),
+                                   atol=1e-6, rtol=0)
+    with pytest.raises(ValueError, match="eval-only"):
+        build_model("vmgn_tiny", num_classes=10).train()(x, adj, frame_mask=torch.ones(1, S))
     x2 = torch.from_numpy(np.random.RandomState(0).rand(2, S, H, W, 3).astype(np.float32))
     outputs, features = build_model("vmgn_tiny", num_classes=10).train()(x2, adj.expand(2, -1, -1))
     assert [tuple(o.shape) for o in outputs] == [(2, 10)] * 2
