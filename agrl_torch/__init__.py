@@ -7,8 +7,10 @@ under `csrc/`, compiled with nvcc at first use (`kernels/build.py`).
 Entry points run on the card (`device="cuda"`) unless the caller passes
 `device="cpu"`; with no card and no explicit CPU they raise. Training:
 `models.init_model`, `optim.init_optim`, `make_train_step` (below, from
-`engine.trainer`); serving: `engine.export.FeatureExtractor`; the CLI
-over both: `python -m agrl_torch.cli.train_vidreid_xent_htri`.
+`engine.trainer`); serving: `engine.export.FeatureExtractor` and the
+`torch.export` artifact (`engine.export.export_eval_forward`,
+`python -m agrl_torch.cli.export_model`); the CLI over both:
+`python -m agrl_torch.cli.train_vidreid_xent_htri`.
 """
 
 from __future__ import annotations

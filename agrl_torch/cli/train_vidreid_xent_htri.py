@@ -146,8 +146,12 @@ def build_parser() -> argparse.ArgumentParser:
                    help="multi-process launch: not ported (refused)")
     p.add_argument("--dist-process-id", type=int, default=-1,
                    help="multi-process launch: not ported (refused)")
-    p.add_argument("--bf16-eval", action="store_true", help="not ported yet (refused)")
-    p.add_argument("--bf16-train", action="store_true", help="not ported yet (refused)")
+    p.add_argument("--bf16-eval", action="store_true",
+                   help="evaluate with bf16-rounded weights, pixels and adjacency "
+                        "(agrl_tpu's bf16 eval; the model computes at its own dtype)")
+    p.add_argument("--bf16-train", action="store_true",
+                   help="mixed precision: the trunk and layer4 compute in bf16 from "
+                        "float32 parameters; graph layers, heads and losses in float32")
     p.add_argument("--profile-dir", type=str, default="", help="not ported yet (refused)")
     p.add_argument("--remat", type=str, default="none", choices=["none", "dots", "full"],
                    help="gradient rematerialization: only none is ported")
@@ -194,11 +198,9 @@ def preflight(args) -> None:
     if args.optim != "adam":
         _refuse("--optim", args.optim, "A2", "ported: adam")
     for flag, on in (("--rand-erase", args.rand_erase), ("--rand-crop", args.rand_crop),
-                     ("--misalign-aug", args.misalign_aug), ("--bf16-train", args.bf16_train)):
+                     ("--misalign-aug", args.misalign_aug)):
         if on:
             _refuse(flag, True, "A2")
-    if args.bf16_eval:
-        _refuse("--bf16-eval", True, "A6")
     if args.remat != "none":
         _refuse("--remat", args.remat, "A2")
     if args.mesh_dp > 1:
@@ -328,7 +330,7 @@ def _run(args, device, writer):
         learn_graph=args.learn_graph,
         consistent_loss=args.consistent_loss,
         bnneck=args.bnneck,
-        dtype=torch.float32,
+        dtype=torch.bfloat16 if args.bf16_train else torch.float32,
         device=device,
         seed=args.seed,
     )
@@ -369,7 +371,7 @@ def _run(args, device, writer):
         print(f"- mAP: {best_mAP}")
 
     evaluator = Evaluator(model, test_sample=args.test_sample, pool=args.pool,
-                          clip_batch=args.clip_batch, device=device)
+                          bf16=args.bf16_eval, clip_batch=args.clip_batch, device=device)
     if args.evaluate:
         print("Evaluate only")
         result = evaluator.evaluate(

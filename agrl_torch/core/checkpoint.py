@@ -12,6 +12,9 @@ agrl_tpu/core/checkpoint.py).
   * load_weights_partial — --load-weights (:279-287): a
     SHAPE-FILTERED partial load of a torch-named state dict, `module.`
     stripped; entries without a match are skipped and reported.
+  * load_variables — the template-free weight load of a serving host
+    (agrl_tpu/core/checkpoint.py:155-169): a checkpoint's state dict, with
+    no model code imported (engine/export.py `from_exported`).
 
 Files are read with `torch.load(..., weights_only=True)`: a checkpoint
 that needs arbitrary unpickling is refused with the file's name, never
@@ -27,9 +30,10 @@ import shutil
 import numpy as np
 import torch
 
-from agrl_torch.core.flax_msgpack import read_checkpoint
-from agrl_torch.models.weight_convert import NO_COUNTERPART, from_jax_variables
 from agrl_torch.utils.iotools import mkdir_if_missing
+
+# NOTE: the model-side imports (weight_convert, the msgpack reader) are
+# lazy: load_variables runs on serving hosts that load no model code.
 
 # file extensions of a torch-named state dict (this package's checkpoints,
 # the reference's released weights, or a numpy archive with torch names)
@@ -95,6 +99,24 @@ def read_state_dict(fpath: str, key: str = "state_dict") -> dict:
     return ckpt
 
 
+def load_variables(fpath: str) -> dict:
+    """Template-free weight load for serving hosts: the model's state dict
+    from a checkpoint of save_checkpoint (its optimizer, epoch and scores
+    dropped) or a bare torch-named state dict (TORCH_CKPT_EXTS), `module.`
+    stripped, on the CPU. An agrl_tpu .msgpack needs its arch to be
+    converted: `python -m agrl_torch.cli.export_model` does that and
+    writes the port's weights beside the artifact."""
+    if not fpath.endswith(TORCH_CKPT_EXTS):
+        raise ValueError(
+            f"'{fpath}' is not a torch checkpoint ({', '.join(TORCH_CKPT_EXTS)}); an agrl_tpu "
+            "msgpack converts by arch through python -m agrl_torch.cli.export_model"
+        )
+    return {
+        (k[len("module."):] if k.startswith("module.") else k): torch.as_tensor(v)
+        for k, v in read_state_dict(fpath).items()
+    }
+
+
 def load_weights_partial(model, source) -> tuple[list, list]:
     """Shape-filtered load of a torch-named state dict (or a path to one)
     into `model`: every entry whose name (less `module.`) is in the model
@@ -103,6 +125,8 @@ def load_weights_partial(model, source) -> tuple[list, list]:
     Entries with no agrl_tpu counterpart (`num_batches_tracked`, the
     BNNecks' frozen zero biases) are left out of both lists and not
     loaded, so the counts equal agrl_tpu's for the same file."""
+    from agrl_torch.models.weight_convert import NO_COUNTERPART
+
     if isinstance(source, str):
         source = read_state_dict(source)
     target = model.state_dict()
@@ -128,6 +152,9 @@ def load_any_checkpoint(model, fpath: str) -> tuple[list, list]:
     through weight_convert.from_jax_variables(partial=True). Returns
     (matched, skipped); only the model's weights load, never an optimizer
     state."""
+    from agrl_torch.core.flax_msgpack import read_checkpoint
+    from agrl_torch.models.weight_convert import from_jax_variables
+
     if fpath.endswith(TORCH_CKPT_EXTS):
         return load_weights_partial(model, fpath)
     tree, _ = read_checkpoint(fpath)

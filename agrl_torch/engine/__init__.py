@@ -1,5 +1,6 @@
-"""Engine: the train step (`trainer`), the Evaluator (`evaluator`) and the
-live-model FeatureExtractor (`export`)."""
+"""Engine: the train step (`trainer`), the Evaluator and the eval forward
+(`evaluator`), and serving (`export`: the FeatureExtractor and the
+torch.export artifact)."""
 
 from agrl_torch.engine.trainer import make_train_step
 

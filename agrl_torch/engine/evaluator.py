@@ -12,6 +12,9 @@ test(), train_vidreid_xent_htri.py:450-546). Extraction by test_sample:
     a frame mask the model honours exactly, and same-bucket tracklets
     batch together under a frame budget of clip_batch * 8.
 Features end on the Evaluator's device as (N, 4096) float32 in every case.
+With `bf16=True` (`--bf16-eval`) every forward is agrl_tpu's bf16 eval
+(`eval_program`: weights, pixels and adjacency rounded to bf16, the model
+at its own dtype).
 The ranking stage takes agrl_tpu's branches and console lines:
   * device path (the default): the protocol scores on the card — MARS as
     a streaming top-k, market1501/cuhk03/dukev from the full distance
@@ -59,42 +62,85 @@ _DEVICE_SCORERS = {
 }
 
 
-def make_eval_forward(model, device):
+def serving_state(model) -> dict:
+    """The tensors the eval forward reads: every floating-point parameter
+    and buffer, by state-dict name (not `num_batches_tracked`)."""
+    named = [*model.named_parameters(), *model.named_buffers()]
+    return {name: t for name, t in named if t.is_floating_point()}
+
+
+def eval_program(model, bf16: bool = False):
+    """The eval forward as a function of its weights:
+    fn(state, imgs_u8, adjs, frame_mask=None) -> (B, D) float32, with
+    `state` a {name: tensor} dict of `serving_state(model)`'s names (None:
+    the model's own tensors). Preprocess (normalize) runs on the inputs'
+    device. With `bf16`, agrl_tpu's `_cast` (agrl_tpu/engine/evaluator.py:
+    50-62): every float32 tensor of the state, the normalized pixels and
+    the adjacency are rounded to bf16, then the model runs at its own
+    `dtype`: a float32 model computes in float32 on the rounded values, a
+    dtype-None model in bf16 up to layer4, a bfloat16 one in bf16 up to
+    layer4 (agrl_torch/models/vmgn.py). The live model's weights are never
+    written: the rounded tensors go in through torch.func.functional_call.
+    The Evaluator and the exported artifact (engine/export.py) run this one
+    definition."""
+
+    def fn(state, imgs, adjs, frame_mask=None):
+        x = preprocess_clips(imgs)
+        a = adjs.float()
+        if bf16:
+            if state is None:
+                state = serving_state(model)
+            state = {k: v.to(torch.bfloat16) if v.dtype == torch.float32 else v
+                     for k, v in state.items()}
+            x, a = x.to(torch.bfloat16), a.to(torch.bfloat16)
+        kw = {} if frame_mask is None else {"frame_mask": frame_mask}
+        if state is None:
+            out = model(x, a, **kw)
+        else:
+            out = torch.func.functional_call(model, state, (x, a), kw, strict=False)
+        return out.float()
+
+    return fn
+
+
+def make_eval_forward(model, device, bf16: bool = False):
     """The eval forward: uint8 clips (B, S, H, W, 3) and adjacencies
     (B, V, V) as numpy arrays or tensors in, (B, D) float32 features out,
-    on `device`. Preprocess (normalize) runs on the device. A (B, S) 0/1
-    `frame_mask` goes to a model that takes one (`supports_frame_mask`).
+    on `device`, through `eval_program(model, bf16)` on the model's live
+    weights, in inference mode. A (B, S) 0/1 `frame_mask` goes to a model
+    that takes one (`supports_frame_mask`).
 
     Sets both TF32 switches off — process-wide — so every fp32 product
-    and convolution runs in full fp32 (this slice serves fp32 only; the
-    l2 affinity and the cosine distances need it)."""
+    and convolution runs in full fp32 (the l2 affinity and the cosine
+    distances need it); bf16 convolutions do not use TF32."""
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     model.eval()
+    program = eval_program(model, bf16)
 
     def fwd(imgs, adjs, frame_mask=None) -> torch.Tensor:
         x = torch.as_tensor(imgs).to(device)
         a = torch.as_tensor(adjs, dtype=torch.float32).to(device)
-        kw = {}
         if frame_mask is not None:
-            kw["frame_mask"] = torch.as_tensor(frame_mask, dtype=torch.float32).to(device)
+            frame_mask = torch.as_tensor(frame_mask, dtype=torch.float32).to(device)
         with torch.inference_mode():
-            return model(preprocess_clips(x), a, **kw)
+            return program(None, x, a, frame_mask)
 
     return fwd
 
 
 class Evaluator:
     def __init__(self, model, test_sample: str = "evenly", pool: str = "avg",
-                 clip_batch: int = 64, device="cuda"):
+                 bf16: bool = False, clip_batch: int = 64, device="cuda"):
         if pool not in ("avg", "max"):
             raise ValueError(f"pool must be avg or max, got {pool!r}")
         self.device = resolve_device(device)
         self.model = model.to(self.device)
         self.test_sample = test_sample
         self.pool = pool
+        self.bf16 = bf16
         self.clip_batch = clip_batch
-        self._fwd = make_eval_forward(self.model, self.device)
+        self._fwd = make_eval_forward(self.model, self.device, bf16)
 
     def _sync(self):
         if self.device.type == "cuda":

@@ -7,10 +7,14 @@ Behavioral parity with the reference train() iteration
   backward + optimizer step; top-1 precision over all heads is averaged
   for the meter (train_vidreid_xent_htri.py:419).
 
-Everything runs on the model's device in fp32. The batch-hard triplet
-term goes through losses.batch_hard_triplet_heads: on the card, one
-forward and one backward launch of the mining kernels per step for all
-heads (the consistent loss's 5).
+Everything runs on the model's device. Parameters, Adam's state and the
+losses are fp32; a model built with dtype=torch.bfloat16 (`--bf16-train`,
+agrl_tpu/models/vmgn.py:65-68) computes its trunk and layer4 in bf16 from
+those fp32 parameters and hands fp32 features to the heads, so no loss
+scaling is needed (bf16 keeps fp32's exponent range). The batch-hard
+triplet term goes through losses.batch_hard_triplet_heads: on the card,
+one forward and one backward launch of the mining kernels per step for
+all heads (the consistent loss's 5).
 """
 
 from __future__ import annotations
@@ -60,6 +64,10 @@ def make_train_step(
     TF32 is switched off for cuBLAS and cuDNN (process-wide): the
     l2-affinity and triplet Grams cancel near zero distance, and the
     port holds fp32 parity with agrl_tpu."""
+    low = sorted({str(p.dtype) for p in model.parameters() if p.dtype != torch.float32})
+    if low:
+        raise ValueError(f"the train step keeps float32 parameters (mixed precision is the "
+                         f"model's dtype), got {low}")
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     xent_fn = partial(cross_entropy_label_smooth, epsilon=0.1 if label_smooth else 0.0)

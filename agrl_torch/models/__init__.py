@@ -18,7 +18,9 @@ from agrl_torch.models.vmgn import VMGN, check_factory_kwargs, vmgn
 def vmgn_tiny(num_classes, loss=frozenset({"xent", "htri"}), last_stride=1, num_split=4,
               pyramid_part=True, num_gb=2, use_pose=True, learn_graph=True,
               consistent_loss=False, **kwargs):
-    """Depth-(1,1,1,1) VMGN for tests/smoke runs (not in the reference)."""
+    """Depth-(1,1,1,1) VMGN for tests/smoke runs (not in the reference).
+    A `dtype` is checked and dropped, as agrl_tpu's vmgn_tiny drops it:
+    the model follows its input (dtype None)."""
     check_factory_kwargs(**kwargs)
     return VMGN(
         num_classes=num_classes,

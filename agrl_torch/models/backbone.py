@@ -32,20 +32,54 @@ class _FlaxRunningStats:
     (agrl_tpu/models/backbone.py:56-59). torch's own BatchNorm, and the
     original torch AGRL, use the unbiased one: a factor n / (n - 1) in the
     update, 16/15 at the BNNecks of a 16-clip batch. agrl_tpu is the
-    oracle, so the port keeps flax's rule. Eval mode is torch's."""
+    oracle, so the port keeps flax's rule.
+
+    `compute_dtype` is flax's BatchNorm `dtype`: the output's dtype (None:
+    the promotion of the input's and the scale's). Training: batch
+    statistics, the normalization and the running-stat update are float32
+    whatever the input (flax's `_compute_stats` promotes to float32).
+    Eval: `_eval`. Parameters and running stats stay float32; the
+    bf16 eval hands a bf16-rounded copy of them."""
+
+    compute_dtype = None
+
+    def inv_std(self) -> torch.Tensor:
+        """rsqrt(running_var + eps) in the running variance's dtype, as
+        flax's `_normalize` takes it: bf16, rounded, under the bf16 eval."""
+        return torch.rsqrt(self.running_var + self.eps)
+
+    def _eval(self, x: torch.Tensor) -> torch.Tensor:
+        """flax's eval `_normalize`, (x - mean) * (inv_std * scale) + bias,
+        in the promotion `ct` of the input's and the statistics' dtypes,
+        rounded where agrl_tpu's CPU backend rounds: with float32 anywhere
+        (the float32 model under the bf16 eval, or a bf16 input with float32
+        statistics) everything after inv_std is float32, in one pass; with
+        bf16 input and bf16 statistics every operation rounds to bf16."""
+        shape = (-1,) + (1,) * (x.dim() - 2)  # broadcast over dim 1, the channels
+        ct = torch.promote_types(x.dtype, self.running_var.dtype)
+        mul = (self.inv_std().to(ct) * self.weight.to(ct)).reshape(shape)
+        mean = self.running_mean.to(ct).reshape(shape)
+        bias = self.bias.to(ct).reshape(shape)
+        if ct == torch.float32:
+            return torch.addcmul(bias - mean * mul, x.float(), mul)
+        return (x.to(ct) - mean) * mul + bias
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
+        dt = self.compute_dtype or torch.promote_types(x.dtype, self.weight.dtype)
         if not self.training:
-            return super().forward(x)
-        out = F.batch_norm(x, None, None, self.weight, self.bias, True, 0.0, self.eps)
+            return self._eval(x).to(dt)
+        # a bf16 input normalizes to bf16 in one mixed-type call (fp32 math);
+        # any other mix normalizes in fp32 and casts
+        xin = x if x.dtype == dt else x.float()
+        out = F.batch_norm(xin, None, None, self.weight, self.bias, True, 0.0, self.eps)
         with torch.no_grad():
             dims = [0, *range(2, x.dim())]
-            var, mean = torch.var_mean(x, dim=dims, correction=0)
+            var, mean = torch.var_mean(x.float(), dim=dims, correction=0)
             m = self.momentum
             self.running_mean.mul_(1.0 - m).add_(mean, alpha=m)
             self.running_var.mul_(1.0 - m).add_(var, alpha=m)
             self.num_batches_tracked.add_(1)
-        return out
+        return out.to(dt)
 
 
 class BatchNorm1d(_FlaxRunningStats, nn.BatchNorm1d):
@@ -54,6 +88,25 @@ class BatchNorm1d(_FlaxRunningStats, nn.BatchNorm1d):
 
 class BatchNorm2d(_FlaxRunningStats, nn.BatchNorm2d):
     pass
+
+
+class Conv2d(nn.Conv2d):
+    """nn.Conv2d computing at `compute_dtype` (flax's Conv `dtype`: input
+    and kernel cast to it; None: their promotion), from float32 weights
+    under training, so autograd's gradients land in float32."""
+
+    compute_dtype = None
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        dt = self.compute_dtype or torch.promote_types(x.dtype, self.weight.dtype)
+        return self._conv_forward(x.to(dt), self.weight.to(dt), None)
+
+
+def set_compute_dtype(module: nn.Module, dtype) -> None:
+    """Sets the compute dtype of every Conv2d and BatchNorm in `module`."""
+    for m in module.modules():
+        if isinstance(m, (Conv2d, _FlaxRunningStats)):
+            m.compute_dtype = dtype
 
 
 def batch_norm2d(channels: int) -> BatchNorm2d:
@@ -76,16 +129,16 @@ class Bottleneck(nn.Module):
     def __init__(self, inplanes: int, planes: int, stride: int = 1, downsample: bool = False):
         super().__init__()
         out = planes * self.expansion
-        self.conv1 = nn.Conv2d(inplanes, planes, 1, bias=False)
+        self.conv1 = Conv2d(inplanes, planes, 1, bias=False)
         self.bn1 = batch_norm2d(planes)
-        self.conv2 = nn.Conv2d(planes, planes, 3, stride=stride, padding=1, bias=False)
+        self.conv2 = Conv2d(planes, planes, 3, stride=stride, padding=1, bias=False)
         self.bn2 = batch_norm2d(planes)
-        self.conv3 = nn.Conv2d(planes, out, 1, bias=False)
+        self.conv3 = Conv2d(planes, out, 1, bias=False)
         self.bn3 = batch_norm2d(out)
         self.relu = nn.ReLU(inplace=True)
         self.downsample = (
             nn.Sequential(
-                nn.Conv2d(inplanes, out, 1, stride=stride, bias=False), batch_norm2d(out)
+                Conv2d(inplanes, out, 1, stride=stride, bias=False), batch_norm2d(out)
             )
             if downsample
             else None
@@ -118,7 +171,7 @@ class ResNetTrunk(nn.Module):
 
     def __init__(self, layers=(3, 4, 6, 3)):
         super().__init__()
-        self.conv1 = nn.Conv2d(3, 64, 7, stride=2, padding=3, bias=False)
+        self.conv1 = Conv2d(3, 64, 7, stride=2, padding=3, bias=False)
         self.bn1 = batch_norm2d(64)
         self.relu = nn.ReLU(inplace=True)
         self.maxpool = nn.MaxPool2d(3, stride=2, padding=1)

@@ -26,6 +26,7 @@ from agrl_torch.models.backbone import BN_EPS, BatchNorm1d
 from agrl_torch.ops.graph_conv import (
     blended_graph,
     graph_propagate,
+    graph_propagate_v2,
     l1_normalize,
     l2_affinity,
 )
@@ -43,7 +44,12 @@ class GraphConvLayer(nn.Module):
 
     The eval forward IS ops.graph_conv.graph_propagate on this layer's
     `linear.weight` and `bn` buffers: the CUDA kernel on the card, its
-    plain version on the CPU. The train forward is the plain composition
+    plain version on the CPU; a bf16 input takes K2's entry,
+    graph_propagate_v2 (f and adj held in bf16, float32 math). The bf16
+    eval hands float32 vertex features with bf16-rounded weights, BN
+    vectors and adjacency: K1 widens them exactly and computes in float32,
+    as agrl_tpu's promotion does (agrl_tpu/models/layers.py:203-252). The
+    output is float32 either way. The train forward is the plain composition
     of agrl_tpu/models/layers.py:219-251 under autograd (BN on batch
     statistics, which the eval kernel's fusion cannot take). Variants no
     path of the port runs yet raise NotImplementedError: `dot` affinity,
@@ -92,9 +98,16 @@ class GraphConvLayer(nn.Module):
         mode BN's batch statistics still take every row, as agrl_tpu's do."""
         bn = self.bn
         if not self.training:
-            return graph_propagate(
+            propagate = graph_propagate_v2 if x.dtype == torch.bfloat16 else graph_propagate
+            var = bn.running_var
+            if var.dtype != torch.float32:
+                # the bf16 eval's rounded statistics: the kernel takes the
+                # variance whose float32 rsqrt(var + eps) is flax's bf16 one
+                # (BatchNorm.inv_std)
+                var = bn.inv_std().float().pow(-2) - bn.eps
+            return propagate(
                 x, adj, self.linear.weight.t(), bn.weight, bn.bias,
-                bn.running_mean, bn.running_var, self.gamma, vertex_mask=vertex_mask,
+                bn.running_mean, var, self.gamma, vertex_mask=vertex_mask,
             )
         B, V, C = x.shape
         h_prime = torch.matmul(blended_graph(x, adj, vertex_mask), self.linear(x))

@@ -31,6 +31,16 @@ Submodule names are the reference's, so agrl_tpu's name map
 frames drop out of the global mean, of every graph layer (a vertex mask,
 frame-major) and of the temporal attention, so a padded tracklet's
 feature equals its unpadded one (agrl_tpu/models/vmgn.py:118-162).
+
+`dtype` is agrl_tpu's mixed precision (agrl_tpu/models/vmgn.py:65-68,
+100-116): the compute dtype of the trunk and both layer4 branches, whose
+parameters stay float32. None follows the input (a bf16 input, with the
+bf16 eval's bf16-rounded weights, runs them in bf16); float32 casts the
+input to float32; bfloat16 runs them in bf16 (`--bf16-train`). With a
+dtype set, layer4's output is cast to float32, so the graph layers, heads
+and losses run in float32. The pyramid pooling matrix is float32 in every
+case, as agrl_tpu's numpy constant is, so the graph layers see float32
+vertex features under all three.
 """
 
 from __future__ import annotations
@@ -45,6 +55,7 @@ from agrl_torch.models.backbone import (
     ResNetTrunk,
     adaptive_avg_pool_matrix,
     init_conv_,
+    set_compute_dtype,
 )
 from agrl_torch.models.layers import BNNeck, GraphConvLayer, temporal_attention
 from agrl_torch.utils.reidtools import calc_splits
@@ -67,8 +78,11 @@ class VMGN(ResNetTrunk):
         learn_graph: bool = True,
         loss=frozenset({"xent", "htri"}),
         consistent_loss: bool = False,
+        dtype: torch.dtype | None = None,
     ):
         super().__init__(layers)
+        check_dtype(dtype)
+        self.dtype = dtype
         self.loss = frozenset(loss)
         if self.loss not in (frozenset({"xent"}), frozenset({"xent", "htri"})):
             raise KeyError(f"Unsupported loss: {set(self.loss)}")
@@ -85,6 +99,9 @@ class VMGN(ResNetTrunk):
             GraphConvLayer(FEATURE_DIM, FEATURE_DIM, learn_graph=learn_graph, use_pose=use_pose)
             for _ in range(num_gb)
         )
+        for stage in (self.conv1, self.bn1, self.layer1, self.layer2, self.layer3,
+                      self.layer4_1, self.layer4_2):
+            set_compute_dtype(stage, dtype)
         self._pool_cache: dict = {}
 
     def init_weights(self, generator: torch.Generator) -> None:
@@ -104,15 +121,19 @@ class VMGN(ResNetTrunk):
                 head.weight.normal_(0.0, 0.001, generator=generator)
 
     def _pool_matrix(self, h: int, ref: torch.Tensor) -> torch.Tensor:
-        """(total_split, h) pyramid pooling matrix, cached per height,
-        device and dtype."""
+        """(total_split, h) pyramid pooling matrix on ref's device and in its
+        dtype, cached per height, device and dtype. While torch.export
+        traces, it is made anew (a constant of the program): the cache must
+        not keep a tensor of the trace."""
         key = (h, ref.device, ref.dtype)
-        if key not in self._pool_cache:
-            rows = [adaptive_avg_pool_matrix(h, n) for n in self.total_split_list]
-            self._pool_cache[key] = torch.cat(
-                [torch.from_numpy(r) for r in rows]
-            ).to(ref.device, ref.dtype)
-        return self._pool_cache[key]
+        tracing = torch.compiler.is_compiling()
+        if key in self._pool_cache and not tracing:
+            return self._pool_cache[key]
+        rows = [adaptive_avg_pool_matrix(h, n) for n in self.total_split_list]
+        m = torch.cat([torch.from_numpy(r) for r in rows]).to(ref.device, ref.dtype)
+        if not tracing:
+            self._pool_cache[key] = m
+        return m
 
     def forward(
         self, x: torch.Tensor, adj: torch.Tensor, frame_mask=None, *,
@@ -128,14 +149,18 @@ class VMGN(ResNetTrunk):
         if frame_mask is not None and self.training:
             raise ValueError("frame_mask is an eval-only contract (batch BN mixes rows)")
         B, S, H, W, C = x.shape
+        if self.dtype is not None:
+            x = x.to(self.dtype)
         x = x.reshape(B * S, H, W, C).permute(0, 3, 1, 2)
         x3 = self.forward_trunk(x)
         x4_1 = self.layer4_1(x3)
         x4_2 = self.layer4_2(x3)
+        if self.dtype is not None:  # mixed mode: graph layers, heads, losses in fp32
+            x4_1, x4_2 = x4_1.float(), x4_2.float()
         _, c, h, w = x4_1.shape
         fm = vmask = None
         if frame_mask is not None:
-            fm = frame_mask.to(x4_1.dtype)  # (B, S)
+            fm = frame_mask.float()  # (B, S)
             vmask = fm.repeat_interleave(self.total_split, dim=1)  # (B, V), frame-major
 
         # global branch; with a mask, the mean over real frames only
@@ -146,8 +171,11 @@ class VMGN(ResNetTrunk):
             g_f = g_sum / (fm.sum(dim=1)[:, None] * (h * w))
         g_bn = self.global_bottleneck(g_f)
 
-        # attention branch: pyramid part pooling
+        # attention branch: pyramid part pooling against an (at least) float32
+        # matrix, which promotes a bf16 fmap (agrl_tpu's einsum with a numpy
+        # constant)
         fmap = x4_2.mean(dim=3)  # pool width -> (B*S, c, h)
+        fmap = fmap.to(torch.promote_types(fmap.dtype, torch.float32))
         v_f = torch.matmul(self._pool_matrix(h, fmap), fmap.transpose(1, 2))  # (B*S, P, c)
         f = v_f.reshape(B, S * self.total_split, c)
         for layer in self.graph_layers:
@@ -157,7 +185,7 @@ class VMGN(ResNetTrunk):
         att_f = temporal_attention(f, frame_mask=fm).mean(dim=1)
         att_bn = self.att_bottleneck(att_f)
         if not self.training:
-            return torch.cat([g_bn, att_bn], dim=1)
+            return torch.cat([g_bn, att_bn], dim=1)  # promotes a bf16 g_bn (dtype None)
 
         out_list = [self.global_classifier(g_bn), self.att_classifier(att_bn)]
         f_list = [g_f, att_f]
@@ -192,20 +220,25 @@ class VMGN(ResNetTrunk):
         ]
 
 
+def check_dtype(dtype) -> None:
+    if dtype not in (None, torch.float32, torch.bfloat16):
+        raise ValueError(f"VMGN computes in float32 or bfloat16 (or follows its input: None), "
+                         f"got dtype={dtype}")
+
+
 def check_factory_kwargs(num_scale=1, dtype=None, num_parts=None, bnneck=False, **unknown):
     """The registry keywords the training CLI passes (agrl_tpu's
     `init_model` call) that do not shape this model. `num_parts` sizes the
     pose graph's part sets on the data side; `bnneck` is accepted and
-    unused, as in agrl_tpu (its VMGN always has BNNecks). A value that
-    would change the model raises instead of being ignored."""
+    unused, as in agrl_tpu (its VMGN always has BNNecks); `dtype` is
+    checked here and taken by the factory that uses it. A value that would
+    change the model raises instead of being ignored."""
     if unknown:
         raise TypeError(f"unexpected model keywords: {sorted(unknown)}")
     if num_scale != 1:
         raise ValueError(f"vmgn's pooling produces one scale of vertices, got "
                          f"num_scale={num_scale}")
-    if dtype not in (None, torch.float32):
-        raise ValueError(f"VMGN runs in float32 here, got dtype={dtype} (bf16 training is "
-                         "not ported yet)")
+    check_dtype(dtype)
 
 
 def vmgn(
@@ -218,10 +251,12 @@ def vmgn(
     use_pose=True,
     learn_graph=True,
     consistent_loss=False,
+    dtype=torch.float32,
     **kwargs,
 ):
-    """Factory matching the reference factory signature (vmgn.py:373-390)."""
-    check_factory_kwargs(**kwargs)
+    """Factory matching the reference factory signature (vmgn.py:373-390);
+    float32 by default, as agrl_tpu/models/vmgn.py:208."""
+    check_factory_kwargs(dtype=dtype, **kwargs)
     return VMGN(
         num_classes=num_classes,
         layers=(3, 4, 6, 3),
@@ -233,4 +268,5 @@ def vmgn(
         learn_graph=learn_graph,
         loss=loss,
         consistent_loss=consistent_loss,
+        dtype=dtype,
     )

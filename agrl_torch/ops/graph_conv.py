@@ -18,8 +18,16 @@ which keeps fp32 accuracy; the Gram and G @ h in fp32), for any number
 of vertices: clips of more than 128 take the kernel's long schedule;
 `graph_propagate_reference` is its plain PyTorch
 version, used for CPU tensors and to check the kernel.
-`graph_propagate` dispatches on the tensor's device: CPU -> plain
-version, CUDA -> the kernel or an exception, never a fallback.
+
+Both entries are registered torch ops, `agrl_torch::graph_propagate` (K1,
+with an optional vertex mask) and `agrl_torch::graph_propagate_v2` (K2's
+entry: f and adj held in bf16), so `torch.export` captures them in a
+serving artifact and a loaded artifact calls them: the CPU implementation
+is the plain version, the CUDA one the kernel or an exception, never a
+fallback, and a fake implementation gives the output's shape and dtype
+(float32) while tracing. Importing this module registers them. A bf16
+input (f, adj, W or a BN vector, as the bf16 eval passes them) is widened
+to float32 before the kernel, which is exact; the output is float32.
 
 Layouts follow the JAX package: f (B, V, C), adj (B, V, V), W (C, C) as
 (in, out). The kernel reads W^T, so the transpose view of a torch Linear
@@ -35,9 +43,12 @@ import torch
 
 BN_EPS = 1e-5
 
-# Launches of the CUDA kernel (one per graph_propagate/_v2 call on CUDA
-# tensors). A plain integer: callers reset it to 0 and read it back.
+# Launches of the CUDA kernel, plain integers that callers reset to 0 and
+# read back: `launches` counts graph_propagate (K1) calls on CUDA tensors,
+# `v2_launches` graph_propagate_v2 (K2's entry) calls. They count in the
+# ops' CUDA implementations, so calls made by a loaded artifact count too.
 launches = 0
+v2_launches = 0
 
 
 def l1_normalize(x: torch.Tensor, dim: int, eps: float = 1e-12) -> torch.Tensor:
@@ -74,9 +85,17 @@ def blended_graph(f: torch.Tensor, adj: torch.Tensor, vertex_mask=None) -> torch
     return (l1_normalize(adj, dim=2) + l1_normalize(sim, dim=2)) / 2.0
 
 
+def _widen(t):
+    """bf16 -> float32 (exact); any other dtype as it is."""
+    return None if t is None else (t.float() if t.dtype == torch.bfloat16 else t)
+
+
 def graph_propagate_reference(f, adj, W, scale, bias, mean, var, gamma=0.1, vertex_mask=None):
     """Plain PyTorch version: (B, V, C) -> (B, V, C), eval-mode BN;
-    `vertex_mask` (B, V) of 0/1 or None."""
+    `vertex_mask` (B, V) of 0/1 or None. bf16 inputs are widened to
+    float32 first, as the kernel's wrapper widens them."""
+    f, adj, W, scale, bias, mean, var, vertex_mask = map(
+        _widen, (f, adj, W, scale, bias, mean, var, vertex_mask))
     h = torch.matmul(f, W)
     hp = torch.matmul(blended_graph(f, adj, vertex_mask), h)
     hp = (hp - mean) / torch.sqrt(var + BN_EPS) * scale + bias
@@ -114,8 +133,9 @@ def _check(name: str, t: torch.Tensor, shape: tuple, device, aligned: bool = Fal
 def _launch(f, adj, W, scale, bias, mean, var, gamma, vertex_mask):
     """Run csrc/graph_conv.cu on CUDA tensors; raises on anything it does
     not take (never falls back)."""
-    global launches
     lib = _lib()
+    f, adj, W, scale, bias, mean, var, vertex_mask = map(
+        _widen, (f, adj, W, scale, bias, mean, var, vertex_mask))
     if f.dim() != 3 or W.dim() != 2:
         raise ValueError(f"f must be (B, V, C) and W (C, C), got {tuple(f.shape)}, "
                          f"{tuple(W.shape)}")
@@ -150,19 +170,39 @@ def _launch(f, adj, W, scale, bias, mean, var, gamma, vertex_mask):
     if rc != 0:
         msg = lib.graph_conv_error_string(rc).decode()
         raise RuntimeError(f"graph_conv kernel launch failed: {msg} ({rc})")
+    return out
+
+
+def _fake(f, adj, W, scale, bias, mean, var, gamma, vertex_mask=None):
+    return f.new_empty(f.shape, dtype=torch.promote_types(f.dtype, torch.float32))
+
+
+@torch.library.custom_op("agrl_torch::graph_propagate", mutates_args=(), device_types="cpu")
+def _graph_propagate_op(
+    f: torch.Tensor, adj: torch.Tensor, W: torch.Tensor, scale: torch.Tensor,
+    bias: torch.Tensor, mean: torch.Tensor, var: torch.Tensor, gamma: float,
+    vertex_mask: torch.Tensor | None = None,
+) -> torch.Tensor:
+    return graph_propagate_reference(f, adj, W, scale, bias, mean, var, gamma, vertex_mask)
+
+
+@_graph_propagate_op.register_kernel("cuda")
+def _(f, adj, W, scale, bias, mean, var, gamma, vertex_mask=None):
+    global launches
+    out = _launch(f, adj, W, scale, bias, mean, var, gamma, vertex_mask)
     launches += 1
     return out
+
+
+_graph_propagate_op.register_fake(_fake)
 
 
 def graph_propagate(f, adj, W, scale, bias, mean, var, gamma=0.1, vertex_mask=None):
     """Fused eval graph conv, any V; `vertex_mask` (B, V) of 0/1 or None.
     CPU tensors: the plain version. CUDA tensors: the kernel
     (csrc/graph_conv.cu), or an exception."""
-    if f.device.type == "cpu":
-        return graph_propagate_reference(f, adj, W, scale, bias, mean, var, gamma, vertex_mask)
-    if f.device.type != "cuda":
-        raise ValueError(f"no graph_propagate for device {f.device}")
-    return _launch(f, adj, W, scale, bias, mean, var, gamma, vertex_mask)
+    return torch.ops.agrl_torch.graph_propagate(
+        f, adj, W, scale, bias, mean, var, float(gamma), vertex_mask)
 
 
 def round_bf16(x: torch.Tensor) -> torch.Tensor:
@@ -170,8 +210,31 @@ def round_bf16(x: torch.Tensor) -> torch.Tensor:
     return x.to(torch.bfloat16).to(torch.float32)
 
 
-def graph_propagate_v2(f, adj, W, scale, bias, mean, var, gamma=0.1):
+@torch.library.custom_op("agrl_torch::graph_propagate_v2", mutates_args=(), device_types="cpu")
+def _graph_propagate_v2_op(
+    f: torch.Tensor, adj: torch.Tensor, W: torch.Tensor, scale: torch.Tensor,
+    bias: torch.Tensor, mean: torch.Tensor, var: torch.Tensor, gamma: float,
+    vertex_mask: torch.Tensor | None = None,
+) -> torch.Tensor:
+    return graph_propagate_reference(round_bf16(f), round_bf16(adj), W, scale, bias, mean, var,
+                                     gamma, vertex_mask)
+
+
+@_graph_propagate_v2_op.register_kernel("cuda")
+def _(f, adj, W, scale, bias, mean, var, gamma, vertex_mask=None):
+    global v2_launches
+    out = _launch(round_bf16(f), round_bf16(adj), W, scale, bias, mean, var, gamma,
+                  vertex_mask)
+    v2_launches += 1
+    return out
+
+
+_graph_propagate_v2_op.register_fake(_fake)
+
+
+def graph_propagate_v2(f, adj, W, scale, bias, mean, var, gamma=0.1, vertex_mask=None):
     """The graph_conv_v2 entry: f and adj are held in bf16 (rounded here,
     as graph_conv_v2.py:159-160 does), the math stays fp32 — the same
-    kernel on bf16-rounded inputs."""
-    return graph_propagate(round_bf16(f), round_bf16(adj), W, scale, bias, mean, var, gamma)
+    kernel on bf16-rounded inputs. CPU tensors: the plain version."""
+    return torch.ops.agrl_torch.graph_propagate_v2(
+        f, adj, W, scale, bias, mean, var, float(gamma), vertex_mask)

@@ -16,9 +16,9 @@ Phases (any failure exits non-zero before the result lines):
      bound on the tensor cores and the old fp32-FMA bound;
   4. the serving path at the paper config (VMGN, ResNet-50, 256x128,
      seq_len 8, 4-way pyramid parts -> V=56, two graph layers, random
-     weights from a seed): FeatureExtractor(batch_size=16) answers 1-,
-     16- and 21-clip requests; the kernel's launch count must rise by
-     2 per 16-clip chunk;
+     weights from a seed): FeatureExtractor(batch_size=16, bf16=False)
+     answers 1-, 16- and 21-clip requests in fp32; the kernel's launch
+     count must rise by 2 per 16-clip chunk;
   5. the whole model, kernel path vs plain path, on one 16-clip batch;
   6. the same 2 clips on the CPU and on the card;
   7. the `evenly` Evaluator (cosine, MARS CMC/mAP on the card) on the
@@ -110,8 +110,33 @@ Phases (any failure exits non-zero before the result lines):
      the query features of the kernel path vs the plain path (tol 1e-5);
      for all, the 1,000-frame tracklet's masked, padded feature vs its
      unpadded forward (atol 2e-4);
-then one {"serving": ...} line, one {"training": ...} line, one
-{"reranking": ...} line, one {"cli": ...} line, one {"evaluation": ...}
+ 19. (run after phase 18) bf16 serving: FeatureExtractor at its bf16
+     default on the `vmgn` factory's float32 model answers phase 4's
+     requests (K1 twice per 16-clip chunk, K2 never), features vs phase 4's
+     fp32 ones (reported), 16-clip request ms beside fp32's; then the bf16
+     eval forward of the float32, bfloat16 and None models (same seeded
+     weights): K1 and K2 launches per chunk, kernel path vs plain path (tol
+     1e-4 of max), bf16 vs fp32 (reported), device ms, a request's clips/s
+     and a profiler table each;
+ 20. the serving artifact: the bf16 eval forward exported at batch 16
+     (size, weights left out), served by a fresh process that imports no
+     model code from the artifact and load_variables of a checkpoint: 1-,
+     16- and 21-clip requests, K1 launches counted there (2 per chunk),
+     features within 1e-5 of max of phase 19's live bf16 ones, request ms;
+ 21. (run after phase 11) the --bf16-train step: a dtype-bfloat16 VMGN
+     from phase 9's seed on phase 9's batches and draws, 20 steps with
+     finite losses, falling xent and one K3 forward and one backward launch
+     each; steps 1-4 loss within rtol = atol = 0.05 of phase 9's fp32
+     steps; float32 parameters and Adam state; step ms, clips/s, peak
+     memory, a profiler table;
+ 16, bf16 (run after phase 16): one CLI epoch of the preset with
+     --bf16-train --bf16-eval (a subprocess; console in
+     agrl_torch/_build/cli_train_bf16.log), python -m
+     agrl_torch.cli.export_model on its best_model.pth.tar, and that
+     artifact served here: K1 twice per chunk, features within 1e-5 of max
+     of the live bf16 path;
+then one {"serving": ...} line (with "bf16" and "artifact"), one {"training": ...} line (with "bf16"),
+one {"reranking": ...} line, one {"cli": ...} line (with "bf16"), one {"evaluation": ...}
 line, one {"kernels": [...]} line (each kernel's `slower_than_plain`
 lists the shapes where this run timed it above its plain version), the
 card's name and power limit, and
@@ -518,7 +543,7 @@ def phase_model_paths(torch, layers_mod, gc, model, device):
         f"(tol 1e-5); forward {fwd_ms:.2f} ms per 16-clip batch")
     if not (np.isfinite(kern).all() and err <= 1e-5):
         raise AssertionError("kernel path and plain path disagree")
-    return fwd_ms, err, profile_forward(torch, model, x, adj)
+    return fwd_ms, err, profile_forward(torch, lambda: model(x, adj))
 
 
 def device_rows(prof, n):
@@ -533,19 +558,19 @@ def device_rows(prof, n):
     return rows
 
 
-def profile_forward(torch, model, x, adj, n=3):
-    """Device time by kernel over `n` forwards of one 16-clip batch
+def profile_forward(torch, fn, n=3):
+    """Device time by kernel over `n` calls of fn(), one 16-clip forward
     (torch.profiler), the graph kernels' share of it, and the card's busy
     share of the window (kernel time / event-timed wall time)."""
     from torch.profiler import ProfilerActivity, profile
 
     with torch.inference_mode():
-        model(x, adj)
+        fn()
         with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
             start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
             start.record()
             for _ in range(n):
-                model(x, adj)
+                fn()
             end.record()
             end.synchronize()
     window_ms = start.elapsed_time(end)
@@ -570,7 +595,7 @@ def phase_card_vs_cpu(torch, build_model_fn, fx):
     from agrl_torch.engine.export import FeatureExtractor
 
     cpu_model = build_model_fn("cpu")
-    fx_cpu = FeatureExtractor(cpu_model, batch_size=2, seq_len=SEQ_LEN, device="cpu")
+    fx_cpu = FeatureExtractor(cpu_model, batch_size=2, seq_len=SEQ_LEN, bf16=False, device="cpu")
     imgs, adjs = random_clips(2, 30), pose_adjacency(2, 30)
     t0 = time.perf_counter()
     ref = fx_cpu(imgs, adjs)
@@ -1203,7 +1228,7 @@ def phase_train(torch, tri, gc, device):
         if not (0.0 <= r1 <= 1.0 and 0.0 <= mAP <= 1.0) or gc.launches == 0:
             raise AssertionError(f"evaluator after training: rank-1 {r1}, mAP {mAP}")
         log(f"[train] evenly evaluator on the trained model: rank-1 {r1:.4f}, mAP {mAP:.4f}")
-    return model, (launches, backward_launches), dict(
+    return model, (launches, backward_launches), batches, dict(
         steps=TRAIN_STEPS, history=history, step_ms=med, step_q1_ms=q1, step_q3_ms=q3,
         step_all_ms=times, clips_per_s=BATCH / med * 1e3, peak_mem_gb=peak_gb,
         xent_first5=first, xent_last5=last, profile=prof, eval_rank1=r1, eval_mAP=mAP,
@@ -1876,6 +1901,343 @@ def phase_cli(torch, tri, gc, ms):
     )
 
 
+SERVE_REQUESTS = ((1, 10, False), (16, 11, False), (21, 12, True))  # (clips, seed, pose adjacency)
+
+
+def serve_requests():
+    """Phase 4's requests: 1, 16 and 21 clips (the last with pose graphs)."""
+    return {n: (random_clips(n, seed), pose_adjacency(n, seed) if pose else None)
+            for n, seed, pose in SERVE_REQUESTS}
+
+
+def request_ms(torch, fx, imgs, reps=10):
+    """Median and quartiles of a request's host time (H2D, forward, D2H)."""
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(reps):
+        t0 = time.perf_counter()
+        fx(imgs)
+        times.append((time.perf_counter() - t0) * 1e3)
+    return [float(v) for v in np.percentile(times, [25, 50, 75])]
+
+
+def phase_bf16_serving(torch, gc, layers_mod, model, fx32, device):
+    """bf16 serving (phase 19): FeatureExtractor at its bf16 default on the
+    `vmgn` factory's float32 model answers phase 4's requests (K1 twice per
+    16-clip chunk), features against phase 4's fp32 ones; then the bf16
+    eval forward of the float32, bfloat16 and None models (the same seeded
+    weights): K1 and K2 launches per chunk, device ms, a 16-clip request's
+    clips/s, a profiler table, kernel path vs plain path, bf16 vs fp32."""
+    from agrl_torch.engine.evaluator import make_eval_forward
+    from agrl_torch.engine.export import FeatureExtractor
+    from agrl_torch.models import init_model
+
+    requests = serve_requests()
+    fx16 = FeatureExtractor(model, batch_size=BATCH, seq_len=SEQ_LEN, device=device)
+    outs, vs_fp32 = {}, {}
+    gc.launches = gc.v2_launches = 0  # main path starts here
+    expected = 0
+    for n, (imgs, adjs) in requests.items():
+        before = gc.launches
+        outs[n] = fx16(imgs, adjs)
+        expected += 2 * math.ceil(n / BATCH)
+        if outs[n].shape != (n, 4096) or not np.isfinite(outs[n]).all():
+            raise AssertionError(f"bf16 serving: bad features for a {n}-clip request")
+        log(f"[bf16] {n:2d}-clip request: graph kernel launches +{gc.launches - before} "
+            f"(want {2 * math.ceil(n / BATCH)})")
+    launches, v2_launches = gc.launches, gc.v2_launches  # main path ends here
+    if launches != expected or v2_launches != 0:
+        raise AssertionError(f"bf16 serving: {launches} K1 and {v2_launches} K2 launches, "
+                             f"want {expected} and 0")
+    for n, (imgs, adjs) in requests.items():
+        vs_fp32[n] = rel_err(outs[n], fx32(imgs, adjs))
+    q1, med, q3 = request_ms(torch, fx16, requests[16][0])
+    q1_32, med32, q3_32 = request_ms(torch, fx32, requests[16][0])
+    log(f"[bf16] features vs fp32 serving, max|diff|/max|fp32| by request: "
+        f"{', '.join(f'{n}: {e:.3e}' for n, e in vs_fp32.items())} (reported)")
+    log(f"[bf16] 16-clip request: bf16 median {med:.2f} ms ({q1:.2f}-{q3:.2f}), "
+        f"{BATCH / med * 1e3:.1f} clips/s; fp32 in this phase {med32:.2f} ms "
+        f"({q1_32:.2f}-{q3_32:.2f}), {BATCH / med32 * 1e3:.1f} clips/s")
+    rec = dict(launches=launches, v2_launches=v2_launches, vs_fp32_rel_err=vs_fp32,
+               request16_ms=med, request16_q1_ms=q1, request16_q3_ms=q3,
+               clips_per_s=BATCH / med * 1e3, fp32_request16_ms=med32,
+               fp32_clips_per_s=BATCH / med32 * 1e3, models={})
+
+    x = torch.from_numpy(random_clips(BATCH, 20)).to(device)
+    adj = torch.from_numpy(pose_adjacency(BATCH, 20)).to(device)
+    for name, dtype in (("float32", torch.float32), ("bfloat16", torch.bfloat16), ("none", None)):
+        m = model if name == "float32" else init_model(
+            "vmgn", num_classes=NUM_CLASSES, device=device, seed=0, num_split=4,
+            pyramid_part=True, num_gb=2, use_pose=True, learn_graph=True, dtype=dtype)
+        fwd = make_eval_forward(m, device, bf16=True)
+        before = (gc.launches, gc.v2_launches)
+        kern = fwd(x, adj)
+        torch.cuda.synchronize()
+        k1, k2 = gc.launches - before[0], gc.v2_launches - before[1]
+        layers_mod.graph_propagate = gc.graph_propagate_reference
+        try:
+            plain = fwd(x, adj)
+        finally:
+            layers_mod.graph_propagate = gc.graph_propagate
+        fp32 = make_eval_forward(m, device, bf16=False)(x, adj)
+        kern, plain, fp32 = (t.cpu().numpy() for t in (kern, plain, fp32))
+        err, vs32 = rel_err(kern, plain), rel_err(kern, fp32)
+        dev_ms = time_cuda(torch, lambda: fwd(x, adj), lambda: None, iters=5, warmup=1)
+        mq1, mmed, mq3 = request_ms(torch, FeatureExtractor(
+            m, batch_size=BATCH, seq_len=SEQ_LEN, device=device), requests[16][0], reps=5)
+        log(f"[bf16] model dtype {name}: K1 +{k1}, K2 +{k2} per 16-clip forward; kernel path vs "
+            f"plain path {err:.3e} of max (tol 1e-4); bf16 vs fp32 eval {vs32:.3e} (reported); "
+            f"device {dev_ms:.2f} ms per 16-clip forward; 16-clip request median {mmed:.2f} ms, "
+            f"{BATCH / mmed * 1e3:.1f} clips/s")
+        if not (np.isfinite(kern).all() and err <= 1e-4 and k1 == 2 and k2 == 0):
+            raise AssertionError(f"bf16 eval of the {name} model: K1 {k1}, K2 {k2}, "
+                                 f"kernel vs plain {err}")
+        rec["models"][name] = dict(
+            k1_per_chunk=k1, k2_per_chunk=k2, kernel_vs_plain_rel_err=err,
+            bf16_vs_fp32_rel_err=vs32, forward16_device_ms=dev_ms, request16_ms=mmed,
+            request16_q1_ms=mq1, request16_q3_ms=mq3, clips_per_s=BATCH / mmed * 1e3,
+            profile=profile_forward(torch, lambda: fwd(x, adj)))
+        if m is not model:
+            del m
+            torch.cuda.empty_cache()
+    return rec, outs
+
+
+ARTIFACT_SERVER = """
+import json, sys, time
+import numpy as np
+import torch
+from agrl_torch.core.checkpoint import load_variables
+from agrl_torch.engine.export import FeatureExtractor
+from agrl_torch.ops import graph_conv as gc
+
+t0 = time.perf_counter()
+fx = FeatureExtractor.from_exported(sys.argv[1], load_variables(sys.argv[2]))
+load_s = time.perf_counter() - t0
+launches = {}
+for n in (1, 16, 21):
+    imgs = np.load(f"imgs{n}.npy")
+    adjs = np.load("adjs21.npy") if n == 21 else None
+    before = gc.launches
+    np.save(f"feats{n}.npy", fx(imgs, adjs))
+    launches[n] = gc.launches - before
+imgs = np.load("imgs16.npy")
+times = []
+for _ in range(10):
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    fx(imgs)
+    times.append((time.perf_counter() - t0) * 1e3)
+print(json.dumps(dict(
+    load_s=load_s, launches=launches, request16_ms=times, device=str(fx.device),
+    model_code=[m for m in sys.modules if m.startswith(("agrl_torch.models",
+                                                        "agrl_torch.engine.evaluator"))])))
+"""
+
+
+def phase_artifact(torch, model, live_outs, live_ms, device):
+    """The serving artifact on the card (phase 20): the bf16 eval forward of
+    the serving model exported at batch 16, saved, then loaded and served
+    in a fresh process that imports no model code, with the weights read
+    by load_variables: 1-, 16- and 21-clip requests, K1 launches counted
+    there, features against the live bf16 path (phase 19), request ms."""
+    from agrl_torch.engine.export import export_eval_forward, save_exported
+
+    build_dir = REPO / "agrl_torch" / "_build"
+    build_dir.mkdir(parents=True, exist_ok=True)
+    with tempfile.TemporaryDirectory(dir=build_dir) as tmp:
+        t0 = time.perf_counter()
+        exported = export_eval_forward(model, model.state_dict(), BATCH, SEQ_LEN, HEIGHT,
+                                       WIDTH, device=device)
+        export_s = time.perf_counter() - t0
+        path, ckpt = f"{tmp}/vmgn_eval.pt2", f"{tmp}/best_model.pth.tar"
+        save_exported(path, exported)
+        size = os.path.getsize(path)
+        consts = sum(t.numel() for t in exported.constants.values())
+        weights = sum(t.numel() * t.element_size() for t in model.state_dict().values())
+        torch.save({"state_dict": model.state_dict(), "epoch": 0}, ckpt)
+        for n, (imgs, adjs) in serve_requests().items():
+            np.save(f"{tmp}/imgs{n}.npy", imgs)
+            if adjs is not None:
+                np.save(f"{tmp}/adjs{n}.npy", adjs)
+        log(f"[artifact] exported in {export_s:.1f} s: {size / 1e6:.3f} MB "
+            f"({len(exported.state_dict)} weight tensors, {consts} constant numbers; the "
+            f"weights it is served with: {weights / 1e6:.1f} MB)")
+        if exported.state_dict or consts > 1000 or size > weights / 10:
+            raise AssertionError("the artifact holds weights")
+        env = dict(os.environ, PYTHONPATH=str(REPO))
+        t0 = time.perf_counter()
+        proc = subprocess.run([sys.executable, "-c", ARTIFACT_SERVER, path, ckpt], cwd=tmp,
+                              env=env, capture_output=True, text=True, timeout=600)
+        process_s = time.perf_counter() - t0
+        if proc.returncode != 0:
+            raise AssertionError(f"artifact server exited {proc.returncode}: "
+                                 f"{proc.stderr[-3000:]}")
+        res = json.loads(proc.stdout.strip().splitlines()[-1])
+        errs = {n: rel_err(np.load(f"{tmp}/feats{n}.npy"), live_outs[n]) for n in live_outs}
+    q1, med, q3 = (float(v) for v in np.percentile(res["request16_ms"], [25, 50, 75]))
+    want = {str(n): 2 * math.ceil(n / BATCH) for n in live_outs}
+    log(f"[artifact] served by a fresh process ({process_s:.1f} s, load {res['load_s']:.1f} s, "
+        f"on {res['device']}): K1 launches {res['launches']} (want {want}); features vs the live "
+        f"bf16 path {', '.join(f'{n}: {e:.3e}' for n, e in errs.items())} (tol 1e-5); model "
+        f"modules imported {res['model_code']}; 16-clip request median {med:.2f} ms "
+        f"({q1:.2f}-{q3:.2f}), {BATCH / med * 1e3:.1f} clips/s (live bf16 {live_ms:.2f} ms)")
+    if not (res["launches"] == want and all(e <= 1e-5 for e in errs.values())
+            and res["model_code"] == [] and res["device"].startswith("cuda")):
+        raise AssertionError("the artifact's serving disagrees with the live path")
+    return dict(size_bytes=size, export_s=export_s, load_s=res["load_s"],
+                process_s=process_s, launches=res["launches"], vs_live_rel_err=errs,
+                request16_ms=med, request16_q1_ms=q1, request16_q3_ms=q3,
+                clips_per_s=BATCH / med * 1e3, live_bf16_request16_ms=live_ms)
+
+
+def phase_train_bf16(torch, tri, device, batches, fp32_history):
+    """The --bf16-train step (phase 21): the paper recipe's step on a model
+    built with dtype bfloat16 from phase 9's seed, on phase 9's batches with
+    the same flip and subclip draws; steps 1-4 held against phase 9's fp32
+    losses within 0.05."""
+    from agrl_torch.engine.trainer import make_train_step
+    from agrl_torch.models import init_model
+    from agrl_torch.optim import init_optim
+
+    model = init_model(
+        "vmgn", num_classes=NUM_CLASSES, device=device, seed=0, num_split=4,
+        pyramid_part=True, num_gb=2, use_pose=True, learn_graph=True, consistent_loss=True,
+        dtype=torch.bfloat16,
+    )
+    opt = init_optim("adam", model.parameters(), 1e-4, weight_decay=5e-4)
+    # phase 9's schedule: lr 1e-4 until its first milestone, 50 epochs on
+    step = make_train_step(model, opt, lambda step: 1e-4, label_smooth=False, margin=0.3,
+                           soft_margin=True, aug={"flip_aug": True})
+    gen = torch.Generator().manual_seed(0)
+    torch.cuda.reset_peak_memory_stats()
+    history, times = [], []
+    tri.launches = tri.backward_launches = 0  # main path starts here
+    for i, (imgs, pids, _, adjs) in enumerate(batches):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        metrics = step(imgs, pids, adjs, generator=gen)
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+        history.append({k: float(v) for k, v in metrics.items()})
+        log(f"[bf16 train] step {i + 1:2d}: loss {history[-1]['loss']:.4f} xent "
+            f"{history[-1]['xent_loss']:.4f} htri {history[-1]['htri_loss']:.4f} "
+            f"(fp32 {fp32_history[i]['loss']:.4f}; {times[-1]:.1f} ms)")
+    launches, backward = tri.launches, tri.backward_launches  # main path ends here
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    first = float(np.mean([r["xent_loss"] for r in history[:5]]))
+    last = float(np.mean([r["xent_loss"] for r in history[-5:]]))
+    bf16_4 = [r["loss"] for r in history[:4]]
+    fp32_4 = [r["loss"] for r in fp32_history[:4]]
+    close = bool(np.allclose(bf16_4, fp32_4, rtol=0.05, atol=0.05))
+    q1, med, q3 = (float(v) for v in np.percentile(times[3:], [25, 50, 75]))
+    dtypes = sorted({str(p.dtype) for p in model.parameters()}
+                    | {str(s["exp_avg"].dtype) for s in opt.state.values()})
+    log(f"[bf16 train] step (device synced): median {med:.2f} ms (quartiles {q1:.2f}-{q3:.2f}) "
+        f"over steps 4-{len(batches)}, {BATCH / med * 1e3:.1f} clips/s; peak {peak_gb:.2f} GB; "
+        f"hard_mine launches {launches} forward, {backward} backward; xent {first:.4f} -> "
+        f"{last:.4f}; steps 1-4 loss {bf16_4} vs fp32 {fp32_4} (rtol = atol = 0.05: {close}); "
+        f"parameter and Adam state dtypes {dtypes}")
+    if not (launches == backward == len(batches)
+            and all(math.isfinite(v) for r in history for v in r.values())
+            and last < first and close and dtypes == ["torch.float32"]):
+        raise AssertionError("bf16 train step: launches, finiteness, falling xent, fp32 "
+                             "trajectory or fp32 state failed")
+    prof = profile_train_step(torch, step, batches[0], gen)
+    del model, opt, step
+    torch.cuda.empty_cache()
+    return (launches, backward), dict(
+        steps=len(batches), history=history, step_ms=med, step_q1_ms=q1, step_q3_ms=q3,
+        step_all_ms=times, clips_per_s=BATCH / med * 1e3, peak_mem_gb=peak_gb,
+        xent_first5=first, xent_last5=last, loss_1_4=bf16_4, fp32_loss_1_4=fp32_4,
+        profile=prof)
+
+
+def phase_cli_bf16(torch, gc):
+    """Phase 16, bf16: one CLI epoch of the paper preset with --bf16-train
+    --bf16-eval (a subprocess), `python -m agrl_torch.cli.export_model` on
+    its best_model.pth.tar (a subprocess), then the artifact served here
+    against the live bf16 path of the same weights."""
+    from agrl_torch.cli import train_vidreid_xent_htri as cli
+    from agrl_torch.core.checkpoint import load_variables
+    from agrl_torch.data.datasets.synthetic_mars import materialize_mars_layout
+    from agrl_torch.engine.export import FeatureExtractor
+    from agrl_torch.models import init_model
+
+    build_dir = REPO / "agrl_torch" / "_build"
+    build_dir.mkdir(parents=True, exist_ok=True)
+    preset = vmgn_args()
+    args = cli.build_parser().parse_args(preset)
+    with tempfile.TemporaryDirectory(dir=build_dir) as tmp:
+        root, save_dir = f"{tmp}/data", f"{tmp}/log"
+        materialize_mars_layout(root, **CLI_DATA)
+        argv = ["-d", "mars", *preset, "--root", root, "--bf16-train", "--bf16-eval",
+                "--max-epoch", "1", "--eval-step", "1", "--print-freq", "1",
+                "--save-dir", save_dir]
+        t0 = time.perf_counter()
+        proc = subprocess.run([sys.executable, "-m", CLI_MODULE, *argv], cwd=REPO,
+                              capture_output=True, text=True, timeout=900)
+        train_s = time.perf_counter() - t0
+        (build_dir / "cli_train_bf16.log").write_text(proc.stdout + proc.stderr)
+        if proc.returncode != 0:
+            raise AssertionError(f"the bf16 CLI run exited {proc.returncode}: "
+                                 f"{proc.stderr[-3000:]}")
+        meters = [m.groups() for m in METER.finditer(proc.stdout)]
+        losses = [float(v) for m in meters for v in m[5:7]]
+        evals = cmc_blocks(proc.stdout)
+        best = f"{save_dir}/best_model.pth.tar"
+        log(f"[cli bf16] --bf16-train --bf16-eval: {len(meters)} steps in {train_s:.1f} s, "
+            f"Time meter median {np.median([float(m[3]) for m in meters[1:]]) * 1e3:.1f} ms; "
+            f"evals (rank-1, mAP) {evals}")
+        if not (meters and all(math.isfinite(v) for v in losses) and len(evals) == 1
+                and Path(best).exists()):
+            raise AssertionError(f"bf16 CLI run: {len(meters)} steps, losses {losses}, "
+                                 f"evals {evals}")
+        num_classes = int(torch.load(best, map_location="cpu", weights_only=True)[
+            "state_dict"]["global_classifier.weight"].shape[0])
+        arch_flags = ["-a", args.arch, "--num-classes", str(num_classes),
+                      "--last-stride", str(args.last_stride), "--num-parts", str(args.num_parts),
+                      "--num-split", str(args.num_split), "--num-gb", str(args.num_gb)]
+        arch_flags += [f"--{k.replace('_', '-')}" for k in ("pyramid_part", "use_pose",
+                                                            "learn_graph", "bnneck")
+                       if getattr(args, k)]
+        path = f"{tmp}/vmgn_eval.pt2"
+        t0 = time.perf_counter()
+        proc = subprocess.run(
+            [sys.executable, "-m", "agrl_torch.cli.export_model", *arch_flags,
+             "--load-weights", best, "--batch", str(BATCH), "--seq-len", str(args.seq_len),
+             "--height", str(args.height), "--width", str(args.width), "--out", path],
+            cwd=REPO, capture_output=True, text=True, timeout=600)
+        export_s = time.perf_counter() - t0
+        exported_line = next((ln for ln in proc.stdout.splitlines()
+                              if ln.startswith("Exported")), None)
+        log(f"[cli bf16] export_model ({export_s:.1f} s): {exported_line}")
+        if proc.returncode != 0 or exported_line is None:
+            raise AssertionError(f"export_model exited {proc.returncode}: {proc.stderr[-3000:]}")
+        state = load_variables(best)
+        fx = FeatureExtractor.from_exported(path, state)
+        imgs, adjs = random_clips(21, 40), pose_adjacency(21, 40)
+        gc.launches = 0
+        got = fx(imgs, adjs)
+        k1 = gc.launches
+        model = init_model(args.arch, num_classes=num_classes, device="cuda",
+                           num_split=args.num_split, pyramid_part=args.pyramid_part,
+                           num_gb=args.num_gb, use_pose=args.use_pose,
+                           learn_graph=args.learn_graph)
+        model.load_state_dict(state)
+        want = FeatureExtractor(model, batch_size=BATCH, seq_len=args.seq_len)(imgs, adjs)
+        err = rel_err(got, want)
+        log(f"[cli bf16] the artifact serves 21 clips: K1 launches {k1} (want 4), features vs "
+            f"the live bf16 path {err:.3e} (tol 1e-5)")
+        if not (k1 == 4 and err <= 1e-5 and np.isfinite(got).all()):
+            raise AssertionError("the CLI's artifact disagrees with the live path")
+        del model
+    torch.cuda.empty_cache()
+    return dict(steps=len(meters), train_subprocess_s=train_s, evals=evals,
+                export_s=export_s, exported=exported_line, artifact_k1_launches=k1,
+                artifact_vs_live_rel_err=err)
+
+
 def main() -> int:
     if not all((REPO / "agrl_torch" / "csrc" / f"{n}.cu").exists() for n in LIBS):
         print("chip_smoke.py: the agrl_torch package is not beside this script", file=sys.stderr)
@@ -1945,7 +2307,7 @@ def main() -> int:
     V = default_num_vertices(model, SEQ_LEN)
     log(f"[serve] VMGN paper config: ResNet-50 (3,4,6,3), {HEIGHT}x{WIDTH}, seq_len {SEQ_LEN}, "
         f"V={V}, num_gb 2, {sum(p.numel() for p in model.parameters()) / 1e6:.1f}M params")
-    fx = FeatureExtractor(model, batch_size=BATCH, seq_len=SEQ_LEN, device=device)
+    fx = FeatureExtractor(model, batch_size=BATCH, seq_len=SEQ_LEN, bf16=False, device=device)
     torch.cuda.reset_peak_memory_stats()
     launches, serving = phase_serving(torch, gc, fx)
     serving["peak_mem_gb"] = torch.cuda.max_memory_allocated() / 1e9
@@ -1969,10 +2331,21 @@ def main() -> int:
     evaluation = phase_eval_strategies(torch, layers_mod, gc, model, device)
     evaluation["phase_seconds"] = time.perf_counter() - t0
 
+    # 19. bf16 serving: the default FeatureExtractor and three model dtypes
+    t0 = time.perf_counter()
+    serving["bf16"], bf16_outs = phase_bf16_serving(torch, gc, layers_mod, model, fx, device)
+    serving["bf16"]["phase_seconds"] = time.perf_counter() - t0
+    # 20. the artifact, served by a process with no model code
+    t0 = time.perf_counter()
+    serving["artifact"] = phase_artifact(torch, model, bf16_outs,
+                                         serving["bf16"]["request16_ms"], device)
+    serving["artifact"]["phase_seconds"] = time.perf_counter() - t0
+
     # 9. the train step at the paper config, then the evaluator
     del fx, model
     torch.cuda.empty_cache()
-    trained, (tri_launches, tri_backward_launches), training = phase_train(torch, tri, gc, device)
+    trained, (tri_launches, tri_backward_launches), train_batches, training = phase_train(
+        torch, tri, gc, device)
 
     # 10. kernel path vs plain path, one train step
     training["step_kernel_vs_plain_loss_rel_err"], training[
@@ -1984,6 +2357,13 @@ def main() -> int:
     (training["card_vs_cpu_loss_rel_err"], training["card_vs_cpu_grad_fro_rel_err"],
      training["card_vs_cpu_grad_max_rel_err"]) = phase_train_card_vs_cpu(torch, device)
     torch.cuda.empty_cache()
+
+    # 21. the bf16 train step on phase 9's batches and draws
+    t0 = time.perf_counter()
+    (bf16_tri, bf16_tri_backward), training["bf16"] = phase_train_bf16(
+        torch, tri, device, train_batches, training["history"])
+    training["bf16"]["phase_seconds"] = time.perf_counter() - t0
+    del train_batches
 
     # 13. re-ranking at MARS scale (K4's main path), kernel path vs plain path
     qf, gf, ids = mars_features(torch, device)
@@ -2000,8 +2380,12 @@ def main() -> int:
 
     serving["smoke_seconds"] = training["smoke_seconds"] = time.perf_counter() - t_start
     reranking["smoke_seconds"] = time.perf_counter() - t_start
-    # 16. the training CLI: the paper preset through the MARS catalog
+    # 16. the training CLI: the paper preset through the MARS catalog, then
+    # --bf16-train --bf16-eval, export_model and its artifact
     cli = phase_cli(torch, tri, gc, ms)
+    t0 = time.perf_counter()
+    cli["bf16"] = phase_cli_bf16(torch, gc)
+    cli["bf16"]["phase_seconds"] = time.perf_counter() - t0
 
     print(json.dumps({"serving": serving}))
     print(json.dumps({"training": training}))
@@ -2039,6 +2423,17 @@ def main() -> int:
                                   "(5 at V >= 1064), plain of 5 (2), library torch.bmm(G, h) "
                                   "alone; max_rel_err = max|kernel - plain| / max|plain|",
         "eval_launches": {s: evaluation[s]["k1_launches"] for s in ("dense", "skipdense", "all")},
+        "bf16_serving_launches": serving["bf16"]["launches"],
+        "bf16_eval_launches_per_chunk": {k: v["k1_per_chunk"]
+                                         for k, v in serving["bf16"]["models"].items()},
+        "artifact_launches": serving["artifact"]["launches"],
+        "cli_bf16_artifact_launches": cli["bf16"]["artifact_k1_launches"],
+        "v2_launches_on_paths": serving["bf16"]["v2_launches"] + sum(
+            v["k2_per_chunk"] for v in serving["bf16"]["models"].values()),
+        "v2_note": "K2's entry (graph_propagate_v2) takes bf16 vertex features; no VMGN path "
+                   "gives the graph layers bf16 features (the pyramid pooling matrix is "
+                   "float32, as agrl_tpu's numpy constant, and promotes them), so the bf16 "
+                   "eval's bf16-rounded weights and adjacency go to K1, widened",
         "slower_than_plain": slower_than_plain(
             ("B=16 V=56", krec["ms"], krec["plain_ms"]),
             *((f"B={r['B']} V={r['V']}{' masked' if r['masked'] else ''}", r["ms"], r["plain_ms"])
@@ -2054,6 +2449,8 @@ def main() -> int:
         "launches": tri_launches,
         "backward_launches": tri_backward_launches,
         "cli_launches_per_step": cli["k3_per_step"],
+        "bf16_train_launches": bf16_tri,
+        "bf16_train_backward_launches": bf16_tri_backward,
         "max_abs_err": trec["max_abs_err"],
         "grad_max_abs_err": trec["grad_max_abs_err"],
         "two_calls_bit_equal": trec["two_calls_bit_equal"],

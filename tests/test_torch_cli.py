@@ -52,8 +52,6 @@ REFUSALS = {
     "rand_erase": (["--rand-erase"], "--rand-erase", "True"),
     "rand_crop": (["--rand-crop"], "--rand-crop", "True"),
     "misalign_aug": (["--misalign-aug"], "--misalign-aug", "True"),
-    "bf16_train": (["--bf16-train"], "--bf16-train", "True"),
-    "bf16_eval": (["--bf16-eval"], "--bf16-eval", "True"),
     "remat": (["--remat", "dots"], "--remat", "dots"),
     "mesh_dp": (["--mesh-dp", "2"], "--mesh-dp", "2"),
     "mesh_mp": (["--mesh-mp", "2"], "--mesh-mp", "2"),
@@ -108,6 +106,15 @@ def test_preflight_takes_any_seq_len_on_the_card(extra):
     args = tcli.build_parser().parse_args(
         ["-a", "vmgn_tiny", "--seq-len", "19", "--num-split", "4", "--pyramid-part", *extra])
     tcli.preflight(args)
+
+
+@pytest.mark.parametrize("card", [False, True])
+@pytest.mark.parametrize("flag", ["--bf16-train", "--bf16-eval"])
+def test_preflight_takes_the_bf16_flags(flag, card):
+    """--bf16-train and --bf16-eval are ported: the pre-flight passes them,
+    with --use-cpu and for the card."""
+    argv = ["-a", "vmgn", "--test-sample", "evenly", flag] + ([] if card else ["--use-cpu"])
+    tcli.preflight(tcli.build_parser().parse_args(argv))
 
 
 def test_zero_wd_schedule_matches_agrl_tpu_rule():
@@ -295,3 +302,37 @@ def test_resume_refuses_an_agrl_tpu_msgpack(tmp_path, trained):
     with pytest.raises(SystemExit, match="--load-weights"):
         _run_cli(trained["base"] + ["--max-epoch", "1", "--save-dir", str(tmp_path / "log"),
                                     "--resume", str(fake)])
+
+
+def test_cli_trains_and_evaluates_in_bf16(trained, tmp_path, monkeypatch):
+    """--bf16-train --bf16-eval end to end on the CPU: the model is built
+    with dtype bfloat16 (agrl_tpu's CLI :366; vmgn_tiny drops it, as
+    agrl_tpu's does), the Evaluator runs the bf16 eval (:527), the losses
+    stay finite and the run checkpoints."""
+    import agrl_torch.engine.evaluator as ev
+    import agrl_torch.models as models
+
+    seen = {}
+    real_init, real_evaluator = models.init_model, ev.Evaluator
+
+    def init_model(*args, **kwargs):
+        seen["dtype"] = kwargs.get("dtype")
+        return real_init(*args, **kwargs)
+
+    class Evaluator(real_evaluator):
+        def __init__(self, *args, **kwargs):
+            seen["bf16"] = kwargs.get("bf16")
+            super().__init__(*args, **kwargs)
+
+    monkeypatch.setattr(models, "init_model", init_model)
+    monkeypatch.setattr(ev, "Evaluator", Evaluator)
+    save_dir = str(tmp_path / "log")
+    argv = [a if a != trained["save_dir"] else save_dir for a in trained["base"]]
+    result, out = _run_cli(argv + ["--bf16-train", "--bf16-eval", "--max-epoch", "1",
+                                   "--eval-step", "1", "--print-freq", "1"])
+    assert result is None and seen == {"dtype": torch.bfloat16, "bf16": True}
+    meters = [METER.match(line) for line in out.splitlines() if line.startswith("CurTime: ")]
+    assert len(meters) == 4 and all(m is not None for m in meters)
+    assert all(np.isfinite(float(v)) for m in meters for v in m.groups())
+    assert out.count("Computing CMC and mAP on device") == 1
+    assert osp.exists(osp.join(save_dir, "best_model.pth.tar"))

@@ -544,3 +544,117 @@ def test_graph_kernel_vertex_limit_is_the_cli_preflight_limit(cuda):
         assert graph_conv.launches == before + 1
         want = graph_conv.graph_propagate_reference(*args, vertex_mask=mask)
         assert float((got - want).abs().max()) <= 1e-5 * float(want.abs().max())
+
+
+def test_bf16_graph_layer_inputs_take_k1_and_k2(cuda):
+    """The eval graph layer on the bf16 eval's inputs: float32 vertex
+    features with bf16-rounded weights, BN vectors and adjacency go to K1
+    (widened, float32 math), bf16 vertex features to K2's entry; both agree
+    with the plain version on the same inputs."""
+    from agrl_torch.models.layers import GraphConvLayer
+
+    layer = GraphConvLayer(2048, 2048)
+    layer.init_weights(torch.Generator().manual_seed(0))
+    layer = layer.to(cuda).eval()
+    t = _to(cuda, _inputs(16, 56, 2048, seed=3))
+    state = {k: v.to(torch.bfloat16) for k, v in layer.state_dict().items()
+             if v.is_floating_point()}
+    adj = t["adj"].to(torch.bfloat16)
+    for x, counter in ((t["f"], "launches"), (t["f"].to(torch.bfloat16), "v2_launches")):
+        before = (graph_conv.launches, graph_conv.v2_launches)
+        with torch.inference_mode():
+            got = torch.func.functional_call(layer, state, (x, adj))
+        torch.cuda.synchronize()
+        after = (graph_conv.launches, graph_conv.v2_launches)
+        assert [b - a for a, b in zip(before, after)] == (
+            [1, 0] if counter == "launches" else [0, 1])
+        bn = {k: v.float() for k, v in state.items()}
+        var = torch.rsqrt(state["bn.running_var"] + 1e-5).float().pow(-2) - 1e-5
+        want = graph_conv.graph_propagate_reference(
+            x.float(), adj.float(), bn["linear.weight"].t(), bn["bn.weight"], bn["bn.bias"],
+            bn["bn.running_mean"], var)
+        assert got.dtype == torch.float32
+        # fp32 both ways, only the summation order differs (as in
+        # test_kernel_matches_plain)
+        torch.testing.assert_close(got, want, atol=2e-4, rtol=0)
+
+
+def test_bf16_eval_forward_through_k1(cuda, monkeypatch):
+    """make_eval_forward(bf16=True) of a float32-dtype VMGN (1,1,1,1) at
+    128x64, S=8 on the card: 2 K1 launches per batch, no K2 launch (the
+    pooled vertex features are float32, as in agrl_tpu), features within
+    1e-4 of max of the plain graph op's path."""
+    from agrl_torch.engine.evaluator import make_eval_forward
+    from agrl_torch.models import layers
+    from agrl_torch.models.vmgn import VMGN
+
+    model = VMGN(num_classes=4, layers=(1, 1, 1, 1), dtype=torch.float32)
+    model.init_weights(torch.Generator().manual_seed(0))
+    model = model.to(cuda)
+    rng = np.random.RandomState(0)
+    imgs = rng.randint(0, 256, (4, 8, 128, 64, 3)).astype(np.uint8)
+    adjs = (rng.rand(4, 56, 56) > 0.5).astype(np.float32)
+    fwd = make_eval_forward(model, cuda, bf16=True)
+    before = (graph_conv.launches, graph_conv.v2_launches)
+    got = fwd(imgs, adjs)
+    torch.cuda.synchronize()
+    assert (graph_conv.launches - before[0], graph_conv.v2_launches - before[1]) == (2, 0)
+    monkeypatch.setattr(layers, "graph_propagate", graph_conv.graph_propagate_reference)
+    plain = fwd(imgs, adjs)
+    assert got.dtype == torch.float32 and torch.isfinite(got).all()
+    assert float((got - plain).abs().max()) <= 1e-4 * float(plain.abs().max())
+
+
+def test_artifact_on_the_card(cuda, tmp_path):
+    """An artifact exported on the card (vmgn_tiny, 128x64, S=8, batch 4,
+    bf16), saved and loaded: a 6-clip request launches K1 twice per chunk
+    and gives the live forward's features within 1e-5 of max (TF32 off on
+    both paths)."""
+    from agrl_torch.engine.export import (
+        FeatureExtractor,
+        export_eval_forward,
+        load_exported,
+        save_exported,
+    )
+    from agrl_torch.models import init_model
+
+    model = init_model("vmgn_tiny", num_classes=4, device=cuda, seed=1)
+    path = str(tmp_path / "vmgn_tiny_eval.pt2")
+    save_exported(path, export_eval_forward(model, model.state_dict(), 4, 8, 128, 64,
+                                            device=cuda))
+    fx = FeatureExtractor.from_exported(load_exported(path), model.state_dict())
+    assert fx.device.type == "cuda"
+    rng = np.random.RandomState(1)
+    imgs = rng.randint(0, 256, (6, 8, 128, 64, 3)).astype(np.uint8)
+    before = graph_conv.launches
+    got = fx(imgs)
+    assert graph_conv.launches - before == 2 * 2
+    want = FeatureExtractor(model, batch_size=4, seq_len=8, device=cuda)(imgs)
+    assert np.isfinite(got).all()
+    assert float(np.abs(got - want).max()) <= 1e-5 * float(np.abs(want).max())
+
+
+def test_bf16_train_step_on_the_card(cuda):
+    """One --bf16-train step at VMGN (1,1,1,1), 128x64, S=8, 16 clips with
+    the consistent loss: one K3 forward and one backward launch, a finite
+    loss, float32 parameters and gradients."""
+    from agrl_torch.engine.trainer import make_train_step
+    from agrl_torch.models.vmgn import VMGN
+    from agrl_torch.optim import init_optim
+
+    model = VMGN(num_classes=4, layers=(1, 1, 1, 1), consistent_loss=True,
+                 dtype=torch.bfloat16)
+    model.init_weights(torch.Generator().manual_seed(0))
+    model = model.to(cuda)
+    opt = init_optim("adam", model.parameters(), 1e-4, weight_decay=5e-4)
+    step = make_train_step(model, opt, lambda s: 1e-4, aug={"flip_aug": True})
+    rng = np.random.RandomState(0)
+    imgs = rng.randint(0, 256, (16, 8, 128, 64, 3)).astype(np.uint8)
+    adjs = (rng.rand(16, 56, 56) > 0.5).astype(np.float32)
+    before = (triplet.launches, triplet.backward_launches)
+    metrics = step(imgs, np.repeat(np.arange(4), 4), adjs, generator=torch.Generator())
+    torch.cuda.synchronize()
+    assert (triplet.launches - before[0], triplet.backward_launches - before[1]) == (1, 1)
+    assert np.isfinite(float(metrics["loss"]))
+    assert all(p.dtype == torch.float32 and (p.grad is None or p.grad.dtype == torch.float32)
+               for p in model.parameters())

@@ -1,11 +1,12 @@
-"""The port's FeatureExtractor: fixed batch shape, padding, shape checks,
-and no silent CPU fallback."""
+"""The port's FeatureExtractor: bf16 by default (agrl_tpu's default),
+fixed batch shape, padding, shape checks, and no silent CPU fallback."""
 
 import numpy as np
 import pytest
 import torch
 
-from agrl_torch.engine.evaluator import Evaluator
+from agrl_torch.data.transforms import preprocess_clips
+from agrl_torch.engine.evaluator import Evaluator, make_eval_forward
 from agrl_torch.engine.export import FeatureExtractor
 from agrl_torch.models import init_model
 
@@ -40,6 +41,28 @@ def test_ragged_request_equals_single_clip_calls(extractor):
 def test_default_adjacency_is_all_ones(extractor):
     imgs, _ = _clips(2, seed=1)
     np.testing.assert_array_equal(extractor(imgs), extractor(imgs, np.ones((2, V, V))))
+
+
+def test_default_is_the_bf16_eval_forward_row_for_row(extractor):
+    """The default extractor serves make_eval_forward(bf16=True): a ragged
+    3-clip request at batch 2 gives each clip's single-clip forward, and an
+    empty request an empty result."""
+    imgs, adjs = _clips(3, seed=2)
+    fwd = make_eval_forward(extractor.model, "cpu", bf16=True)
+    want = np.concatenate([fwd(imgs[i:i + 1], adjs[i:i + 1]).numpy() for i in range(3)])
+    np.testing.assert_allclose(extractor(imgs, adjs), want, atol=1e-5, rtol=0)
+    assert extractor(imgs[:0], adjs[:0]).shape == (0, 4096)
+    fp32 = make_eval_forward(extractor.model, "cpu", bf16=False)(imgs, adjs).numpy()
+    assert np.abs(want - fp32).max() > 1e-4  # the default is not the fp32 forward
+
+
+def test_fp32_switch_serves_the_fp32_forward(extractor):
+    fx = FeatureExtractor(extractor.model, batch_size=2, seq_len=S, bf16=False, device="cpu")
+    imgs, adjs = _clips(3, seed=3)
+    with torch.inference_mode():
+        want = extractor.model(preprocess_clips(torch.from_numpy(imgs)),
+                               torch.from_numpy(adjs)).numpy()
+    np.testing.assert_allclose(fx(imgs, adjs), want, atol=1e-5, rtol=0)
 
 
 def test_empty_request(extractor):
