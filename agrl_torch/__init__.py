@@ -2,7 +2,10 @@
 
 Module paths mirror agrl_tpu so each piece has an obvious counterpart.
 The package imports torch and numpy only; kernels are CUDA C++ sources
-under `csrc/`, compiled with nvcc at first use (`kernels/build.py`).
+under `csrc/`, compiled with nvcc at first use (`kernels/build.py`),
+which also builds the repo's host libraries of `native/` (the batched
+JPEG decoder, the C++ ranking scorers) with g++ at first use. Importing
+the package builds nothing.
 
 Entry points run on the card (`device="cuda"`) unless the caller passes
 `device="cpu"`; with no card and no explicit CPU they raise. Training:

@@ -12,17 +12,22 @@ with the ROADMAP item that will port it; flags with no meaning here
 nothing. The run goes to the card unless `--use-cpu`; without a card it
 raises, it never carries on on the CPU.
 
-Call order (agrl_tpu's `run`): seeds -> log tee -> catalog -> loaders ->
-model -> (pretrained | load-weights | resume) -> schedules -> epoch loop
-with periodic eval and checkpoints. Every train step goes through the
-batch-hard mining kernels (K3), every eval batch through the graph
-kernel (K1), and `--re-rank` through `min_sum_sparse` (K4).
+Call order (agrl_tpu's `run`): seeds -> log tee -> catalog -> frame
+caches and decoder -> loaders -> model (params and FLOPs line) ->
+(pretrained | load-weights | resume) -> schedules -> epoch loop with
+periodic eval and checkpoints (`--async-ckpt`: written behind the next
+epoch), the first epoch under `--profile-dir`'s profiler. Train batches
+are built and copied to the card behind the step (`prefetch_to_device`).
+Every train step goes through the batch-hard mining kernels (K3), every
+eval batch through the graph kernel (K1), and `--re-rank` through
+`min_sum_sparse` (K4).
 """
 
 from __future__ import annotations
 
 import argparse
 import datetime
+from contextlib import closing
 import inspect
 import os.path as osp
 import shutil
@@ -111,9 +116,9 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--bnneck", action="store_true", help="accepted; VMGN always has BNNecks")
     # Augmentation
     p.add_argument("--flip-aug", action="store_true")
-    p.add_argument("--rand-erase", action="store_true", help="not ported yet (refused)")
-    p.add_argument("--rand-crop", action="store_true", help="not ported yet (refused)")
-    p.add_argument("--misalign-aug", action="store_true", help="not ported yet (refused)")
+    p.add_argument("--rand-erase", action="store_true", help="not ported yet (refused, A2)")
+    p.add_argument("--rand-crop", action="store_true", help="not ported yet (refused, A2)")
+    p.add_argument("--misalign-aug", action="store_true", help="not ported yet (refused, A2)")
     # Visualization
     p.add_argument("--visualize-ranks", action="store_true")
     # Post process
@@ -152,17 +157,26 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--bf16-train", action="store_true",
                    help="mixed precision: the trunk and layer4 compute in bf16 from "
                         "float32 parameters; graph layers, heads and losses in float32")
-    p.add_argument("--profile-dir", type=str, default="", help="not ported yet (refused)")
+    p.add_argument("--profile-dir", type=str, default="",
+                   help="profile the first training epoch with torch.profiler (CPU and "
+                        "CUDA activities) and write its Chrome trace and op table here")
     p.add_argument("--remat", type=str, default="none", choices=["none", "dots", "full"],
                    help="gradient rematerialization: only none is ported")
-    p.add_argument("--cache-frames", action="store_true", help="not ported yet (refused)")
+    p.add_argument("--cache-frames", action="store_true",
+                   help="keep decoded frames, deterministic eval items and collated eval "
+                        "batches in one byte-capped RAM LRU shared by the three loaders")
     p.add_argument("--cache-gb", type=float, default=None,
-                   help="budget of --cache-frames (not ported)")
-    p.add_argument("--frame-cache-dir", type=str, default="", help="not ported yet (refused)")
+                   help="budget of --cache-frames in GB (default: 8, raised to hold the "
+                        "evenly eval batches when host RAM allows; <= 0: unbounded)")
+    p.add_argument("--frame-cache-dir", type=str, default="",
+                   help="persistent decoded-frame store (agrl_tpu's layout): decode is "
+                        "paid once per machine")
     p.add_argument("--decode", type=str, default="auto", choices=["auto", "native", "pil"],
-                   help="frame decoder: auto and pil both decode with PIL here; "
-                        "native is not ported (refused)")
-    p.add_argument("--async-ckpt", action="store_true", help="not ported yet (refused)")
+                   help="frame decoder: auto = the native libjpeg decoder when it builds, "
+                        "PIL otherwise; pil = the reference's pixels; native = the native "
+                        "decoder or an error")
+    p.add_argument("--async-ckpt", action="store_true",
+                   help="write checkpoints on a background thread from a device snapshot")
     p.add_argument("--use-cpu", action="store_true")
     p.add_argument("--compile-cache-dir", type=str, default="auto",
                    help="XLA compilation cache of agrl_tpu: no effect in PyTorch")
@@ -212,16 +226,6 @@ def preflight(args) -> None:
                                ("--dist-process-id", args.dist_process_id, -1)):
         if value != unset:
             _refuse(flag, value, "A8")
-    if args.cache_frames:
-        _refuse("--cache-frames", True, "A5")
-    if args.frame_cache_dir:
-        _refuse("--frame-cache-dir", args.frame_cache_dir, "A5")
-    if args.decode == "native":
-        _refuse("--decode", args.decode, "A5", "auto and pil both decode with PIL")
-    if args.async_ckpt:
-        _refuse("--async-ckpt", True, "A9")
-    if args.profile_dir:
-        _refuse("--profile-dir", args.profile_dir, "A9")
     if args.use_cpu:
         return
     if args.train_batch > MAX_BATCH:
@@ -254,17 +258,25 @@ def run(args):
     logger = Logger(osp.join(args.save_dir, f"log_{mode}{stamp}.txt"))
     sys.stdout = logger
     writer = ScalarWriter(args.save_dir)
+    stores = []  # the run's FrameDiskCache, closed here (it holds the store's lock)
     try:
-        return _run(args, device, writer)
+        return _run(args, device, writer, stores)
     finally:
+        for store in stores:
+            store.close()
         sys.stdout = stdout
         logger.close()
         writer.close()
 
 
-def _run(args, device, writer):
+def _run(args, device, writer, stores):
     from agrl_torch import models
-    from agrl_torch.core import load_any_checkpoint, load_checkpoint, save_checkpoint
+    from agrl_torch.core import (
+        AsyncCheckpointer,
+        load_any_checkpoint,
+        load_checkpoint,
+        save_checkpoint,
+    )
     from agrl_torch.data import datasets as data_manager
     from agrl_torch.data.loader import ClipLoader, VideoClipDataset
     from agrl_torch.data.samplers import init_sampler
@@ -279,7 +291,8 @@ def _run(args, device, writer):
         zero_wd_schedule,
     )
     from agrl_torch.utils.iotools import check_isfile, write_json
-    from agrl_torch.utils.model_complexity import count_num_param
+    from agrl_torch.utils.model_complexity import compute_model_complexity, count_num_param
+    from agrl_torch.utils.profiling import trace
     from agrl_torch.utils.reidtools import visualize_ranked_results
 
     print(f"==========\nArgs:{args}\n==========")
@@ -294,10 +307,15 @@ def _run(args, device, writer):
         root=args.root, name=args.dataset, split_id=args.split_id,
         use_pose=args.use_pose, download=args.download,
     )
+    shared_cache, disk_cache = _host_input(args, dataset)
+    if disk_cache is not None:
+        stores.append(disk_cache)
     ds_kwargs = dict(
         height=args.height, width=args.width, pose_info=dataset.process_poses,
         num_split=args.num_split, num_parts=args.num_parts, num_scale=args.num_scale,
         pyramid_part=args.pyramid_part, enable_pose=args.use_pose,
+        cache_frames=args.cache_frames, cache=shared_cache, disk_cache=disk_cache,
+        decode=args.decode,
     )
     train_ds = VideoClipDataset(dataset.train, seq_len=args.seq_len, sample=args.train_sample,
                                 **ds_kwargs)
@@ -309,11 +327,14 @@ def _run(args, device, writer):
         args.train_sampler, dataset.train, args.train_batch, args.num_instances, seed=args.seed
     )
     trainloader = ClipLoader(train_ds, batch_size=args.train_batch, sampler=sampler,
-                             drop_last=True, num_workers=args.workers, seed=args.seed)
+                             drop_last=True, num_workers=args.workers, seed=args.seed,
+                             malloc_tuning=True)
     # dense/skipdense/all items vary in length: one tracklet a loader batch
     test_batch = 1 if args.test_sample in ("dense", "skipdense", "all") else args.test_batch
-    queryloader = ClipLoader(query_ds, batch_size=test_batch, num_workers=args.workers)
-    galleryloader = ClipLoader(gallery_ds, batch_size=test_batch, num_workers=args.workers)
+    queryloader = ClipLoader(query_ds, batch_size=test_batch, num_workers=args.workers,
+                             malloc_tuning=True)
+    galleryloader = ClipLoader(gallery_ds, batch_size=test_batch, num_workers=args.workers,
+                               malloc_tuning=True)
 
     print(f"Initializing model: {args.arch}")
     model = models.init_model(
@@ -335,8 +356,12 @@ def _run(args, device, writer):
         seed=args.seed,
     )
     _copy_model_source(model, args.save_dir)
+    # the startup params/FLOPs line (reference train_vidreid_xent_htri.py:256-263
+    # runs the same single-clip probe)
+    n_params, gflops = compute_model_complexity(
+        model, seq_len=args.seq_len, height=args.height, width=args.width, verbose=False)
+    print(f"Model complexity: params {n_params:.5f}M flops {gflops:.3f}G")
     print(f"Model size: {count_num_param(model):.5f}M")
-    print("(model FLOPs are not computed by agrl_torch yet: ROADMAP A9)")
 
     if args.pretrained_weights and check_isfile(args.pretrained_weights):
         matched, skipped = init_pretrained_weights(model, args.pretrained_weights)
@@ -402,38 +427,103 @@ def _run(args, device, writer):
     start_time = time.time()
     train_time = 0
     best_epoch = start_epoch
-    for epoch in range(start_epoch, args.max_epoch):
-        for group in optimizer.param_groups:
-            group["weight_decay"] = wd_epoch(epoch)
-        t0 = time.time()
-        train_one_epoch(args, epoch, train_step, trainloader, generator, writer)
-        train_time += round(time.time() - t0)
+    async_ckpt = AsyncCheckpointer() if args.async_ckpt else None
+    save = save_checkpoint if async_ckpt is None else async_ckpt.save
+    try:
+        for epoch in range(start_epoch, args.max_epoch):
+            for group in optimizer.param_groups:
+                group["weight_decay"] = wd_epoch(epoch)
+            t0 = time.time()
+            if args.profile_dir and epoch == start_epoch:
+                with trace(args.profile_dir):
+                    train_one_epoch(args, epoch, train_step, trainloader, generator, writer,
+                                    device)
+                print(f"Profile of epoch {epoch + 1} written to '{args.profile_dir}'")
+            else:
+                train_one_epoch(args, epoch, train_step, trainloader, generator, writer, device)
+            train_time += round(time.time() - t0)
 
-        do_eval = (
-            (epoch + 1) > args.start_eval
-            and args.eval_step > 0
-            and (epoch + 1) % args.eval_step == 0
-        ) or (epoch + 1) == args.max_epoch
-        if do_eval:
-            print("==> Test")
-            rank1, mAP = evaluator.evaluate(
-                queryloader, galleryloader, dist_metric=args.dist_metric,
-                re_rank=args.re_rank, metric_protocol=PROTOCOL,
-            )
-            is_best = rank1 > best_rank1
-            if is_best:
-                best_rank1, best_mAP, best_epoch = rank1, mAP, epoch + 1
-            save_checkpoint(model, optimizer,
-                            osp.join(args.save_dir, f"checkpoint_ep{epoch + 1}.pth.tar"),
-                            epoch, rank1=rank1, mAP=mAP, is_best=is_best)
-            writer.add_scalar("acc/rank1", rank1, epoch + 1)
-            writer.add_scalar("acc/mAP", mAP, epoch + 1)
+            do_eval = (
+                (epoch + 1) > args.start_eval
+                and args.eval_step > 0
+                and (epoch + 1) % args.eval_step == 0
+            ) or (epoch + 1) == args.max_epoch
+            if do_eval:
+                print("==> Test")
+                rank1, mAP = evaluator.evaluate(
+                    queryloader, galleryloader, dist_metric=args.dist_metric,
+                    re_rank=args.re_rank, metric_protocol=PROTOCOL,
+                )
+                is_best = rank1 > best_rank1
+                if is_best:
+                    best_rank1, best_mAP, best_epoch = rank1, mAP, epoch + 1
+                save(model, optimizer,
+                     osp.join(args.save_dir, f"checkpoint_ep{epoch + 1}.pth.tar"),
+                     epoch, rank1=rank1, mAP=mAP, is_best=is_best)
+                writer.add_scalar("acc/rank1", rank1, epoch + 1)
+                writer.add_scalar("acc/mAP", mAP, epoch + 1)
+    finally:
+        if async_ckpt is not None:
+            async_ckpt.close()  # the last save lands before the run reports done
 
     print(f"==> Best Rank-1 {best_rank1:.2%}, mAP: {best_mAP:.2%}, achieved at epoch {best_epoch}")
     elapsed = str(datetime.timedelta(seconds=round(time.time() - start_time)))
     print(f"Finished. Total elapsed time (h:m:s): {elapsed}. "
           f"Training time (h:m:s): {datetime.timedelta(seconds=train_time)}.")
     return None
+
+
+def _host_input(args, dataset):
+    """The run's decoder line, the shared RAM LRU of --cache-frames and the
+    --frame-cache-dir store, with agrl_tpu's startup lines (agrl_tpu's CLI
+    :256-305). Returns (BoundedCache or None, FrameDiskCache or None)."""
+    from agrl_torch.data import jpeg_native
+    from agrl_torch.data.cache import (
+        BoundedCache,
+        FrameDiskCache,
+        estimate_cache_gb,
+        resolve_cache_budget,
+    )
+    from agrl_torch.data.transforms import effective_decoder
+
+    # raises here for --decode native without the decoder, before a store opens
+    decoder = effective_decoder(args.decode)
+    if decoder == "native":
+        print(f"Frame decoder: native (libjpeg, batched; --decode {args.decode})")
+    elif args.decode == "pil":
+        print("Frame decoder: PIL (--decode pil)")
+    else:
+        print(f"Frame decoder: PIL (--decode auto: {jpeg_native.why_unavailable()})")
+
+    shared_cache = None
+    if args.cache_frames:
+        full_gb = estimate_cache_gb(
+            [dataset.train, dataset.query, dataset.gallery], args.height, args.width)
+        # deterministic eval loaders cache whole collated batches; repeat evals
+        # are host-free only if that working set fits the budget
+        eval_gb = (
+            (len(dataset.query) + len(dataset.gallery))
+            * args.seq_len * args.height * args.width * 3 / 1e9
+            if args.test_sample == "evenly" else 0.0
+        )
+        cap_bytes, cap_txt = resolve_cache_budget(args.cache_gb, eval_gb)
+        print(f"Frame cache: ~{full_gb:.1f} GB to hold every decoded frame "
+              f"({args.height}x{args.width}); LRU budget = {cap_txt}")
+        hint = (" — raise --cache-gb to keep repeat evals host-free"
+                if cap_bytes and eval_gb * 1e9 > cap_bytes else "")
+        if eval_gb:
+            print(f"Eval batch cache: ~{eval_gb:.1f} GB holds every collated "
+                  f"eval batch (evenly){hint}")
+        shared_cache = BoundedCache(cap_bytes)
+    disk_cache = None
+    if args.frame_cache_dir:
+        # tagged by this run's decoder: a store of the other decoder's pixels is
+        # never served (FrameDiskCache)
+        disk_cache = FrameDiskCache(args.frame_cache_dir, args.height, args.width,
+                                    decoder=decoder)
+        print(f"Persistent frame cache: '{args.frame_cache_dir}' "
+              f"({len(disk_cache)} frames present)")
+    return shared_cache, disk_cache
 
 
 def _copy_model_source(model, save_dir: str) -> None:
@@ -448,11 +538,15 @@ def _copy_model_source(model, save_dir: str) -> None:
         print(f"(model source copy skipped: {e})")
 
 
-def train_one_epoch(args, epoch, train_step, trainloader, generator, writer):
-    """One epoch of train steps with agrl_tpu's meter block. The meters
-    hold each step's 0-d device tensors and sync with the card only when
-    a line prints; the step's time is the window's wall clock over its
-    steps, measured after that sync."""
+def train_one_epoch(args, epoch, train_step, trainloader, generator, writer, device):
+    """One epoch of train steps with agrl_tpu's meter block. The batches
+    come through prefetch_to_device: built (and on the card, copied) up to
+    two ahead on a thread while the step runs, so the Data meter is the
+    wait for a batch the thread has not finished. The meters hold each
+    step's 0-d device tensors and sync with the card only when a line
+    prints; the step's time is the window's wall clock over its steps,
+    measured after that sync."""
+    from agrl_torch.data.loader import prefetch_to_device
     from agrl_torch.utils.avgmeter import AverageMeter
     from agrl_torch.utils.logger import cur_time
 
@@ -466,39 +560,41 @@ def train_one_epoch(args, epoch, train_step, trainloader, generator, writer):
     end = time.time()
     window_start = time.time()
     window_batches = 0
-    for batch_idx, (imgs, pids, _, adjs) in enumerate(trainloader):
-        data_time.update(time.time() - end)
-        metrics = train_step(imgs, pids, adjs, generator=generator)
-        window_batches += 1
+    # closing: a step that raises stops and joins the prefetch thread
+    with closing(prefetch_to_device(trainloader, size=2, device=device)) as batches:
+        for batch_idx, (imgs, pids, _, adjs) in enumerate(batches):
+            data_time.update(time.time() - end)
+            metrics = train_step(imgs, pids, adjs, generator=generator)
+            window_batches += 1
 
-        bsz = imgs.shape[0]
-        xent_losses.update(metrics["xent_loss"], bsz)
-        htri_losses.update(metrics["htri_loss"], bsz)
-        precisions.update(metrics["top1"])
+            bsz = imgs.shape[0]
+            xent_losses.update(metrics["xent_loss"], bsz)
+            htri_losses.update(metrics["htri_loss"], bsz)
+            precisions.update(metrics["top1"])
 
-        if ((batch_idx + 1) % args.print_freq == 0) or (
-            args.print_last and batch_idx == num_batches - 1
-        ):
-            float(metrics["xent_loss"])  # sync: the window's steps have run
-            batch_time.update((time.time() - window_start) / window_batches, window_batches)
-            window_start = time.time()
-            window_batches = 0
-            eta_seconds = batch_time.avg * (
-                num_batches - (batch_idx + 1) + (args.max_epoch - (epoch + 1)) * num_batches
-            )
-            eta_str = str(datetime.timedelta(seconds=int(eta_seconds)))
-            print(
-                f"CurTime: {cur_time()}\t"
-                f"Epoch: [{epoch + 1}][{batch_idx + 1}/{num_batches}]\t"
-                f"Time {batch_time.val:.3f} ({batch_time.avg:.3f})\t"
-                f"Speed {bsz / batch_time.avg:.3f} samples/s\t"
-                f"Data {data_time.val:.4f} ({data_time.avg:.4f})\t"
-                f"Xent {xent_losses.val:.4f} ({xent_losses.avg:.4f})\t"
-                f"Htri {htri_losses.val:.4f} ({htri_losses.avg:.4f})\t"
-                f"Top1 {precisions.val:.4f} ({precisions.avg:.4f})\t"
-                f"Eta {eta_str}"
-            )
-        end = time.time()
+            if ((batch_idx + 1) % args.print_freq == 0) or (
+                args.print_last and batch_idx == num_batches - 1
+            ):
+                float(metrics["xent_loss"])  # sync: the window's steps have run
+                batch_time.update((time.time() - window_start) / window_batches, window_batches)
+                window_start = time.time()
+                window_batches = 0
+                eta_seconds = batch_time.avg * (
+                    num_batches - (batch_idx + 1) + (args.max_epoch - (epoch + 1)) * num_batches
+                )
+                eta_str = str(datetime.timedelta(seconds=int(eta_seconds)))
+                print(
+                    f"CurTime: {cur_time()}\t"
+                    f"Epoch: [{epoch + 1}][{batch_idx + 1}/{num_batches}]\t"
+                    f"Time {batch_time.val:.3f} ({batch_time.avg:.3f})\t"
+                    f"Speed {bsz / batch_time.avg:.3f} samples/s\t"
+                    f"Data {data_time.val:.4f} ({data_time.avg:.4f})\t"
+                    f"Xent {xent_losses.val:.4f} ({xent_losses.avg:.4f})\t"
+                    f"Htri {htri_losses.val:.4f} ({htri_losses.avg:.4f})\t"
+                    f"Top1 {precisions.val:.4f} ({precisions.avg:.4f})\t"
+                    f"Eta {eta_str}"
+                )
+            end = time.time()
 
     writer.add_scalar("loss/xent_loss", float(xent_losses.avg), epoch + 1)
     writer.add_scalar("loss/htri_loss", float(htri_losses.avg), epoch + 1)

@@ -2,6 +2,7 @@
 checkpoints and the reader for agrl_tpu's msgpack ones."""
 
 from agrl_torch.core.checkpoint import (
+    AsyncCheckpointer,
     load_any_checkpoint,
     load_checkpoint,
     load_variables,
@@ -9,5 +10,5 @@ from agrl_torch.core.checkpoint import (
     save_checkpoint,
 )
 
-__all__ = ["load_any_checkpoint", "load_checkpoint", "load_variables", "load_weights_partial",
-           "save_checkpoint"]
+__all__ = ["AsyncCheckpointer", "load_any_checkpoint", "load_checkpoint", "load_variables",
+           "load_weights_partial", "save_checkpoint"]

@@ -7,6 +7,8 @@ agrl_tpu/core/checkpoint.py).
     "mAP"}; `is_best` also writes a `best_model.pth.tar` copy. The state
     dict carries the reference's module names, so agrl_tpu's
     `--load-weights` (models.load_any_checkpoint) reads it unchanged.
+  * AsyncCheckpointer — `--async-ckpt` (agrl_tpu/core/checkpoint.py:85-140):
+    the same file, written by a background thread from a device snapshot.
   * load_checkpoint — --resume (train_vidreid_xent_htri.py:289-315):
     model, optimizer and the metadata.
   * load_weights_partial — --load-weights (:279-287): a
@@ -42,16 +44,127 @@ TORCH_CKPT_EXTS = (".pth", ".pth.tar", ".npz", ".npy")
 
 def save_checkpoint(model, optimizer, fpath: str, epoch: int, rank1: float = 0.0,
                     mAP: float = 0.0, is_best: bool = False) -> None:
-    mkdir_if_missing(osp.dirname(fpath))
-    torch.save({
-        "state_dict": model.state_dict(),
-        "optimizer": optimizer.state_dict(),
+    _write_checkpoint(_payload(model.state_dict(), optimizer.state_dict(), epoch, rank1, mAP),
+                      fpath, is_best)
+
+
+def _payload(state_dict, optim_state, epoch, rank1, mAP) -> dict:
+    return {
+        "state_dict": state_dict,
+        "optimizer": optim_state,
         "epoch": int(epoch),
         "rank1": float(rank1),
         "mAP": float(mAP),
-    }, fpath)
+    }
+
+
+def _write_checkpoint(payload: dict, fpath: str, is_best: bool) -> None:
+    mkdir_if_missing(osp.dirname(fpath))
+    torch.save(payload, fpath)
     if is_best:
         shutil.copy(fpath, osp.join(osp.dirname(fpath), "best_model.pth.tar"))
+
+
+def _map_tensors(tree, fn):
+    """`tree` with every tensor replaced by fn(tensor), its containers
+    rebuilt; dicts keep their type and a state dict its `_metadata`
+    (load_state_dict reads it). Other leaves are shared: state_dict() and
+    Optimizer.state_dict() hand out fresh containers of immutable values."""
+    if isinstance(tree, torch.Tensor):
+        return fn(tree)
+    if isinstance(tree, dict):
+        out = type(tree)((k, _map_tensors(v, fn)) for k, v in tree.items())
+        if hasattr(tree, "_metadata"):
+            out._metadata = tree._metadata
+        return out
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(_map_tensors(v, fn) for v in tree)
+    return tree
+
+
+class AsyncCheckpointer:
+    """`save_checkpoint` with the device-to-host copy and the write on a
+    background thread (agrl_tpu/core/checkpoint.py:85-140).
+
+    `save` first snapshots the model's state dict and the optimizer's state
+    where they live, in one batched copy (`torch._foreach_copy_` into
+    buffers allocated at the first save, one block per dtype and device,
+    and reused): both are views of
+    live tensors that the next `optimizer.step()` overwrites in place. An
+    event recorded after that copy orders the worker's device-to-host copy
+    after it; the worker then writes the file save_checkpoint writes (the
+    tensors on the CPU), and the `best_model.pth.tar` copy once the write
+    has landed. One save is in flight at a time: a new `save` waits for
+    the previous one, which bounds the extra device memory at one copy of
+    the state and keeps the files in order. A failed write raises at the
+    next `save` or `wait`."""
+
+    def __init__(self):
+        from concurrent.futures import ThreadPoolExecutor
+
+        self._pool = ThreadPoolExecutor(max_workers=1, thread_name_prefix="ckpt")
+        self._future = None
+        self._buffers: list = []
+        self._layout: list | None = None
+
+    def _snapshot(self, tree):
+        leaves = []
+        _map_tensors(tree, leaves.append)
+        live = [t.detach() for t in leaves]
+        layout = [(t.shape, t.dtype, t.device) for t in live]
+        if layout != self._layout:
+            # one allocation per (dtype, device), cut into the leaves' shapes:
+            # hundreds of separate first-time device allocations would hold
+            # the loop for longer than the copy itself
+            sizes: dict = {}
+            for t in live:
+                sizes[(t.dtype, t.device)] = sizes.get((t.dtype, t.device), 0) + t.numel()
+            flat = {k: torch.empty(n, dtype=k[0], device=k[1]) for k, n in sizes.items()}
+            offset = dict.fromkeys(sizes, 0)
+            self._buffers = []
+            for t in live:
+                k, o = (t.dtype, t.device), offset[(t.dtype, t.device)]
+                self._buffers.append(flat[k][o:o + t.numel()].view(t.shape))
+                offset[k] = o + t.numel()
+            self._layout = layout
+        with torch.no_grad():
+            torch._foreach_copy_(self._buffers, live)
+        it = iter(self._buffers)
+        return _map_tensors(tree, lambda _: next(it))
+
+    def save(self, model, optimizer, fpath: str, epoch: int, rank1: float = 0.0,
+             mAP: float = 0.0, is_best: bool = False) -> None:
+        self.wait()
+        snap = self._snapshot({"state_dict": model.state_dict(),
+                               "optimizer": optimizer.state_dict()})
+        event = None
+        devices = {b.device for b in self._buffers if b.device.type == "cuda"}
+        if devices:
+            event = torch.cuda.Event()
+            event.record(torch.cuda.current_stream(next(iter(devices))))
+        self._future = self._pool.submit(self._write, snap, event, fpath,
+                                         epoch, rank1, mAP, is_best)
+
+    @staticmethod
+    def _write(snap, event, fpath, epoch, rank1, mAP, is_best):
+        if event is not None:
+            event.synchronize()  # the snapshot copy has run
+        host = _map_tensors(snap, lambda t: t.to("cpu"))
+        _write_checkpoint(_payload(host["state_dict"], host["optimizer"], epoch, rank1, mAP),
+                          fpath, is_best)
+
+    def wait(self) -> None:
+        """Block until the in-flight save (if any) lands; re-raise its error."""
+        if self._future is not None:
+            future, self._future = self._future, None
+            future.result()
+
+    def close(self) -> None:
+        """wait(), then stop the writer thread."""
+        try:
+            self.wait()
+        finally:
+            self._pool.shutdown(wait=True)
 
 
 def _torch_load(fpath: str):

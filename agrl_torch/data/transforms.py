@@ -1,14 +1,16 @@
 """Clip decode and on-device preprocessing (counterpart of
 agrl_tpu/data/transforms.py).
 
-Host side decodes and resizes frames with PIL (bilinear, as the
+Host side decodes and resizes frames (`host_decode_resize`): through the
+batched libjpeg decoder (`data/jpeg_native.py`) or PIL (bilinear, as the
 reference's reader + GroupResize do, dataset_loader.py:23-36 and
-train_vidreid_xent_htri.py:216); the device side turns the uint8
-(B, S, H, W, 3) batch into normalized float32 with the ImageNet
+train_vidreid_xent_htri.py:216), with agrl_tpu's three decode modes and
+its RAM and disk frame caches (`data/cache.py`). The device side turns
+the uint8 (B, S, H, W, 3) batch into normalized float32 with the ImageNet
 constants, and in training flips whole clips (one decision per clip, as
-GroupOperation draws one parameter per clip). Random erasing, random
-crop and misalign augmentation are not ported yet: the paper recipe uses
-none of them.
+GroupOperation draws one parameter per clip). Random erasing, random crop
+and misalign augmentation are not ported yet (ROADMAP A2): the paper
+recipe uses none of them.
 """
 
 from __future__ import annotations
@@ -20,6 +22,151 @@ import torch
 
 IMAGENET_MEAN = (0.485, 0.456, 0.406)
 IMAGENET_STD = (0.229, 0.224, 0.225)
+DECODE_MODES = ("auto", "native", "pil")
+
+
+def host_decode_resize(
+    paths, height: int, width: int, cache=None, disk_cache=None,
+    threads: int = 1, decode: str = "auto",
+) -> tuple[np.ndarray, list]:
+    """Read + resize frames on the host. Returns (S, H, W, 3) uint8 and the
+    ORIGINAL (w, h) sizes (the graph builder needs them); agrl_tpu's
+    function (agrl_tpu/data/transforms.py:40-127) line for line.
+
+    `decode`: which decoder produces the pixels —
+      * "auto"   — the native libjpeg decoder when it is built, PIL
+        otherwise;
+      * "pil"    — PIL: bit-identical to the reference's reader +
+        GroupResize, the choice for a migrated reference checkpoint (the
+        native DCT-scaled downscale drifts a few gray levels from PIL);
+      * "native" — the native decoder or an error (unbuilt library, or a
+        frame that is not a JPEG).
+    Frames the native decoder fails on are retried through the robust PIL
+    reader.
+
+    `cache`: optional {path: (img_u8, (w, h))} mapping (a dict or a
+    data.cache.BoundedCache), consulted first; `disk_cache`: optional
+    data.cache.FrameDiskCache, consulted next. Decoded frames are written
+    back to both, so a repeat epoch decodes nothing. Each distinct path is
+    decoded once, and every source fills rows of one preallocated clip
+    array in place (disk hits through preadv). The caches hold DECODED
+    pixels: a FrameDiskCache records its decoder tag (`effective_decoder`)
+    and never serves the other decoder's pixels; a RAM cache lives for one
+    run, whose decode mode is fixed.
+
+    `threads`: the native decoder's OpenMP width (0 = hardware default;
+    1 when the caller already decodes on a thread pool)."""
+    if cache is None and disk_cache is None:
+        return _decode_batch(paths, height, width, threads, decode)
+
+    n = len(paths)
+    out = np.empty((n, height, width, 3), np.uint8)
+    sizes: list = [None] * n
+    missing: list[int] = []
+    for i, p in enumerate(paths):
+        v = cache.get(p) if cache is not None else None
+        if v is None:
+            missing.append(i)
+        else:
+            out[i] = v[0]
+            sizes[i] = v[1]
+    if missing and disk_cache is not None:
+        got = disk_cache.read_many_into([paths[i] for i in missing], out, missing)
+        still = []
+        for k, i in enumerate(missing):
+            if got[k] is None:
+                still.append(i)
+            else:
+                sizes[i] = got[k]
+                if cache is not None:
+                    # its own copy: a view would pin the whole clip array in
+                    # the LRU under one frame's accounting
+                    cache[paths[i]] = (out[i].copy(), got[k])
+        missing = still
+    if missing:
+        # each distinct path once (dense padding repeats frames)
+        uniq = list(dict.fromkeys(paths[i] for i in missing))
+        imgs_m, sizes_m = _decode_batch(uniq, height, width, threads, decode)
+        by_path = {p: j for j, p in enumerate(uniq)}
+        for i in missing:
+            j = by_path[paths[i]]
+            out[i] = imgs_m[j]
+            sizes[i] = sizes_m[j]
+        for p, j in by_path.items():
+            if cache is not None:
+                cache[p] = (imgs_m[j].copy(), sizes_m[j])
+            if disk_cache is not None:
+                disk_cache.put(p, imgs_m[j], sizes_m[j])
+    return out, sizes
+
+
+def _native_unbuilt_error() -> RuntimeError:
+    from agrl_torch.data import jpeg_native
+
+    return RuntimeError(
+        "decode='native' but the native decoder is not built: "
+        f"{jpeg_native.why_unavailable()}"
+    )
+
+
+def effective_decoder(decode: str) -> str:
+    """Which decoder a run's JPEG pixels come from: 'native' unless PIL
+    was asked for or the native decoder cannot be built. The tag
+    `FrameDiskCache` keeps its store single-decoder with. (Frames that are
+    not JPEGs decode through PIL in every mode.)
+
+    decode='native' with the decoder unbuilt raises HERE, before any
+    FrameDiskCache opens: opening a native-tagged store under a fallback
+    'pil' tag would wipe it for a run that fails at its first decode."""
+    from agrl_torch.data import jpeg_native
+
+    if decode not in DECODE_MODES:
+        raise ValueError(f"decode must be one of {DECODE_MODES}, got {decode!r}")
+    if decode == "pil":
+        return "pil"
+    if not jpeg_native.available():
+        if decode == "native":
+            raise _native_unbuilt_error()
+        return "pil"
+    return "native"
+
+
+def _is_jpeg(path: str) -> bool:
+    return path.lower().endswith((".jpg", ".jpeg"))
+
+
+def _decode_batch(paths, height: int, width: int, threads: int = 1,
+                  decode: str = "auto") -> tuple[np.ndarray, list]:
+    from agrl_torch.data import jpeg_native
+
+    if decode == "native":
+        if not jpeg_native.available():
+            raise _native_unbuilt_error()
+        bad = next((p for p in paths if not _is_jpeg(p)), None)
+        if bad is not None:
+            raise ValueError(
+                f"decode='native' but '{bad}' is not a JPEG; the native decoder only "
+                "handles .jpg/.jpeg — use --decode auto or pil for this dataset"
+            )
+    if decode != "pil" and all(_is_jpeg(p) for p in paths) and jpeg_native.available():
+        imgs, sizes, ok = jpeg_native.decode_resize_batch(paths, height, width, threads=threads)
+        for i in np.flatnonzero(~ok):  # corrupt or missing -> the robust PIL reader
+            imgs[i], sizes[i] = _pil_decode_one(paths[i], height, width)
+        return imgs, [tuple(s) for s in sizes]
+
+    frames, sizes = [], []
+    for p in paths:
+        img, size = _pil_decode_one(p, height, width)
+        sizes.append(size)
+        frames.append(img)
+    return np.stack(frames), sizes
+
+
+def _pil_decode_one(path: str, height: int, width: int):
+    from PIL import Image
+
+    img = robust_read(path)
+    return np.asarray(img.resize((width, height), Image.BILINEAR)), img.size
 
 
 def robust_read(path: str):
@@ -33,19 +180,6 @@ def robust_read(path: str):
             return Image.open(path).convert("RGB")
         except IOError:
             print(f"IOError reading '{path}'; retrying.")
-
-
-def host_decode_resize(paths, height: int, width: int) -> tuple[np.ndarray, list]:
-    """Read + bilinear-resize frames. Returns (S, H, W, 3) uint8 and the
-    ORIGINAL (w, h) sizes (the graph builder needs them)."""
-    from PIL import Image
-
-    frames, sizes = [], []
-    for p in paths:
-        img = robust_read(p)
-        sizes.append(img.size)
-        frames.append(np.asarray(img.resize((width, height), Image.BILINEAR)))
-    return np.stack(frames), sizes
 
 
 def preprocess_clips(

@@ -22,8 +22,9 @@ The ranking stage takes agrl_tpu's branches and console lines:
     (ops/rerank.py, whose Jaccard term is the min-plus kernel);
   * host scoring (`device_rank=False`, `return_distmat`, or dukev after
     re-ranking, whose device scorer is exact only for tie-free
-    distances): agrl_torch.metrics (NumPy) scores a (Q, G) matrix copied
-    to the host. With `re_rank` that matrix is still re-ranked on the
+    distances): agrl_torch.metrics scores a (Q, G) matrix copied to the
+    host, in the C++ scorers of native/rank_eval.cpp where they build (mars,
+    market1501, cuhk03) and in NumPy otherwise, as agrl_tpu does. With `re_rank` that matrix is still re-ranked on the
     features' device unless `device_rank=False`; agrl_tpu re-ranks on the
     host in all three cases, and the two re-rankings agree within 2e-4.
     With `device_rank=False` the distances are computed on the device
@@ -369,7 +370,8 @@ class Evaluator:
                 distmat = re_ranking(distmat, qq, gg)
 
         print("Computing CMC and mAP")
-        cmc, mAP = evaluate_rank(distmat, *ids, **{f"use_metric_{metric_protocol}": True})
+        cmc, mAP = evaluate_rank(distmat, *ids, use_native=True,
+                                 **{f"use_metric_{metric_protocol}": True})
         _print_results(cmc, mAP, ranks)
         if return_distmat:
             return distmat

@@ -1,9 +1,11 @@
 """CMC / mAP ranking metrics — vectorized NumPy implementations.
 
-A copy of agrl_tpu/metrics/rank.py without its dispatch to the C++
-library native/librank_eval.so (agrl_tpu/metrics/rank_native.py): here
-`evaluate_rank` always runs the NumPy paths below, which are the paths
-agrl_tpu takes when that library is not built, so the two agree.
+A copy of agrl_tpu/metrics/rank.py. `evaluate_rank(use_native=True)`
+dispatches mars, market1501 and cuhk03 to the C++ scorers of
+native/rank_eval.cpp (metrics/rank_native.py) when they build, as
+agrl_tpu's does; by default, and wherever the library cannot be built,
+it runs the NumPy paths below, which are the paths agrl_tpu takes
+without its library, so the two agree bit for bit.
 
 Behavioral parity targets in the reference:
   * `eval_market1501`  -> torchreid/metrics/rank.py:95-150 (and the Cython
@@ -352,12 +354,29 @@ def evaluate_rank(
     use_metric_market1501=False,
     use_metric_mars=False,
     use_metric_dukev=False,
+    use_native=False,
 ):
-    """Dispatcher mirroring reference torchreid/metrics/rank.py:215-238,
-    on the NumPy paths only (the module docstring says why they agree
-    with agrl_tpu's). The cuhk03 path draws from the global np.random
-    stream, as the reference does. Fully on-device evaluation lives in
-    agrl_torch.ops.rank."""
+    """Dispatcher mirroring reference torchreid/metrics/rank.py:215-238.
+
+    With `use_native` (the Evaluator's host scoring passes it), mars,
+    market1501 and cuhk03 run in the C++ scorers when they build
+    (metrics/rank_native.py), like the reference preferring its Cython
+    extension and agrl_tpu its native/librank_eval.so; they agree with the
+    NumPy paths to ~1e-6. Otherwise, and for dukev, the NumPy paths run.
+    The cuhk03 paths draw from the global np.random stream, as the
+    reference does, so the choice never changes its draws. Fully
+    on-device evaluation lives in agrl_torch.ops.rank."""
+    if use_native and (use_metric_mars or use_metric_market1501 or use_metric_cuhk03):
+        from agrl_torch.metrics import rank_native
+
+        if rank_native.available():
+            if use_metric_cuhk03:
+                scorer = rank_native.evaluate_cuhk03_native
+            elif use_metric_market1501:
+                scorer = rank_native.evaluate_market1501_native
+            else:
+                scorer = rank_native.evaluate_mars_native
+            return scorer(distmat, q_pids, g_pids, q_camids, g_camids, max_rank)
     if use_metric_cuhk03:
         return eval_cuhk03(distmat, q_pids, g_pids, q_camids, g_camids, max_rank)
     if use_metric_market1501:

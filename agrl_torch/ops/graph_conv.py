@@ -25,7 +25,8 @@ entry: f and adj held in bf16), so `torch.export` captures them in a
 serving artifact and a loaded artifact calls them: the CPU implementation
 is the plain version, the CUDA one the kernel or an exception, never a
 fallback, and a fake implementation gives the output's shape and dtype
-(float32) while tracing. Importing this module registers them. A bf16
+(float32) while tracing, and a FLOP formula (their three products) lets
+FlopCounterMode count them. Importing this module registers them. A bf16
 input (f, adj, W or a BN vector, as the bf16 eval passes them) is widened
 to float32 before the kernel, which is exact; the output is float32.
 
@@ -40,6 +41,7 @@ import ctypes
 import functools
 
 import torch
+from torch.utils.flop_counter import register_flop_formula
 
 BN_EPS = 1e-5
 
@@ -238,3 +240,20 @@ def graph_propagate_v2(f, adj, W, scale, bias, mean, var, gamma=0.1, vertex_mask
     kernel on bf16-rounded inputs. CPU tensors: the plain version."""
     return torch.ops.agrl_torch.graph_propagate_v2(
         f, adj, W, scale, bias, mean, var, float(gamma), vertex_mask)
+
+
+def _propagate_flops(f_shape, adj_shape, W_shape, *args, out_shape=None, **kwargs) -> int:
+    """The op's products as FlopCounterMode counts the plain version's
+    (2 per multiply-add): f @ W, the Gram f f^T of the l2 affinity, G @ h.
+    The elementwise work is not counted, as for any op there."""
+    B, V, C = f_shape
+    C_out = W_shape[1]
+    return 2 * B * V * C * C_out + 2 * B * V * V * C + 2 * B * V * V * C_out
+
+
+# FlopCounterMode (utils/model_complexity.py) counts an op without a
+# formula as 0; with this one the count is the plain path's
+register_flop_formula(
+    [torch.ops.agrl_torch.graph_propagate, torch.ops.agrl_torch.graph_propagate_v2]
+)(_propagate_flops)
+

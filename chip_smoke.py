@@ -135,9 +135,27 @@ Phases (any failure exits non-zero before the result lines):
      agrl_torch.cli.export_model on its best_model.pth.tar, and that
      artifact served here: K1 twice per chunk, features within 1e-5 of max
      of the live bf16 path;
+ 22. (run after phase 16) the CLI's host side on phase 16's MARS layout
+     at the paper preset: [build] lines for the host libraries of native/
+     (libjpeg_decode, librank_eval: built with g++, or the reason not); the
+     train loader alone at -j 1 and -j 8 under PIL and native (ms a batch,
+     ms a frame); native vs PIL pixels on the layout's 256x128 JPEGs
+     (bit-equal) and on JPEGs written at 512x256 (per-frame mean |diff| < 6);
+     the CLI for 2 epochs at --print-freq 1 (in process, wrappers counted,
+     train batches hashed): --decode pil with the batches built when the
+     step asks (no prefetch thread, as before), --decode pil, --decode
+     auto, --cache-frames,
+     --frame-cache-dir twice (the second warm), each with its Time and Data
+     meters (median of steps 2-8 and of epoch 2), K3 1 + 1 launches a step
+     and K1 2 per eval batch, the uint8 batches of pil and --cache-frames
+     hash-equal; a save's blocked ms, sync vs --async-ckpt (the async file
+     loads equal to the state at the save) and --profile-dir's files (the
+     trace names K3's kernels), one epoch each; the FLOPs line; the host
+     scorers, native vs NumPy, on a MARS-scale cosine distance matrix
+     (phase 13's features): ms and CMC/mAP within 1e-6;
 then one {"serving": ...} line (with "bf16" and "artifact"), one {"training": ...} line (with "bf16"),
 one {"reranking": ...} line, one {"cli": ...} line (with "bf16"), one {"evaluation": ...}
-line, one {"kernels": [...]} line (each kernel's `slower_than_plain`
+line, one {"input": ...} line, one {"kernels": [...]} line (each kernel's `slower_than_plain`
 lists the shapes where this run timed it above its plain version), the
 card's name and power limit, and
 {"ok": true, "device": {...}} as the last line.
@@ -2238,6 +2256,350 @@ def phase_cli_bf16(torch, gc):
                 artifact_vs_live_rel_err=err)
 
 
+INPUT_EPOCHS = 2
+INPUT_PIXEL_SET = 64  # frames written at 512x256 for the downscale comparison
+COMPLEXITY = re.compile(r"Model complexity: params (\S+)M flops (\S+)G")
+
+
+def build_host_libraries():
+    """[build] lines for the host libraries of native/ (g++, in parallel):
+    the library or the reason it cannot be had."""
+    from agrl_torch.data import jpeg_native
+    from agrl_torch.metrics import rank_native
+
+    t0 = time.perf_counter()
+    mods = {"jpeg_decode": jpeg_native, "rank_eval": rank_native}
+    with ThreadPoolExecutor(len(mods)) as pool:
+        built = dict(zip(mods, pool.map(lambda m: m.available(), mods.values())))
+    secs = time.perf_counter() - t0
+    out = {"build_s": secs}
+    for name, mod in mods.items():
+        if built[name]:
+            lib = mod.LIBRARY
+            log(f"[build] lib{name}: built, {lib.path.name}" + (f"; {lib.note}" if lib.note else "")
+                + f" ({secs:.1f} s for both)")
+            out[name] = {"built": True, "library": lib.path.name, "note": lib.note}
+        else:
+            log(f"[build] lib{name}: {mod.why_unavailable()}")
+            out[name] = {"built": False, "reason": mod.why_unavailable()}
+    return out
+
+
+def loader_ms(ds_train, args, decode, workers, n=5):
+    """The CLI's train loader alone (MARS catalog, restricted clips, pose
+    graphs): ms a batch (mean of n after a first) and ms a frame."""
+    from agrl_torch.data.loader import ClipLoader, VideoClipDataset
+    from agrl_torch.data.samplers import init_sampler
+
+    ds, process_poses = ds_train
+    dset = VideoClipDataset(
+        ds.train, seq_len=args.seq_len, sample=args.train_sample, height=args.height,
+        width=args.width, pose_info=process_poses, num_split=args.num_split,
+        num_parts=args.num_parts, pyramid_part=args.pyramid_part, enable_pose=args.use_pose,
+        decode=decode)
+    loader = ClipLoader(dset, batch_size=args.train_batch, drop_last=True, num_workers=workers,
+                        seed=0, malloc_tuning=True, sampler=init_sampler(
+                            args.train_sampler, ds.train, args.train_batch, args.num_instances,
+                            seed=0))
+    got, t0 = 0, None
+    while got <= n:
+        for _ in loader:
+            if t0 is None:
+                t0 = time.perf_counter()  # after the first batch: files read once
+            else:
+                got += 1
+                if got == n:
+                    break
+        if got == n:
+            break
+    ms = (time.perf_counter() - t0) / n * 1e3
+    return ms, ms / (args.train_batch * args.seq_len)
+
+
+def _downscale_diff(paths, tmp, tag, content):
+    """Writes JPEGs at 2 x (HEIGHT, WIDTH) from `content(i, path)` and
+    decodes them to (HEIGHT, WIDTH) natively and with PIL: the max |diff|
+    and the largest per-frame mean |diff|."""
+    from PIL import Image
+
+    from agrl_torch.data.transforms import host_decode_resize
+
+    big = []
+    for i, p in enumerate(paths[:INPUT_PIXEL_SET]):
+        q = f"{tmp}/{tag}_{i}.jpg"
+        Image.fromarray(content(i, p)).save(q, quality=92)
+        big.append(q)
+    nat, _ = host_decode_resize(big, HEIGHT, WIDTH, decode="native")
+    pil, _ = host_decode_resize(big, HEIGHT, WIDTH, decode="pil")
+    diff = np.abs(nat.astype(int) - pil.astype(int))
+    return int(diff.max()), float(diff.reshape(len(big), -1).mean(axis=1).max())
+
+
+def pixel_checks(root, tmp, native_built):
+    """Native vs PIL pixels: the layout's 256x128 JPEGs (bit-equal); JPEGs
+    written at 512x256 with tests/test_torch_host_decode.py's smooth content
+    (that test's bound: per-frame mean |native - PIL| < 6); and the layout's
+    frames upscaled to 512x256 (reported: the two downscales differ most on
+    sharp edges and noise)."""
+    from PIL import Image
+
+    from agrl_torch.data.transforms import host_decode_resize
+
+    paths = [str(p) for p in sorted(Path(root).rglob("*.jpg"))[:256]]
+    if not native_built:
+        log("[input] native vs PIL pixels: not compared (the native decoder is not built)")
+        return None
+    nat, _ = host_decode_resize(paths, HEIGHT, WIDTH, decode="native")
+    pil, _ = host_decode_resize(paths, HEIGHT, WIDTH, decode="pil")
+    at_size = int(np.abs(nat.astype(int) - pil.astype(int)).max())
+    rng = np.random.RandomState(0)
+
+    def smooth(i, p):
+        small = (rng.rand(HEIGHT // 4, WIDTH // 4, 3) * 255).astype(np.uint8)
+        return np.asarray(Image.fromarray(small).resize((2 * WIDTH, 2 * HEIGHT),
+                                                        Image.BILINEAR))
+
+    def upscaled(i, p):
+        return np.asarray(Image.open(p).convert("RGB").resize((2 * WIDTH, 2 * HEIGHT),
+                                                               Image.BILINEAR))
+
+    smooth_max, smooth_mean = _downscale_diff(paths, tmp, "smooth", smooth)
+    layout_max, layout_mean = _downscale_diff(paths, tmp, "layout", upscaled)
+    log(f"[input] native vs PIL pixels: {len(paths)} layout JPEGs at {HEIGHT}x{WIDTH}: max "
+        f"|diff| {at_size} (must be 0); {INPUT_PIXEL_SET} JPEGs at {2 * HEIGHT}x{2 * WIDTH} "
+        f"decoded to {HEIGHT}x{WIDTH}: smooth content max |diff| {smooth_max}, per-frame mean "
+        f"up to {smooth_mean:.3f} (bar 6); the layout's frames upscaled: max |diff| "
+        f"{layout_max}, per-frame mean up to {layout_mean:.3f} (reported)")
+    if at_size != 0 or smooth_mean >= 6.0:
+        raise AssertionError("native decode disagrees with PIL beyond its bars")
+    return dict(at_size_frames=len(paths), at_size_max_abs_diff=at_size,
+                downscale_frames=INPUT_PIXEL_SET, smooth_max_abs_diff=smooth_max,
+                smooth_mean_abs_diff_max=smooth_mean, layout_max_abs_diff=layout_max,
+                layout_mean_abs_diff_max=layout_mean)
+
+
+def phase_input(torch, tri, gc):
+    """Phase 22: the CLI's host side on phase 16's MARS layout at the paper
+    preset: the host libraries, the train loader alone, native vs PIL
+    pixels, the CLI's meters under four input configurations (launches
+    counted), blocked time of a save sync vs async, the profile, the FLOPs
+    line, and the host scorers at MARS scale."""
+    import hashlib
+
+    from agrl_torch.cli import train_vidreid_xent_htri as cli
+    from agrl_torch.core import checkpoint as ckpt_mod
+    from agrl_torch.data import loader as loader_mod
+    from agrl_torch.data.datasets import init_vidreid_dataset
+    from agrl_torch.data.datasets.synthetic_mars import materialize_mars_layout
+    from agrl_torch.metrics import rank as host_rank
+    from agrl_torch.metrics import rank_native
+    from agrl_torch.ops.distmat import compute_distmat
+
+    t_phase = time.perf_counter()
+    result = {"build": build_host_libraries()}
+    native_built = result["build"]["jpeg_decode"]["built"]
+    build_dir = REPO / "agrl_torch" / "_build"
+    preset = vmgn_args()
+    args = cli.build_parser().parse_args(preset)
+    with tempfile.TemporaryDirectory(dir=build_dir) as tmp:
+        root = f"{tmp}/data"
+        materialize_mars_layout(root, **CLI_DATA)
+        ds = init_vidreid_dataset("mars", root=root, verbose=False, use_pose=True)
+        test_batch = args.test_batch
+        eval_batches = -(-len(ds.query) // test_batch) + -(-len(ds.gallery) // test_batch)
+
+        # the train loader alone
+        loaders = {}
+        for decode in ("pil", "native") if native_built else ("pil",):
+            for workers in (1, 8):
+                ms, per_frame = loader_ms((ds, ds.process_poses), args, decode, workers)
+                loaders[f"{decode}_j{workers}"] = {"batch_ms": ms, "frame_ms": per_frame}
+                log(f"[input] train loader, {decode}, -j {workers}: {ms:.1f} ms a batch of "
+                    f"{args.train_batch * args.seq_len} frames, {per_frame:.3f} ms a frame "
+                    f"(decode, pose graphs, stacking; {os.cpu_count()} CPUs)")
+        result["loader"] = loaders
+        result["pixels"] = pixel_checks(root, tmp, native_built)
+
+        # the CLI, in process with the wrappers counted and the batches hashed
+        base = ["-d", "mars", *preset, "--root", root, "--max-epoch", str(INPUT_EPOCHS),
+                "--print-freq", "1", "--eval-step", "-1"]
+        hashes = []
+        real_prefetch = loader_mod.prefetch_to_device
+        real_sync, real_async = ckpt_mod.save_checkpoint, ckpt_mod.AsyncCheckpointer.save
+
+        serial = []  # non-empty: the batches bypass the prefetch thread
+
+        def hashing_prefetch(iterator, size=2, device="cuda"):
+            def hashed():
+                for batch in iterator:
+                    hashes.append(hashlib.sha256(batch[0].tobytes()).hexdigest())
+                    yield batch
+            return hashed() if serial else real_prefetch(hashed(), size, device)
+
+        def cli_run(name, extra):
+            hashes.clear()
+            tri.launches = tri.backward_launches = gc.launches = 0  # main path starts here
+            t0 = time.perf_counter()
+            _, out = run_cli_in_process(cli, base + extra + ["--save-dir", f"{tmp}/{name}"])
+            secs = time.perf_counter() - t0
+            fwd, bwd, k1 = tri.launches, tri.backward_launches, gc.launches  # and ends here
+            meters = [m.groups() for m in METER.finditer(out)]
+            steps = len(meters)
+            spe = int(meters[0][2])
+            step_ms = [float(m[3]) * 1e3 for m in meters]
+            data_ms = [float(m[4]) * 1e3 for m in meters]
+            rec = dict(steps=steps, seconds=secs, k3_per_step=[fwd / steps, bwd / steps],
+                       k1_per_eval_batch=k1 / eval_batches,
+                       time_ms_median=float(np.median(step_ms[1:])),
+                       data_ms_median=float(np.median(data_ms[1:])),
+                       epoch2_time_ms_median=float(np.median(step_ms[spe:])),
+                       epoch2_data_ms_median=float(np.median(data_ms[spe:])),
+                       data_ms_all=data_ms, time_ms_all=step_ms,
+                       batch_hashes=list(hashes), evals=cmc_blocks(out))
+            for line in out.splitlines():
+                if line.startswith(("Frame decoder", "Frame cache", "Eval batch cache",
+                                    "Persistent frame cache", "Model complexity")):
+                    log(f"[input] {name}: {line}")
+            log(f"[input] {name}: {steps} steps, Time meter median {rec['time_ms_median']:.1f} "
+                f"ms, Data meter median {rec['data_ms_median']:.2f} ms (steps 2-{steps}); "
+                f"epoch 2: Time {rec['epoch2_time_ms_median']:.1f}, Data "
+                f"{rec['epoch2_data_ms_median']:.2f} ms; K3 {fwd} + {bwd} launches, K1 {k1} for "
+                f"{eval_batches} eval batches; {secs:.1f} s")
+            if not (steps == INPUT_EPOCHS * spe and fwd == bwd == steps and k1 == 2 * eval_batches
+                    and len(rec["evals"]) == 1 and len(hashes) == steps):
+                raise AssertionError(f"CLI run {name}: {steps} steps, K3 {fwd}+{bwd}, K1 {k1}, "
+                                     f"evals {rec['evals']}, {len(hashes)} batches hashed")
+            return rec, out
+
+        loader_mod.prefetch_to_device = hashing_prefetch
+        try:
+            runs = {}
+            # the batches built when the step asks, as before prefetch_to_device
+            serial.append(True)
+            runs["a0_pil_serial"], _ = cli_run("a0_pil_serial", ["--decode", "pil"])
+            serial.clear()
+            runs["a_pil"], out_a = cli_run("a_pil", ["--decode", "pil"])
+            runs["b_auto"], _ = cli_run("b_auto", ["--decode", "auto"])
+            runs["c_cache_frames"], _ = cli_run("c_cache_frames", ["--cache-frames"])
+            store = f"{tmp}/store"
+            runs["d_store_cold"], _ = cli_run("d_store_cold", ["--frame-cache-dir", store])
+            runs["d_store_warm"], out_d = cli_run("d_store_warm", ["--frame-cache-dir", store])
+        finally:
+            loader_mod.prefetch_to_device = real_prefetch
+        if not (runs["a_pil"]["batch_hashes"] == runs["c_cache_frames"]["batch_hashes"]
+                == runs["a0_pil_serial"]["batch_hashes"]):
+            raise AssertionError("the uint8 train batches of --decode pil and --cache-frames "
+                                 "differ")
+        present = re.search(r"Persistent frame cache: '.*' \((\d+) frames present\)", out_d)
+        if not present or int(present.group(1)) == 0:
+            raise AssertionError("the second --frame-cache-dir run found no frames")
+        log(f"[input] batches of a0_pil_serial, a_pil and c_cache_frames: "
+            f"{len(runs['a_pil']['batch_hashes'])} sha256 equal; the warm store held "
+            f"{present.group(1)} frames")
+        result["cli"] = runs
+        flops = COMPLEXITY.search(out_a)
+        result["flops_line"] = flops.group(0)
+        result["gflops"], result["params_m"] = float(flops.group(2)), float(flops.group(1))
+
+        # --async-ckpt and --profile-dir: one epoch, the saves timed
+        prof = f"{tmp}/prof"
+        synced = []
+
+        def sync_timed(model, optimizer, fpath, epoch, **kw):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            real_sync(model, optimizer, fpath, epoch, **kw)
+            synced.append((time.perf_counter() - t0) * 1e3)
+
+        async_blocked, async_states = [], []
+
+        def async_timed(self, model, optimizer, fpath, epoch, **kw):
+            async_states.append({k: v.detach().to("cpu", copy=True)
+                                 for k, v in model.state_dict().items()})
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            real_async(self, model, optimizer, fpath, epoch, **kw)
+            async_blocked.append((time.perf_counter() - t0) * 1e3)
+
+        import agrl_torch.core as core_pkg
+
+        one = base[:base.index("--max-epoch")] + ["--max-epoch", "1", "--print-freq", "1"]
+        core_pkg.save_checkpoint = sync_timed
+        try:
+            run_cli_in_process(cli, one + ["--save-dir", f"{tmp}/sync"])
+        finally:
+            core_pkg.save_checkpoint = real_sync
+        written = []
+        real_write = ckpt_mod.AsyncCheckpointer._write
+
+        def write_timed(*a):
+            t0 = time.perf_counter()
+            real_write(*a)
+            written.append((time.perf_counter() - t0) * 1e3)
+
+        ckpt_mod.AsyncCheckpointer.save = async_timed
+        ckpt_mod.AsyncCheckpointer._write = staticmethod(write_timed)
+        try:
+            run_cli_in_process(cli, one + ["--save-dir", f"{tmp}/async", "--async-ckpt",
+                                           "--profile-dir", prof])
+        finally:
+            ckpt_mod.AsyncCheckpointer.save = real_async
+            ckpt_mod.AsyncCheckpointer._write = staticmethod(real_write)
+        saved = torch.load(f"{tmp}/async/checkpoint_ep1.pth.tar", map_location="cpu",
+                           weights_only=True)["state_dict"]
+        equal = saved.keys() == async_states[0].keys() and all(
+            torch.equal(saved[k], v) for k, v in async_states[0].items())
+        traces = sorted(Path(prof).glob("trace_*.json"))
+        trace_text = traces[0].read_text() if traces else ""
+        names_k3 = [k for k in TRIPLET_KERNELS if k in trace_text]
+        result["checkpoint"] = dict(sync_blocked_ms=synced[0], async_blocked_ms=async_blocked[0],
+                                    async_write_ms=written[0], async_file_loads_equal=equal,
+                                    file_mb=os.path.getsize(
+                                        f"{tmp}/async/checkpoint_ep1.pth.tar") / 1e6)
+        result["profile"] = dict(files=[p.name for p in Path(prof).iterdir()],
+                                 trace_mb=sum(p.stat().st_size for p in traces) / 1e6,
+                                 names_k3=names_k3)
+        log(f"[input] a save blocks the loop {synced[0]:.1f} ms sync, {async_blocked[0]:.1f} ms "
+            f"with --async-ckpt, whose thread writes it in {written[0]:.1f} ms "
+            f"({result['checkpoint']['file_mb']:.1f} MB file); the async file loads equal: "
+            f"{equal}")
+        log(f"[input] --profile-dir: {result['profile']['files']}, "
+            f"{result['profile']['trace_mb']:.1f} MB of trace; K3 kernels named: {names_k3}")
+        if not (equal and names_k3 == list(TRIPLET_KERNELS)):
+            raise AssertionError("--async-ckpt file or --profile-dir trace wrong")
+
+    # the host scorers at MARS scale, native vs NumPy
+    qf, gf, ids = mars_features(torch, torch.device("cuda"))
+    dm = compute_distmat(qf, gf, "cosine").cpu().numpy()
+    del qf, gf
+    torch.cuda.empty_cache()
+    scorers = {}
+    for proto, numpy_fn, native_fn in (
+            ("mars", host_rank.evaluate_mars, rank_native.evaluate_mars_native),
+            ("market1501", host_rank.eval_market1501, rank_native.evaluate_market1501_native)):
+        t0 = time.perf_counter()
+        cmc_n, map_n = numpy_fn(dm, *ids, 50)
+        numpy_ms = (time.perf_counter() - t0) * 1e3
+        rec = {"numpy_ms": numpy_ms, "mAP": map_n, "rank1": float(cmc_n[0])}
+        if result["build"]["rank_eval"]["built"]:
+            t0 = time.perf_counter()
+            cmc_c, map_c = native_fn(dm, *ids, 50)
+            rec["native_ms"] = (time.perf_counter() - t0) * 1e3
+            rec["cmc_max_abs_diff"] = float(np.abs(np.asarray(cmc_c) - cmc_n).max())
+            rec["map_abs_diff"] = abs(map_c - map_n)
+            if rec["cmc_max_abs_diff"] > 1e-6 or rec["map_abs_diff"] > 1e-6:
+                raise AssertionError(f"native {proto} scorer disagrees with NumPy: {rec}")
+        scorers[proto] = rec
+        log(f"[input] host scorer {proto} on the {MARS_Q} x {MARS_G} distance matrix: NumPy "
+            f"{numpy_ms:.1f} ms" + (f", native {rec['native_ms']:.1f} ms; CMC max |diff| "
+                                    f"{rec['cmc_max_abs_diff']:.1e}, mAP |diff| "
+                                    f"{rec['map_abs_diff']:.1e}" if "native_ms" in rec else
+                                    " (native not built)"))
+    result["scorers"] = scorers
+    result["phase_seconds"] = time.perf_counter() - t_phase
+    return result
+
+
 def main() -> int:
     if not all((REPO / "agrl_torch" / "csrc" / f"{n}.cu").exists() for n in LIBS):
         print("chip_smoke.py: the agrl_torch package is not beside this script", file=sys.stderr)
@@ -2386,6 +2748,9 @@ def main() -> int:
     t0 = time.perf_counter()
     cli["bf16"] = phase_cli_bf16(torch, gc)
     cli["bf16"]["phase_seconds"] = time.perf_counter() - t0
+    # 22. the CLI's host side: decoders, caches, prefetch, async checkpoints,
+    # the profile, the FLOPs line, the host scorers
+    host_input = phase_input(torch, tri, gc)
 
     print(json.dumps({"serving": serving}))
     print(json.dumps({"training": training}))
@@ -2394,6 +2759,7 @@ def main() -> int:
     print(json.dumps({"cli": cli}))
     evaluation["cli_k1_launches"] = cli["eval_strategies"]
     print(json.dumps({"evaluation": evaluation}))
+    print(json.dumps({"input": host_input}))
     kernel = {
         "name": "graph_propagate",
         "route": "cuda",
@@ -2402,6 +2768,8 @@ def main() -> int:
         "also_replaces": "agrl_tpu/ops/graph_conv_v2.py:102",
         "launches": launches,
         "cli_launches_per_eval_batch": cli["k1_per_eval_batch"],
+        "input_cli_launches_per_eval_batch": {k: v["k1_per_eval_batch"]
+                                              for k, v in host_input["cli"].items()},
         "max_abs_err": krec["max_abs_err"],
         "ms": krec["ms"],
         "kernel_ms": krec["ms"],
@@ -2449,6 +2817,8 @@ def main() -> int:
         "launches": tri_launches,
         "backward_launches": tri_backward_launches,
         "cli_launches_per_step": cli["k3_per_step"],
+        "input_cli_launches_per_step": {k: v["k3_per_step"]
+                                        for k, v in host_input["cli"].items()},
         "bf16_train_launches": bf16_tri,
         "bf16_train_backward_launches": bf16_tri_backward,
         "max_abs_err": trec["max_abs_err"],

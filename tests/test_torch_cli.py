@@ -1,7 +1,7 @@
 """The port's training CLI held against agrl_tpu's: the parser flag for
-flag, the pre-flight refusals, a CPU run end to end at vmgn_tiny on the
-synthetic set (64x32, seq_len 4), and --resume's step count and Adam
-state."""
+flag, the pre-flight refusals and the host-side flags it now takes, a CPU
+run end to end at vmgn_tiny on the synthetic set (64x32, seq_len 4), and
+--resume's step count and Adam state."""
 
 import copy
 import glob
@@ -59,11 +59,6 @@ REFUSALS = {
                          "localhost:1234"),
     "dist_num_processes": (["--dist-num-processes", "2"], "--dist-num-processes", "2"),
     "dist_process_id": (["--dist-process-id", "0"], "--dist-process-id", "0"),
-    "cache_frames": (["--cache-frames"], "--cache-frames", "True"),
-    "frame_cache_dir": (["--frame-cache-dir", "frames"], "--frame-cache-dir", "frames"),
-    "decode_native": (["--decode", "native"], "--decode", "native"),
-    "async_ckpt": (["--async-ckpt"], "--async-ckpt", "True"),
-    "profile_dir": (["--profile-dir", "trace"], "--profile-dir", "trace"),
     # the card's kernel limits, checked without --use-cpu before the device
     "card_train_batch": (["--train-batch", "257"], "--train-batch", "257"),
 }
@@ -336,3 +331,115 @@ def test_cli_trains_and_evaluates_in_bf16(trained, tmp_path, monkeypatch):
     assert all(np.isfinite(float(v)) for m in meters for v in m.groups())
     assert out.count("Computing CMC and mAP on device") == 1
     assert osp.exists(osp.join(save_dir, "best_model.pth.tar"))
+
+
+def _accept_cache_frames(trained, tmp_path, out, result):
+    """--cache-frames: agrl_tpu's cache lines, and the cached evaluation
+    scores as the uncached best did."""
+    best = re.search(r"==> Best Rank-1 (\S+), mAP: (\S+), achieved", trained["out"]).groups()
+    assert re.search(r"^Frame cache: ~\d+\.\d GB to hold every decoded frame \(64x32\); "
+                     r"LRU budget = 8 GB cap \(default\)$", out, re.M), out
+    assert "Eval batch cache: ~0.0 GB holds every collated eval batch (evenly)" in out
+    assert (f"{result[0]:.2%}", f"{result[1]:.2%}") == best
+
+
+def _accept_frame_cache_dir(trained, tmp_path, out, result):
+    """--frame-cache-dir: the store's line and its files, one record for
+    each distinct frame the evaluation read."""
+    store = tmp_path / "store"
+    assert f"Persistent frame cache: '{store}' (0 frames present)" in out
+    for name in ("VERSION", "frames_64x32.bin", "frames_64x32.idx", "frames_64x32.dec"):
+        assert (store / name).exists(), name
+    records = (store / "frames_64x32.bin").stat().st_size // (64 * 32 * 3)
+    lines = (store / "frames_64x32.idx").read_text().splitlines()
+    assert records == len(lines) > 0
+
+
+def _accept_decode_native(trained, tmp_path, out, result):
+    """--decode native: decodes with the native decoder where it builds;
+    elsewhere the run raises with the reason before it reads a frame."""
+    from agrl_torch.data import jpeg_native
+
+    if isinstance(result, BaseException):
+        assert not jpeg_native.available()
+        assert jpeg_native.why_unavailable() in str(result)
+    else:
+        assert jpeg_native.available()
+        assert "Frame decoder: native (libjpeg, batched; --decode native)" in out
+        assert 0.0 <= result[0] <= 1.0
+
+
+def _accept_async_ckpt(trained, tmp_path, out, result, saved=None):
+    """--async-ckpt: the checkpoint written behind the run loads to the
+    state the model and optimizer had when it was saved."""
+    from agrl_torch.core import load_checkpoint
+
+    assert result is None and saved
+    model_sd, optim_sd = saved[0]
+    ckpt = torch.load(str(tmp_path / "log" / "checkpoint_ep1.pth.tar"), weights_only=True)
+    assert ckpt["state_dict"].keys() == model_sd.keys()
+    for k, v in model_sd.items():
+        assert torch.equal(ckpt["state_dict"][k], v), k
+    for k, v in optim_sd["state"].items():
+        for field, t in v.items():
+            assert torch.equal(ckpt["optimizer"]["state"][k][field], t), (k, field)
+    assert ckpt["optimizer"]["param_groups"] == optim_sd["param_groups"]
+    meta = load_checkpoint(str(tmp_path / "log" / "best_model.pth.tar"))
+    assert meta["epoch"] == 0
+
+
+def _accept_profile_dir(trained, tmp_path, out, result):
+    """--profile-dir: the first epoch's trace and op table are written."""
+    prof = tmp_path / "prof"
+    assert f"Profile of epoch 1 written to '{prof}'" in out
+    (trace_file,) = glob.glob(str(prof / "trace_*.json"))
+    (ops_file,) = glob.glob(str(prof / "ops_*.txt"))
+    assert osp.getsize(trace_file) > 1000 and "aten::" in open(ops_file).read()
+
+
+# the flags ported with the host side (ROADMAP A5, A9): extra argv, whether
+# the run trains one epoch (else --evaluate of the trained best model),
+# and the check of what the flag asks for
+ACCEPTED = {
+    "cache_frames": (["--cache-frames"], False, _accept_cache_frames),
+    "frame_cache_dir": (["--frame-cache-dir", "{tmp}/store"], False, _accept_frame_cache_dir),
+    "decode_native": (["--decode", "native"], False, _accept_decode_native),
+    "async_ckpt": (["--async-ckpt"], True, _accept_async_ckpt),
+    "profile_dir": (["--profile-dir", "{tmp}/prof"], True, _accept_profile_dir),
+}
+
+
+@pytest.mark.parametrize("case", sorted(ACCEPTED))
+def test_preflight_takes_the_host_flags_and_the_run_does_what_they_ask(
+        case, trained, tmp_path, monkeypatch):
+    extra, train, check = ACCEPTED[case]
+    extra = [a.format(tmp=tmp_path) for a in extra]
+    base = [a if a != trained["save_dir"] else str(tmp_path / "log") for a in trained["base"]]
+    tcli.preflight(tcli.build_parser().parse_args(base + extra))
+    tcli.preflight(tcli.build_parser().parse_args(
+        [a for a in base + extra if a != "--use-cpu"]))
+    saved = []
+    if case == "async_ckpt":
+        from agrl_torch.core import checkpoint as ckpt_mod
+
+        real_save = ckpt_mod.AsyncCheckpointer.save
+
+        def recording_save(self, model, optimizer, *args, **kwargs):
+            saved.append((copy.deepcopy(model.state_dict()),
+                          copy.deepcopy(optimizer.state_dict())))
+            return real_save(self, model, optimizer, *args, **kwargs)
+
+        monkeypatch.setattr(ckpt_mod.AsyncCheckpointer, "save", recording_save)
+    if train:
+        argv = base + extra + ["--max-epoch", "1", "--eval-step", "1", "--print-freq", "1"]
+    else:
+        argv = base + extra + ["--evaluate", "--resume",
+                               osp.join(trained["save_dir"], "best_model.pth.tar")]
+    try:
+        result, out = _run_cli(argv)
+    except RuntimeError as e:  # --decode native without the decoder
+        if case != "decode_native":
+            raise
+        result, out = e, ""
+    kw = {"saved": saved} if case == "async_ckpt" else {}
+    check(trained, tmp_path, out, result, **kw)
