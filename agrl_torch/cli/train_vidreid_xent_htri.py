@@ -14,7 +14,8 @@ raises, it never carries on on the CPU.
 
 Call order (agrl_tpu's `run`): seeds -> log tee -> catalog -> frame
 caches and decoder -> loaders -> model (params and FLOPs line) ->
-(pretrained | load-weights | resume) -> schedules -> epoch loop with
+(pretrained | load-weights | resume: a port checkpoint, or an agrl_tpu
+.msgpack with its optax state) -> schedules -> epoch loop with
 periodic eval and checkpoints (`--async-ckpt`: written behind the next
 epoch), the first epoch under `--profile-dir`'s profiler. Train batches
 are built and copied to the card behind the step (`prefetch_to_device`).
@@ -83,7 +84,8 @@ def build_parser() -> argparse.ArgumentParser:
                         "(whole tracklets, length-bucketed with a frame mask)")
     p.add_argument("--train-sampler", default="RandomIdentitySampler")
     # Optimization
-    p.add_argument("--optim", type=str, default="adam", help="only adam is ported")
+    p.add_argument("--optim", type=str, default="adam",
+                   help="adam, amsgrad, sgd, nesterov, rmsprop, adabound or radam")
     # Loss
     p.add_argument("--margin", type=float, default=0.3)
     p.add_argument("--soft-margin", action="store_true")
@@ -116,9 +118,12 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--bnneck", action="store_true", help="accepted; VMGN always has BNNecks")
     # Augmentation
     p.add_argument("--flip-aug", action="store_true")
-    p.add_argument("--rand-erase", action="store_true", help="not ported yet (refused, A2)")
-    p.add_argument("--rand-crop", action="store_true", help="not ported yet (refused, A2)")
-    p.add_argument("--misalign-aug", action="store_true", help="not ported yet (refused, A2)")
+    p.add_argument("--rand-erase", action="store_true",
+                   help="random erasing, per frame, after the normalization")
+    p.add_argument("--rand-crop", action="store_true",
+                   help="a random 240x120-of-256x128 window per clip, stretched back")
+    p.add_argument("--misalign-aug", action="store_true",
+                   help="crop or edge-pad 5%% of the height at the top or bottom per clip")
     # Visualization
     p.add_argument("--visualize-ranks", action="store_true")
     # Post process
@@ -126,7 +131,8 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--re-rank", action="store_true")
     # Checkpoint
     p.add_argument("--resume", type=str, default="", metavar="PATH",
-                   help="an agrl_torch checkpoint (.pth.tar): weights, optimizer, epoch")
+                   help="an agrl_torch checkpoint (.pth.tar) or an agrl_tpu one "
+                        "(.msgpack + .json): weights, optimizer state, epoch")
     p.add_argument("--load-weights", type=str, default="",
                    help="shape-filtered weight load: a torch state dict (.pth/.pth.tar/"
                         ".npz/.npy, reference names) or an agrl_tpu .msgpack checkpoint")
@@ -161,7 +167,8 @@ def build_parser() -> argparse.ArgumentParser:
                    help="profile the first training epoch with torch.profiler (CPU and "
                         "CUDA activities) and write its Chrome trace and op table here")
     p.add_argument("--remat", type=str, default="none", choices=["none", "dots", "full"],
-                   help="gradient rematerialization: only none is ported")
+                   help="gradient rematerialization of the model forward: none, dots "
+                        "(products saved, the rest recomputed) or full (nothing saved)")
     p.add_argument("--cache-frames", action="store_true",
                    help="keep decoded frames, deterministic eval items and collated eval "
                         "batches in one byte-capped RAM LRU shared by the three loaders")
@@ -201,22 +208,19 @@ def _refuse(flag: str, value, item: str, hint: str = "") -> None:
 def preflight(args) -> None:
     """Refuses, before any data is read or model built, what the port does
     not take: each SystemExit names the flag, its value and the ROADMAP
-    item that will port it. Without --use-cpu it also refuses what the
+    item that will port it, or an unknown optimizer, which agrl_tpu
+    refuses only after reading the data. Without --use-cpu it also refuses what the
     card's kernels would refuse later (ROADMAP C, limits): a train batch
     above K3's."""
     from agrl_torch.models import get_names
+    from agrl_torch.optim import OPTIMIZER_NAMES
     from agrl_torch.ops.triplet import MAX_BATCH
 
     if args.arch not in get_names():
         _refuse("-a/--arch", args.arch, "A7", f"ported: {get_names()}")
-    if args.optim != "adam":
-        _refuse("--optim", args.optim, "A2", "ported: adam")
-    for flag, on in (("--rand-erase", args.rand_erase), ("--rand-crop", args.rand_crop),
-                     ("--misalign-aug", args.misalign_aug)):
-        if on:
-            _refuse(flag, True, "A2")
-    if args.remat != "none":
-        _refuse("--remat", args.remat, "A2")
+    if args.optim not in OPTIMIZER_NAMES:
+        raise SystemExit(f"--optim {args.optim!r}: unsupported optimizer; choices "
+                         f"{OPTIMIZER_NAMES}")
     if args.mesh_dp > 1:
         _refuse("--mesh-dp", args.mesh_dp, "A8", "one card: 0 or 1")
     if args.mesh_mp > 1:
@@ -226,9 +230,7 @@ def preflight(args) -> None:
                                ("--dist-process-id", args.dist_process_id, -1)):
         if value != unset:
             _refuse(flag, value, "A8")
-    if args.use_cpu:
-        return
-    if args.train_batch > MAX_BATCH:
+    if not args.use_cpu and args.train_batch > MAX_BATCH:
         raise SystemExit(
             f"--train-batch {args.train_batch}: the card's batch-hard mining kernel (K3) "
             f"takes at most {MAX_BATCH} clips (ROADMAP C, limits); the CPU path "
@@ -380,15 +382,12 @@ def _run(args, device, writer, stores):
     start_epoch, start_step = 0, 0
     best_rank1, best_mAP = -np.inf, 0.0
     if args.resume and check_isfile(args.resume):
-        if not zipfile.is_zipfile(args.resume):
-            raise SystemExit(
-                f"--resume {args.resume!r} is not an agrl_torch checkpoint (a torch.save "
-                "archive). An agrl_tpu .msgpack carries its weights through --load-weights; "
-                "resuming its optimizer state is not ported yet (ROADMAP A10)"
-            )
-        meta = load_checkpoint(args.resume, model, optimizer)
+        if zipfile.is_zipfile(args.resume):
+            meta = load_checkpoint(args.resume, model, optimizer)
+            start_step = (meta["epoch"] + 1) * steps_per_epoch
+        else:
+            meta, start_step = resume_agrl_tpu(args.resume, model, optimizer, args.optim)
         start_epoch = meta["epoch"] + 1
-        start_step = start_epoch * steps_per_epoch
         best_rank1, best_mAP = meta["rank1"], meta["mAP"]
         print(f"Loaded checkpoint from '{args.resume}'")
         print(f"- start_epoch: {start_epoch}")
@@ -416,11 +415,14 @@ def _run(args, device, writer, stores):
     else:
         lr_epoch = multistep_lr(args.lr, args.stepsize, gamma=args.gamma)
     wd_epoch = zero_wd_schedule(args.weight_decay, args.zero_wd)
+    # agrl_tpu's aug dict (its CLI :551-556): --rand-crop is rand_translate
+    aug = dict(flip_aug=args.flip_aug, rand_erase=args.rand_erase,
+               misalign_aug=args.misalign_aug, rand_translate=args.rand_crop)
     train_step = make_train_step(
         model, optimizer, per_step(lr_epoch, steps_per_epoch),
         lambda_xent=args.lambda_xent, lambda_htri=args.lambda_htri,
         label_smooth=args.label_smooth, margin=args.margin, soft_margin=args.soft_margin,
-        aug={"flip_aug": args.flip_aug}, start_step=start_step,
+        aug=aug, start_step=start_step, remat=args.remat,
     )
 
     print("==> Start training")
@@ -471,6 +473,27 @@ def _run(args, device, writer, stores):
     print(f"Finished. Total elapsed time (h:m:s): {elapsed}. "
           f"Training time (h:m:s): {datetime.timedelta(seconds=train_time)}.")
     return None
+
+
+def resume_agrl_tpu(fpath: str, model, optimizer, optim: str) -> tuple[dict, int]:
+    """--resume of an agrl_tpu checkpoint (its CLI :467-480): the .msgpack's
+    params and batch_stats into the model (every leaf, strictly), its
+    optax opt_state into the optimizer, the .json sidecar's epoch and
+    scores. Returns (meta, step): the step is optax's count, the updates
+    the run took, where the resumed schedule goes on."""
+    from agrl_torch.core.flax_msgpack import read_checkpoint
+    from agrl_torch.core.optax_state import load_optax_state
+    from agrl_torch.models.weight_convert import from_jax_variables
+
+    tree, meta = read_checkpoint(fpath)
+    missing = [k for k in ("params", "batch_stats", "opt_state") if k not in tree]
+    if missing:
+        raise SystemExit(f"--resume {fpath!r} holds no {', '.join(missing)}: not a checkpoint "
+                         "of agrl_tpu's train CLI (weights alone load with --load-weights)")
+    from_jax_variables({"params": tree["params"], "batch_stats": tree["batch_stats"]}, model)
+    step = load_optax_state(optimizer, model, tree["opt_state"], optim)
+    print(f"Resumed agrl_tpu's {optim} state at step {step}")
+    return meta, step
 
 
 def _host_input(args, dataset):

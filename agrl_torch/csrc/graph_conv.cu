@@ -9,8 +9,12 @@
 //   P    = m_b m_b^T (all ones without a mask)
 //   A    = row_l1(adj_b * P)
 //   S    = row_l1(2 * sigmoid(-sqrt(max(d2, 1e-12))) * P),  d2_ij = |f_i - f_j|^2
-//   G    = (A + S) / 2
+//   G    = (A + S) / 2, A or S      (mode 0 both, 1 pose, 2 learned)
 //   out  = (1 - gamma) f_b + gamma * lrelu_0.1(bn_eval(G @ h))
+//
+// The modes are agrl_tpu's GraphConvLayer graphs (use_pose and learn_graph,
+// agrl_tpu/models/layers.py:219-238). Mode 1 needs no Gram: its launch is
+// skipped, and the blend reads only the adjacency.
 //
 // The mask is agrl_tpu's GraphConvLayer vertex_mask (padding frames of the
 // bucketed `--test-sample all` eval): pairs with a padded end drop out of
@@ -291,10 +295,21 @@ gram_partial_kernel(const float* __restrict__ f, float* __restrict__ partial, in
 
 // ---- 2. Affinity + blend ---------------------------------------------------
 
+// G's entry from the row's affinity s and pose a and their row sums' floors
+// s_den and a_den.
+__device__ __forceinline__ float graph_entry(int mode, float s, float s_den, float a, float a_den) {
+  switch (mode) {
+    case 1: return a / a_den;
+    case 2: return s / s_den;
+    default: return 0.5f * (a / a_den + s / s_den);
+  }
+}
+__host__ __device__ __forceinline__ bool needs_gram(int mode) { return mode == 0 || mode == 2; }
+
 template <int R>
 __global__ void __launch_bounds__(kThreads)
 graph_blend_kernel(const float* __restrict__ partial, int slices, const float* __restrict__ adj,
-                   const float* __restrict__ mask, float* __restrict__ graph, int V) {
+                   const float* __restrict__ mask, float* __restrict__ graph, int V, int mode) {
   constexpr int VP = 16 * R;
   constexpr int JPL = (VP + 31) / 32;  // columns per lane
   __shared__ float diag[VP];
@@ -309,13 +324,15 @@ graph_blend_kernel(const float* __restrict__ partial, int slices, const float* _
       if (q < slices) s += pb[(size_t)q * VP * VP + i * VP + j];
     return s;
   };
-  for (int i = threadIdx.x; i < V; i += kThreads) diag[i] = gram(i, i);
+  const bool learned = needs_gram(mode);
+  if (learned)
+    for (int i = threadIdx.x; i < V; i += kThreads) diag[i] = gram(i, i);
   __syncthreads();
 
   const int lane = threadIdx.x % 32;
   const int i = blockIdx.y * (kThreads / 32) + threadIdx.x / 32;  // this warp's row
   if (i < V) {
-    const float gii = diag[i];
+    const float gii = learned ? diag[i] : 0.f;
     const float* adj_row = adj + ((size_t)b * V + i) * V;
     const float* mb = mask == nullptr ? nullptr : mask + (size_t)b * V;
     float s[JPL], a[JPL];
@@ -326,10 +343,12 @@ graph_blend_kernel(const float* __restrict__ partial, int slices, const float* _
       s[q] = 0.f;
       a[q] = 0.f;
       if (j < V) {
-        const float d2 = gii + diag[j] - 2.f * gram(i, j);  // exactly 0 when i == j
-        const float d = sqrtf(fmaxf(d2, kNormEps));
         const float pm = mb == nullptr ? 1.f : mb[i] * mb[j];  // the pair's mask
-        s[q] = 2.f / (1.f + expf(d)) * pm;  // 2 * sigmoid(-d); exp overflow gives 0
+        if (learned) {
+          const float d2 = gii + diag[j] - 2.f * gram(i, j);  // exactly 0 when i == j
+          const float d = sqrtf(fmaxf(d2, kNormEps));
+          s[q] = 2.f / (1.f + expf(d)) * pm;  // 2 * sigmoid(-d); exp overflow gives 0
+        }
         a[q] = adj_row[j] * pm;
       }
       s_sum += fabsf(s[q]);
@@ -346,7 +365,7 @@ graph_blend_kernel(const float* __restrict__ partial, int slices, const float* _
 #pragma unroll
     for (int q = 0; q < JPL; ++q) {
       const int j = lane + 32 * q;
-      if (j < V) g_row[j] = 0.5f * (a[q] / a_den + s[q] / s_den);
+      if (j < V) g_row[j] = graph_entry(mode, s[q], s_den, a[q], a_den);
     }
   }
 }
@@ -681,18 +700,24 @@ __device__ __forceinline__ float block_sum(float v, float* red) {
 // only the entries it read, so the row is rewritten in place.
 __global__ void __launch_bounds__(kThreads)
 graph_blend_long_kernel(float* __restrict__ graph, const float* __restrict__ diag,
-                        const float* __restrict__ adj, const float* __restrict__ mask, int V) {
+                        const float* __restrict__ adj, const float* __restrict__ mask, int V,
+                        int mode) {
   __shared__ float red[kThreads / 32];
   const int i = blockIdx.x, b = blockIdx.y;
   float* row = graph + ((size_t)b * V + i) * V;
   const float* adj_row = adj + ((size_t)b * V + i) * V;
   const float* db = diag + (size_t)b * V;
   const float* mb = mask == nullptr ? nullptr : mask + (size_t)b * V;
-  const float gii = db[i], mi = mb == nullptr ? 1.f : mb[i];
+  const bool learned = needs_gram(mode);
+  const float gii = learned ? db[i] : 0.f, mi = mb == nullptr ? 1.f : mb[i];
+  // without the Gram (mode 1) the row holds nothing yet and is only written
   auto entries = [&](int j, float& s, float& a) {
     const float pm = mb == nullptr ? 1.f : mi * mb[j];
-    const float d2 = gii + db[j] - 2.f * row[j];  // exactly 0 when i == j
-    s = 2.f / (1.f + expf(sqrtf(fmaxf(d2, kNormEps)))) * pm;
+    s = 0.f;
+    if (learned) {
+      const float d2 = gii + db[j] - 2.f * row[j];  // exactly 0 when i == j
+      s = 2.f / (1.f + expf(sqrtf(fmaxf(d2, kNormEps)))) * pm;
+    }
     a = adj_row[j] * pm;
   };
   float s_sum = 0.f, a_sum = 0.f;
@@ -707,7 +732,7 @@ graph_blend_long_kernel(float* __restrict__ graph, const float* __restrict__ dia
   for (int j = threadIdx.x; j < V; j += kThreads) {
     float s, a;
     entries(j, s, a);
-    row[j] = 0.5f * (a / a_den + s / s_den);
+    row[j] = graph_entry(mode, s, s_den, a, a_den);
   }
 }
 
@@ -823,18 +848,22 @@ bool tensor_map(CUtensorMap* map, const float* base, cuuint32_t rank, const cuui
 template <int R>
 int launch(const float* f, const float* adj, const float* mask, const float* wt,
            const float* scale, const float* bias, const float* mean, const float* var,
-           float gamma, float* scratch, float* out, int B, int V, int C, cudaStream_t stream) {
+           float gamma, int mode, float* scratch, float* out, int B, int V, int C,
+           cudaStream_t stream) {
   constexpr int VP = 16 * R;
   const int slices = gram_slices(C);
   float* partial = scratch;                            // (B, slices, VP, VP)
   float* graph = scratch + (size_t)B * slices * VP * VP;  // (B, V, V)
 
-  gram_partial_kernel<R><<<dim3(B, slices), kThreads, 0, stream>>>(f, partial, V, C);
-  cudaError_t err = cudaGetLastError();
-  if (err != cudaSuccess) return (int)err;
+  cudaError_t err;
+  if (needs_gram(mode)) {
+    gram_partial_kernel<R><<<dim3(B, slices), kThreads, 0, stream>>>(f, partial, V, C);
+    err = cudaGetLastError();
+    if (err != cudaSuccess) return (int)err;
+  }
 
   graph_blend_kernel<R><<<dim3(B, (V + kThreads / 32 - 1) / (kThreads / 32)), kThreads, 0,
-                           stream>>>(partial, slices, adj, mask, graph, V);
+                           stream>>>(partial, slices, adj, mask, graph, V, mode);
   err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
 
@@ -859,19 +888,22 @@ int launch(const float* f, const float* adj, const float* mask, const float* wt,
 // (B, V, V), then the Gram's diagonal (B, V).
 int launch_long(const float* f, const float* adj, const float* mask, const float* wt,
                 const float* scale, const float* bias, const float* mean, const float* var,
-                float gamma, float* scratch, float* out, int B, int V, int C,
+                float gamma, int mode, float* scratch, float* out, int B, int V, int C,
                 cudaStream_t stream) {
   const size_t rows = (size_t)B * V;
   float* h = scratch;
   float* graph = h + rows * C;
   float* diag = graph + rows * V;
 
-  const int gt = (V + GT - 1) / GT;
-  gram_tile_kernel<<<dim3(gt, gt, B), kThreads, 0, stream>>>(f, graph, diag, V, C);
-  cudaError_t err = cudaGetLastError();
-  if (err != cudaSuccess) return (int)err;
+  cudaError_t err;
+  if (needs_gram(mode)) {
+    const int gt = (V + GT - 1) / GT;
+    gram_tile_kernel<<<dim3(gt, gt, B), kThreads, 0, stream>>>(f, graph, diag, V, C);
+    err = cudaGetLastError();
+    if (err != cudaSuccess) return (int)err;
+  }
 
-  graph_blend_long_kernel<<<dim3(V, B), kThreads, 0, stream>>>(graph, diag, adj, mask, V);
+  graph_blend_long_kernel<<<dim3(V, B), kThreads, 0, stream>>>(graph, diag, adj, mask, V, mode);
   err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
 
@@ -914,24 +946,27 @@ long long graph_conv_scratch_floats(int B, int V, int C) {
 }
 
 // f, out (B, V, C); adj (B, V, V); mask (B, V) of 0/1 or null; wt (C, C) =
-// W^T (a torch Linear weight); scale/bias/mean/var (C,); scratch of
-// graph_conv_scratch_floats(B, V, C). All fp32, contiguous, on the current
-// device; f and wt 16-byte aligned. Any V >= 1; B and B * V / 128 within a
-// grid dimension (65535). Returns 0 or the cudaError_t of the first
-// failing call.
+// W^T (a torch Linear weight); scale/bias/mean/var (C,); mode 0 both, 1
+// pose, 2 learned; scratch of graph_conv_scratch_floats(B, V, C).
+// All fp32, contiguous, on the current device; f and wt 16-byte aligned.
+// Any V >= 1; B and B * V / 128 within a grid dimension (65535). Returns 0
+// or the cudaError_t of the first failing call.
 int graph_conv_forward(const float* f, const float* adj, const float* mask, const float* wt,
                        const float* scale, const float* bias, const float* mean,
-                       const float* var, float gamma, float* scratch, float* out, int B, int V,
-                       int C, void* stream) {
-  if (B <= 0 || B > 65535 || V <= 0 || C <= 0 || C % BN != 0 ||
+                       const float* var, float gamma, int mode, float* scratch, float* out,
+                       int B, int V, int C, void* stream) {
+  if (B <= 0 || B > 65535 || V <= 0 || C <= 0 || C % BN != 0 || mode < 0 || mode > 2 ||
       ((long long)B * V + BM - 1) / BM > 65535)
     return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (V <= 64)
-    return launch<4>(f, adj, mask, wt, scale, bias, mean, var, gamma, scratch, out, B, V, C, s);
+    return launch<4>(f, adj, mask, wt, scale, bias, mean, var, gamma, mode, scratch, out, B, V,
+                     C, s);
   if (V <= 128)
-    return launch<8>(f, adj, mask, wt, scale, bias, mean, var, gamma, scratch, out, B, V, C, s);
-  return launch_long(f, adj, mask, wt, scale, bias, mean, var, gamma, scratch, out, B, V, C, s);
+    return launch<8>(f, adj, mask, wt, scale, bias, mean, var, gamma, mode, scratch, out, B, V,
+                     C, s);
+  return launch_long(f, adj, mask, wt, scale, bias, mean, var, gamma, mode, scratch, out, B, V,
+                     C, s);
 }
 
 const char* graph_conv_error_string(int code) {

@@ -14,6 +14,8 @@ The stem (conv1, bn1, maxpool) lives in `ResNetTrunk` under those names.
 from __future__ import annotations
 
 import math
+import threading
+from contextlib import contextmanager
 
 import numpy as np
 import torch
@@ -23,6 +25,21 @@ from torch import nn
 # torch BatchNorm defaults: eps 1e-5 (agrl_tpu/models/backbone.py:56-59),
 # momentum 0.1 (flax momentum 0.9)
 BN_EPS = 1e-5
+
+_stats = threading.local()
+
+
+@contextmanager
+def frozen_running_stats():
+    """Train-mode BatchNorms in this thread normalize as usual but leave
+    their running statistics alone: the recompute of a checkpointed
+    forward (`--remat`) must not update them a second time."""
+    before = getattr(_stats, "frozen", False)
+    _stats.frozen = True
+    try:
+        yield
+    finally:
+        _stats.frozen = before
 
 
 class _FlaxRunningStats:
@@ -72,6 +89,8 @@ class _FlaxRunningStats:
         # any other mix normalizes in fp32 and casts
         xin = x if x.dtype == dt else x.float()
         out = F.batch_norm(xin, None, None, self.weight, self.bias, True, 0.0, self.eps)
+        if getattr(_stats, "frozen", False):
+            return out.to(dt)
         with torch.no_grad():
             dims = [0, *range(2, x.dim())]
             var, mean = torch.var_mean(x.float(), dim=dims, correction=0)

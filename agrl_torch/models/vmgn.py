@@ -190,7 +190,7 @@ class VMGN(ResNetTrunk):
         out_list = [self.global_classifier(g_bn), self.att_classifier(att_bn)]
         f_list = [g_f, att_f]
         if self.consistent_loss:
-            for index in self._subclip_indices(S, generator, subclip_indices):
+            for index in self.subclip_indices(S, generator, subclip_indices):
                 sf = f.index_select(1, torch.as_tensor(index, dtype=torch.long).to(f.device))
                 satt_f = temporal_attention(sf).mean(dim=1)
                 out_list.append(self.att_classifier(self.att_bottleneck(satt_f)))
@@ -200,8 +200,9 @@ class VMGN(ResNetTrunk):
         return out_list, f_list
 
     @staticmethod
-    def _subclip_indices(S: int, generator, given) -> list:
-        """Sorted random subsets of S-3, S-2, S-1 of the S frames."""
+    def subclip_indices(S: int, generator, given=None) -> list:
+        """Sorted random subsets of S-3, S-2, S-1 of the S frames: `given`
+        checked, else drawn from `generator`."""
         if S < 5:
             raise ValueError(f"the consistent loss needs seq_len >= 5, got {S}")
         sizes = (S - 3, S - 2, S - 1)

@@ -9,8 +9,14 @@ all ones without it):
     h   = f @ W
     A   = row_l1(adj * P)
     S   = row_l1(2 * sigmoid(-pdist(f)) * P)
-    G   = (A + S) / 2
+    G   = (A + S) / 2     mode "both" (--use-pose --learn-graph)
+          A               mode "pose" (--use-pose alone)
+          S               mode "learned" (--learn-graph alone)
     out = (1 - gamma) * f + gamma * lrelu_0.1(bn_eval(G @ h))
+
+The modes are agrl_tpu's GraphConvLayer graphs
+(agrl_tpu/models/layers.py:219-238); its Pallas kernel builds "both"
+only. "pose" needs no Gram, and the kernel skips it.
 
 On the card this op IS the hand-written kernel (csrc/graph_conv.cu: f @ W
 on the tensor cores in 3xTF32, each K chunk promoted into fp32 registers,
@@ -45,6 +51,8 @@ from torch.utils.flop_counter import register_flop_formula
 
 BN_EPS = 1e-5
 
+GRAPH_MODES = ("both", "pose", "learned")  # index = the kernel's mode code
+
 # Launches of the CUDA kernel, plain integers that callers reset to 0 and
 # read back: `launches` counts graph_propagate (K1) calls on CUDA tensors,
 # `v2_launches` graph_propagate_v2 (K2's entry) calls. They count in the
@@ -77,14 +85,34 @@ def pair_mask(vertex_mask: torch.Tensor) -> torch.Tensor:
     return vertex_mask[:, :, None] * vertex_mask[:, None, :]
 
 
-def blended_graph(f: torch.Tensor, adj: torch.Tensor, vertex_mask=None) -> torch.Tensor:
-    """G = (row_l1(adj * P) + row_l1(l2_affinity(f) * P)) / 2, (B, V, V),
+def graph_mode(use_pose: bool, learn_graph: bool) -> str:
+    """The mode of a GraphConvLayer's flags; agrl_tpu's layer asserts one of
+    them (agrl_tpu/models/layers.py:210), so neither raises here too."""
+    if not (use_pose or learn_graph):
+        raise ValueError("a graph layer needs use_pose or learn_graph (agrl_tpu's "
+                         "GraphConvLayer asserts one of them)")
+    return "both" if use_pose and learn_graph else "pose" if use_pose else "learned"
+
+
+def _check_mode(mode: str) -> int:
+    if mode not in GRAPH_MODES:
+        raise ValueError(f"graph mode must be one of {GRAPH_MODES}, got {mode!r}")
+    return GRAPH_MODES.index(mode)
+
+
+def blended_graph(f: torch.Tensor, adj: torch.Tensor, vertex_mask=None,
+                  mode: str = "both") -> torch.Tensor:
+    """The layer's graph G (B, V, V) in `mode` (module docstring),
     P = pair_mask(vertex_mask) (no mask: P = 1)."""
-    sim = l2_affinity(f)
-    if vertex_mask is not None:
-        pair = pair_mask(vertex_mask)
-        adj, sim = adj * pair, sim * pair
-    return (l1_normalize(adj, dim=2) + l1_normalize(sim, dim=2)) / 2.0
+    _check_mode(mode)
+    pair = None if vertex_mask is None else pair_mask(vertex_mask)
+    if mode != "pose":
+        sim = l2_affinity(f)
+        sim = l1_normalize(sim if pair is None else sim * pair, dim=2)
+        if mode == "learned":
+            return sim
+    adj = l1_normalize(adj if pair is None else adj * pair, dim=2)
+    return adj if mode == "pose" else (adj + sim) / 2.0
 
 
 def _widen(t):
@@ -92,14 +120,16 @@ def _widen(t):
     return None if t is None else (t.float() if t.dtype == torch.bfloat16 else t)
 
 
-def graph_propagate_reference(f, adj, W, scale, bias, mean, var, gamma=0.1, vertex_mask=None):
+def graph_propagate_reference(f, adj, W, scale, bias, mean, var, gamma=0.1, vertex_mask=None,
+                              mode="both"):
     """Plain PyTorch version: (B, V, C) -> (B, V, C), eval-mode BN;
-    `vertex_mask` (B, V) of 0/1 or None. bf16 inputs are widened to
-    float32 first, as the kernel's wrapper widens them."""
+    `vertex_mask` (B, V) of 0/1 or None; `mode` one of GRAPH_MODES. bf16
+    inputs are widened to float32 first, as the kernel's wrapper widens
+    them."""
     f, adj, W, scale, bias, mean, var, vertex_mask = map(
         _widen, (f, adj, W, scale, bias, mean, var, vertex_mask))
     h = torch.matmul(f, W)
-    hp = torch.matmul(blended_graph(f, adj, vertex_mask), h)
+    hp = torch.matmul(blended_graph(f, adj, vertex_mask, mode), h)
     hp = (hp - mean) / torch.sqrt(var + BN_EPS) * scale + bias
     hp = torch.where(hp >= 0, hp, 0.1 * hp)
     return (1.0 - gamma) * f + gamma * hp
@@ -112,7 +142,8 @@ def _lib() -> ctypes.CDLL:
 
     lib = load_library("graph_conv")
     p, i = ctypes.c_void_p, ctypes.c_int
-    lib.graph_conv_forward.argtypes = [p, p, p, p, p, p, p, p, ctypes.c_float, p, p, i, i, i, p]
+    lib.graph_conv_forward.argtypes = [p, p, p, p, p, p, p, p, ctypes.c_float, i, p, p, i, i,
+                                       i, p]
     lib.graph_conv_forward.restype = i
     lib.graph_conv_scratch_floats.argtypes = [i, i, i]
     lib.graph_conv_scratch_floats.restype = ctypes.c_longlong
@@ -132,9 +163,10 @@ def _check(name: str, t: torch.Tensor, shape: tuple, device, aligned: bool = Fal
         raise ValueError(f"{name} must be 16-byte aligned")
 
 
-def _launch(f, adj, W, scale, bias, mean, var, gamma, vertex_mask):
+def _launch(f, adj, W, scale, bias, mean, var, gamma, vertex_mask, mode):
     """Run csrc/graph_conv.cu on CUDA tensors; raises on anything it does
     not take (never falls back)."""
+    code = _check_mode(mode)
     lib = _lib()
     f, adj, W, scale, bias, mean, var, vertex_mask = map(
         _widen, (f, adj, W, scale, bias, mean, var, vertex_mask))
@@ -166,7 +198,7 @@ def _launch(f, adj, W, scale, bias, mean, var, gamma, vertex_mask):
         rc = lib.graph_conv_forward(
             f.data_ptr(), adj.data_ptr(), None if vertex_mask is None else vertex_mask.data_ptr(),
             wt.data_ptr(), scale.data_ptr(), bias.data_ptr(),
-            mean.data_ptr(), var.data_ptr(), float(gamma), scratch.data_ptr(),
+            mean.data_ptr(), var.data_ptr(), float(gamma), code, scratch.data_ptr(),
             out.data_ptr(), B, V, C, stream,
         )
     if rc != 0:
@@ -175,7 +207,7 @@ def _launch(f, adj, W, scale, bias, mean, var, gamma, vertex_mask):
     return out
 
 
-def _fake(f, adj, W, scale, bias, mean, var, gamma, vertex_mask=None):
+def _fake(f, adj, W, scale, bias, mean, var, gamma, vertex_mask=None, mode="both"):
     return f.new_empty(f.shape, dtype=torch.promote_types(f.dtype, torch.float32))
 
 
@@ -183,15 +215,16 @@ def _fake(f, adj, W, scale, bias, mean, var, gamma, vertex_mask=None):
 def _graph_propagate_op(
     f: torch.Tensor, adj: torch.Tensor, W: torch.Tensor, scale: torch.Tensor,
     bias: torch.Tensor, mean: torch.Tensor, var: torch.Tensor, gamma: float,
-    vertex_mask: torch.Tensor | None = None,
+    vertex_mask: torch.Tensor | None = None, mode: str = "both",
 ) -> torch.Tensor:
-    return graph_propagate_reference(f, adj, W, scale, bias, mean, var, gamma, vertex_mask)
+    _check_mode(mode)
+    return graph_propagate_reference(f, adj, W, scale, bias, mean, var, gamma, vertex_mask, mode)
 
 
 @_graph_propagate_op.register_kernel("cuda")
-def _(f, adj, W, scale, bias, mean, var, gamma, vertex_mask=None):
+def _(f, adj, W, scale, bias, mean, var, gamma, vertex_mask=None, mode="both"):
     global launches
-    out = _launch(f, adj, W, scale, bias, mean, var, gamma, vertex_mask)
+    out = _launch(f, adj, W, scale, bias, mean, var, gamma, vertex_mask, mode)
     launches += 1
     return out
 
@@ -199,12 +232,13 @@ def _(f, adj, W, scale, bias, mean, var, gamma, vertex_mask=None):
 _graph_propagate_op.register_fake(_fake)
 
 
-def graph_propagate(f, adj, W, scale, bias, mean, var, gamma=0.1, vertex_mask=None):
-    """Fused eval graph conv, any V; `vertex_mask` (B, V) of 0/1 or None.
-    CPU tensors: the plain version. CUDA tensors: the kernel
-    (csrc/graph_conv.cu), or an exception."""
+def graph_propagate(f, adj, W, scale, bias, mean, var, gamma=0.1, vertex_mask=None,
+                    mode="both"):
+    """Fused eval graph conv, any V; `vertex_mask` (B, V) of 0/1 or None;
+    `mode` one of GRAPH_MODES. CPU tensors: the plain version. CUDA
+    tensors: the kernel (csrc/graph_conv.cu), or an exception."""
     return torch.ops.agrl_torch.graph_propagate(
-        f, adj, W, scale, bias, mean, var, float(gamma), vertex_mask)
+        f, adj, W, scale, bias, mean, var, float(gamma), vertex_mask, mode)
 
 
 def round_bf16(x: torch.Tensor) -> torch.Tensor:
@@ -216,17 +250,18 @@ def round_bf16(x: torch.Tensor) -> torch.Tensor:
 def _graph_propagate_v2_op(
     f: torch.Tensor, adj: torch.Tensor, W: torch.Tensor, scale: torch.Tensor,
     bias: torch.Tensor, mean: torch.Tensor, var: torch.Tensor, gamma: float,
-    vertex_mask: torch.Tensor | None = None,
+    vertex_mask: torch.Tensor | None = None, mode: str = "both",
 ) -> torch.Tensor:
+    _check_mode(mode)
     return graph_propagate_reference(round_bf16(f), round_bf16(adj), W, scale, bias, mean, var,
-                                     gamma, vertex_mask)
+                                     gamma, vertex_mask, mode)
 
 
 @_graph_propagate_v2_op.register_kernel("cuda")
-def _(f, adj, W, scale, bias, mean, var, gamma, vertex_mask=None):
+def _(f, adj, W, scale, bias, mean, var, gamma, vertex_mask=None, mode="both"):
     global v2_launches
     out = _launch(round_bf16(f), round_bf16(adj), W, scale, bias, mean, var, gamma,
-                  vertex_mask)
+                  vertex_mask, mode)
     v2_launches += 1
     return out
 
@@ -234,21 +269,26 @@ def _(f, adj, W, scale, bias, mean, var, gamma, vertex_mask=None):
 _graph_propagate_v2_op.register_fake(_fake)
 
 
-def graph_propagate_v2(f, adj, W, scale, bias, mean, var, gamma=0.1, vertex_mask=None):
+def graph_propagate_v2(f, adj, W, scale, bias, mean, var, gamma=0.1, vertex_mask=None,
+                       mode="both"):
     """The graph_conv_v2 entry: f and adj are held in bf16 (rounded here,
     as graph_conv_v2.py:159-160 does), the math stays fp32 — the same
     kernel on bf16-rounded inputs. CPU tensors: the plain version."""
     return torch.ops.agrl_torch.graph_propagate_v2(
-        f, adj, W, scale, bias, mean, var, float(gamma), vertex_mask)
+        f, adj, W, scale, bias, mean, var, float(gamma), vertex_mask, mode)
 
 
-def _propagate_flops(f_shape, adj_shape, W_shape, *args, out_shape=None, **kwargs) -> int:
+def _propagate_flops(f_shape, adj_shape, W_shape, scale=None, bias=None, mean=None, var=None,
+                     gamma=None, vertex_mask=None, mode="both", *, out_shape=None,
+                     **kwargs) -> int:
     """The op's products as FlopCounterMode counts the plain version's
-    (2 per multiply-add): f @ W, the Gram f f^T of the l2 affinity, G @ h.
-    The elementwise work is not counted, as for any op there."""
+    (2 per multiply-add): f @ W, the Gram f f^T of the l2 affinity (modes
+    "both" and "learned"), G @ h. The elementwise work is not counted, as
+    for any op there."""
     B, V, C = f_shape
     C_out = W_shape[1]
-    return 2 * B * V * C * C_out + 2 * B * V * V * C + 2 * B * V * V * C_out
+    gram = 2 * B * V * V * C if mode in ("both", "learned") else 0
+    return 2 * B * V * C * C_out + gram + 2 * B * V * V * C_out
 
 
 # FlopCounterMode (utils/model_complexity.py) counts an op without a

@@ -11,8 +11,9 @@ few rows) overcounts by ~14% of the convolutions. The port counts XLA's
 way (`_conv_flops_unpadded`), so the two lines differ only by the
 elementwise work XLA also counts (tests/test_torch_host_utils.py states
 the bar). The graph layer's registered op (`agrl_torch::graph_propagate`,
-K1) carries a formula for its three products (ops/graph_conv.py), so the
-count is the same whether the kernel or the plain layer ran.
+K1) carries a formula for its products (ops/graph_conv.py; the Gram only
+in the graph modes that build it), so the count is the same whether the
+kernel or the plain layer ran.
 """
 
 from __future__ import annotations

@@ -153,9 +153,34 @@ Phases (any failure exits non-zero before the result lines):
      trace names K3's kernels), one epoch each; the FLOPs line; the host
      scorers, native vs NumPy, on a MARS-scale cosine distance matrix
      (phase 13's features): ms and CMC/mAP within 1e-6;
+ 23. (run after phase 22) the rest of VMGN's training surface at the paper
+     config (VMGN ResNet-50, 4x4 batches of 8-frame 256x128 colour clips,
+     consistent loss, soft-margin), from one seeded state: (a) 12 steps
+     under each optimizer name (adam, amsgrad, sgd, nesterov, rmsprop,
+     adabound, radam; flips; a warmup epoch of 6 steps, then lr 1e-4):
+     step ms (median of steps 4-12), finite losses, one K3 forward and one
+     backward launch a step, and update 13, across the milestone's lr
+     change, card vs CPU from the same state and gradients (1e-6 of max
+     per parameter); (b) misalign, random crop (--rand-crop), random
+     erasing, flips and all together with injected draws, card vs CPU
+     (atol 1e-5) and their device ms, then 10 steps with all of them; (c)
+     --remat none, dots and full: one step under
+     torch.use_deterministic_algorithms against none's (1e-5 of max per
+     entry; none repeated beside it), the running statistics updated once,
+     step ms and peak memory of 7 steps; (d) the 16-clip eval forward of
+     VMGN built with each graph its flags reach (both, --use-pose alone,
+     --learn-graph alone): K1 twice a forward, kernel vs plain path (1e-5
+     of max); K1 in each of its three modes (both, pose, learned) at
+     B=16 V=56 vs its plain twin, with times and bounds; (e) agrl_tpu's
+     optax state (adam, sgd, radam) built as seeded optax-layout trees,
+     migrated, and one resumed step card vs CPU (1e-6 of max); (f) the CLI
+     on phase 16's MARS layout (in process, wrappers counted): one epoch of
+     the preset with --optim radam --rand-erase --rand-crop --misalign-aug
+     --remat dots, and one of -a vmgn --use-pose without --learn-graph,
+     each evaluated at evenly (K3 1 + 1 a step, K1 2 per eval batch);
 then one {"serving": ...} line (with "bf16" and "artifact"), one {"training": ...} line (with "bf16"),
 one {"reranking": ...} line, one {"cli": ...} line (with "bf16"), one {"evaluation": ...}
-line, one {"input": ...} line, one {"kernels": [...]} line (each kernel's `slower_than_plain`
+line, one {"input": ...} line, one {"train_surface": ...} line, one {"kernels": [...]} line (each kernel's `slower_than_plain`
 lists the shapes where this run timed it above its plain version), the
 card's name and power limit, and
 {"ok": true, "device": {...}} as the last line.
@@ -2600,6 +2625,518 @@ def phase_input(torch, tri, gc):
     return result
 
 
+# ---- phase 23: the rest of VMGN's training surface ------------------------
+
+SURFACE_STEPS = 12  # per optimizer; the step-13 update lies across an lr change
+SURFACE_SPE = 6  # steps an "epoch" of phase 23's schedule
+SURFACE_MODES = (("both", True, True), ("pose", True, False), ("learned", False, True))
+
+
+def surface_batches(n, seed):
+    """n paper-config batches (16 colour clips of 4 ids, pose graphs)."""
+    pids = np.repeat(np.arange(BATCH // 4), 4)
+    return [(colour_clips(BATCH, seed + i), pids, pose_adjacency(BATCH, seed + i))
+            for i in range(n)]
+
+
+def surface_lr_fn():
+    """A warmup epoch at 1% of 1e-4 (steps 0-5), 1e-4 (steps 6-11), then
+    the milestone at epoch 2: step 12 takes 1e-5."""
+    from agrl_torch.optim import per_step, warmup_multistep_lr
+
+    return per_step(warmup_multistep_lr(1e-4, [2], warmup_factor=0.01, warmup_iters=1),
+                    SURFACE_SPE)
+
+
+def leaf_rel_errs(torch, got: dict, want: dict) -> dict:
+    """Per entry: max|got - want| / max|want| (0 where both are 0)."""
+    out = {}
+    for k, w in want.items():
+        g = got[k].detach().double().cpu()
+        w = w.detach().double().cpu()
+        scale = float(w.abs().max())
+        out[k] = float((g - w).abs().max()) / scale if scale else float((g - w).abs().max())
+    return out
+
+
+def held_update(torch, name, opt, lr_fn, step_index):
+    """One update of `opt` (after its steps) on the card and the same update
+    on the CPU from the same state and the card's last gradients, at
+    lr_fn(step_index); and the CPU update at the previous step's lr, to show
+    the comparison sees the lr change. Returns (max rel err over leaves, rel
+    distance at the old lr)."""
+    import copy
+
+    from agrl_torch.optim import init_optim
+
+    held = list(opt.param_groups[0]["params"])
+    state = copy.deepcopy(opt.state_dict())  # the card's step below updates it in place
+    p0 = [p.detach().cpu().clone() for p in held]
+    grads = [p.grad.detach().cpu().clone() for p in held]
+
+    def cpu_step(lr):
+        ps = [torch.nn.Parameter(p.clone()) for p in p0]
+        cpu_opt = init_optim(name, ps, 1e-4, weight_decay=5e-4)
+        cpu_opt.load_state_dict(state)
+        for p, g in zip(ps, grads):
+            p.grad = g.clone()
+        for group in cpu_opt.param_groups:
+            group["lr"] = lr
+        cpu_opt.step()
+        return ps
+
+    lr = lr_fn(step_index)
+    for group in opt.param_groups:
+        group["lr"] = lr
+    opt.step()
+    cpu_new, cpu_old = cpu_step(lr), cpu_step(lr_fn(step_index - 1))
+    names = [str(i) for i in range(len(held))]
+    err = max(leaf_rel_errs(torch, dict(zip(names, held)), dict(zip(names, cpu_new))).values())
+    old = max(leaf_rel_errs(torch, dict(zip(names, held)), dict(zip(names, cpu_old))).values())
+    return err, old
+
+
+def phase_optimizers(torch, tri, model, init, batches, device):
+    """(a) SURFACE_STEPS steps of the paper recipe under each optimizer name
+    from one seeded state; K3 launches per step, step ms (median of steps
+    4-12), finite losses; then the held update across the lr change, card
+    vs CPU."""
+    from agrl_torch.engine.trainer import make_train_step
+    from agrl_torch.optim import OPTIMIZER_NAMES, init_optim
+
+    lr_fn = surface_lr_fn()
+    out = {}
+    for name in OPTIMIZER_NAMES:
+        model.load_state_dict(init)
+        opt = init_optim(name, model.parameters(), 1e-4, weight_decay=5e-4)
+        step = make_train_step(model, opt, lr_fn, label_smooth=False, soft_margin=True,
+                               aug={"flip_aug": True})
+        gen = torch.Generator().manual_seed(0)
+        times, losses = [], []
+        tri.launches = tri.backward_launches = 0  # this optimizer's path starts here
+        for imgs, pids, adjs in batches[:SURFACE_STEPS]:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            metrics = step(imgs, pids, adjs, generator=gen)
+            torch.cuda.synchronize()
+            times.append((time.perf_counter() - t0) * 1e3)
+            losses.append(float(metrics["loss"]))
+        fwd, bwd = tri.launches, tri.backward_launches  # and ends here
+        err, old = held_update(torch, name, opt, lr_fn, SURFACE_STEPS)
+        med = float(np.median(times[3:]))
+        rec = dict(step_ms=med, step_all_ms=times, losses=losses,
+                   k3_per_step=[fwd / SURFACE_STEPS, bwd / SURFACE_STEPS],
+                   held_update_card_vs_cpu=err, held_update_vs_old_lr=old,
+                   lr_change=[lr_fn(SURFACE_STEPS - 1), lr_fn(SURFACE_STEPS)])
+        log(f"[surface] optim {name:8s}: step {med:.2f} ms (median of steps 4-{SURFACE_STEPS}), "
+            f"losses {losses[0]:.4f} -> {losses[-1]:.4f}, hard_mine {fwd}+{bwd} launches in "
+            f"{SURFACE_STEPS} steps; update {SURFACE_STEPS + 1} (lr {rec['lr_change'][0]:g} -> "
+            f"{rec['lr_change'][1]:g}) card vs CPU {err:.3e} of max per leaf (tol 1e-6; at the "
+            f"old lr {old:.3e})")
+        if not (fwd == bwd == SURFACE_STEPS and all(math.isfinite(v) for v in losses)
+                and err <= 1e-6 and old > 10 * max(err, 1e-9)):
+            raise AssertionError(f"optimizer {name}: launches {fwd}+{bwd}, losses {losses}, "
+                                 f"card vs CPU {err}, old-lr distance {old}")
+        out[name] = rec
+        del opt, step
+        torch.cuda.empty_cache()
+    return out
+
+
+def phase_augment(torch, tri, model, init, batches, device):
+    """(b) Each augmentation with injected draws, card against CPU, and its
+    device ms; then 10 steps with all three and the flips."""
+    from agrl_torch.data import transforms as tt
+    from agrl_torch.engine.trainer import make_train_step
+    from agrl_torch.optim import init_optim
+
+    imgs = torch.from_numpy(colour_clips(BATCH, 70))
+    g = torch.Generator().manual_seed(5)
+    draws = dict(misalign_draws=tt.draw_misalign(BATCH, g),
+                 translate_draws=tt.draw_translate(BATCH, HEIGHT, WIDTH, g),
+                 flip=torch.rand(BATCH, generator=g) < 0.5,
+                 erase_draws=tt.draw_erase(BATCH, SEQ_LEN, HEIGHT, WIDTH, g))
+    off = dict(flip_aug=False, rand_erase=False, misalign_aug=False, rand_translate=False)
+    cases = {"flip": dict(off, flip_aug=True), "misalign": dict(off, misalign_aug=True),
+             "rand_crop": dict(off, rand_translate=True), "rand_erase": dict(off, rand_erase=True),
+             "all": dict(flip_aug=True, rand_erase=True, misalign_aug=True, rand_translate=True)}
+    on_card = imgs.to(device)
+    out = {}
+    for label, flags in cases.items():
+        card = tt.preprocess_clips(on_card, train=True, **draws, **flags)
+        cpu = tt.preprocess_clips(imgs, train=True, **draws, **flags)
+        err = float((card.cpu() - cpu).abs().max())
+        ms = time_cuda(torch, lambda: tt.preprocess_clips(on_card, train=True, **draws, **flags),
+                       lambda: None, iters=10, warmup=2)
+        out[label] = dict(card_vs_cpu_max_abs_err=err, preprocess_ms=ms)
+        log(f"[surface] augment {label:10s}: card vs CPU max|diff| {err:.3e} (tol 1e-5), "
+            f"preprocess of 16 clips {ms:.3f} ms")
+        if not err <= 1e-5:
+            raise AssertionError(f"augmentation {label}: card and CPU disagree by {err}")
+
+    model.load_state_dict(init)
+    opt = init_optim("adam", model.parameters(), 1e-4, weight_decay=5e-4)
+    step = make_train_step(model, opt, lambda s: 1e-4, label_smooth=False, soft_margin=True,
+                           aug=cases["all"])
+    gen = torch.Generator().manual_seed(1)
+    times, losses = [], []
+    tri.launches = tri.backward_launches = 0  # the augmented path starts here
+    for imgs_, pids, adjs in batches[:10]:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        losses.append(float(step(imgs_, pids, adjs, generator=gen)["loss"]))
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+    fwd, bwd = tri.launches, tri.backward_launches  # and ends here
+    med = float(np.median(times[3:]))
+    log(f"[surface] 10 steps with flips, misalign, crop and erase: {med:.2f} ms (median of "
+        f"steps 4-10), hard_mine {fwd}+{bwd}, losses {losses[0]:.4f} -> {losses[-1]:.4f}")
+    if not (fwd == bwd == 10 and all(math.isfinite(v) for v in losses)):
+        raise AssertionError(f"augmented steps: launches {fwd}+{bwd}, losses {losses}")
+    out["steps"] = dict(step_ms=med, step_all_ms=times, losses=losses,
+                        k3_per_step=[fwd / 10, bwd / 10])
+    return out
+
+
+def phase_remat(torch, tri, model, init, batches, device):
+    """(c) none/dots/full: one step from one seeded state with the same
+    flips and subclips under torch.use_deterministic_algorithms (warnings
+    only where an op has no deterministic kernel), held against none's;
+    the running statistics updated once; then 6 more steps for the step ms
+    (median of the last 5) and the peak memory of the 7."""
+    import warnings
+
+    from agrl_torch.engine.trainer import REMAT_POLICIES, make_train_step
+    from agrl_torch.optim import init_optim
+
+    imgs, pids, adjs = batches[0]
+    flip = np.arange(BATCH) % 3 == 0
+    subs = subclips(23)
+    out, first = {}, {}
+    for policy in REMAT_POLICIES + ("none",):  # none twice: its own repeatability
+        model.load_state_dict(init)
+        opt = init_optim("adam", model.parameters(), 1e-4, weight_decay=5e-4)
+        step = make_train_step(model, opt, lambda s: 1e-4, label_smooth=False, soft_margin=True,
+                               aug={"flip_aug": True}, remat=policy)
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        torch.use_deterministic_algorithms(True, warn_only=True)
+        torch.backends.cudnn.deterministic = True
+        try:
+            with warnings.catch_warnings():
+                warnings.simplefilter("ignore")
+                tri.launches = tri.backward_launches = 0  # this policy's path starts here
+                step(imgs, pids, adjs, flip=flip, subclip_indices=subs)
+                torch.cuda.synchronize()
+        finally:
+            torch.use_deterministic_algorithms(False)
+            torch.backends.cudnn.deterministic = False
+        state = {k: v.detach().cpu().clone() for k, v in model.state_dict().items()}
+        tracked = int(model.bn1.num_batches_tracked)
+        if policy in first:  # the second none
+            rep = leaf_rel_errs(torch, state, first[policy])
+            out["none"]["repeat_max_rel_err"] = max(rep.values())
+            out["none"]["repeat_bit_equal"] = all(v == 0 for v in rep.values())
+            continue
+        first[policy] = state
+        gen = torch.Generator().manual_seed(2)
+        times = []
+        for b_imgs, b_pids, b_adjs in batches[1:7]:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            step(b_imgs, b_pids, b_adjs, generator=gen)
+            torch.cuda.synchronize()
+            times.append((time.perf_counter() - t0) * 1e3)
+        fwd, bwd = tri.launches, tri.backward_launches  # and ends here
+        peak = torch.cuda.max_memory_allocated() / 1e9
+        rec = dict(step_ms=float(np.median(times[1:])), step_all_ms=times, peak_mem_gb=peak,
+                   k3_per_step=[fwd / 7, bwd / 7], bn_updates_after_one_step=tracked)
+        if policy != "none":
+            errs = leaf_rel_errs(torch, state, first["none"])
+            rec["vs_none_max_rel_err"] = max(errs.values())
+            rec["vs_none_bit_equal_entries"] = sum(v == 0 for v in errs.values())
+            rec["entries"] = len(errs)
+        out[policy] = rec
+        log(f"[surface] remat {policy:4s}: step {rec['step_ms']:.2f} ms (median of 5), peak "
+            f"{peak:.2f} GB, hard_mine {fwd}+{bwd} in 7 steps, bn1 updated {tracked}x by step 1"
+            + ("" if policy == "none" else
+               f"; step 1 vs none: {rec['vs_none_max_rel_err']:.3e} of max per entry (tol "
+               f"1e-5), {rec['vs_none_bit_equal_entries']}/{rec['entries']} bit-equal"))
+        if not (fwd == bwd == 7 and tracked == 1
+                and (policy == "none" or rec["vs_none_max_rel_err"] <= 1e-5)):
+            raise AssertionError(f"remat {policy}: {rec}")
+        del opt, step
+    log(f"[surface] remat none repeated: {out['none']['repeat_max_rel_err']:.3e} "
+        f"(bit-equal: {out['none']['repeat_bit_equal']})")
+    return out
+
+
+def graph_mode_bound_ms(B, V, C, mode):
+    """graph_bound_ms for one mode: the Gram only where the mode uses it."""
+    mm, gh = 2.0 * B * V * C * C, 2.0 * B * V * V * C
+    gram = 1.0 * B * V * (V + 1) * C if mode in ("both", "learned") else 0.0
+    nbytes = 4.0 * (2 * B * V * C + B * V * V + C * C + 4 * C)
+    t_ops, t_mem = 3 * (mm + gram + gh) / PEAK_TF32_FLOPS, nbytes / PEAK_HBM_BYTES
+    return max(t_ops, t_mem) * 1e3, ("operations" if t_ops >= t_mem else "bytes")
+
+
+def phase_graph_modes(torch, gc, layers_mod, device, flush):
+    """(d) The 16-clip eval forward of VMGN in each graph mode its flags
+    reach, kernel path vs plain path, K1 launches per forward; then K1 in
+    each of its three modes at the serving shape vs its plain twin, timed,
+    with its bound."""
+    from agrl_torch.data.transforms import preprocess_clips
+    from agrl_torch.models import init_model
+
+    x = preprocess_clips(torch.from_numpy(random_clips(BATCH, 80)).to(device))
+    adj = torch.from_numpy(pose_adjacency(BATCH, 80)).to(device)
+    out = {}
+    for mode, use_pose, learn_graph in SURFACE_MODES:
+        model = init_model("vmgn", num_classes=NUM_CLASSES, device=device, seed=0, num_split=4,
+                           pyramid_part=True, num_gb=2, use_pose=use_pose,
+                           learn_graph=learn_graph)
+        with torch.no_grad():
+            gc.launches = 0  # this mode's eval forward starts here
+            kern = model(x, adj)
+            torch.cuda.synchronize()
+            launches = gc.launches  # and ends here
+            layers_mod.graph_propagate = gc.graph_propagate_reference
+            try:
+                plain = model(x, adj)
+            finally:
+                layers_mod.graph_propagate = gc.graph_propagate
+        err = rel_err(kern.cpu().numpy(), plain.cpu().numpy())
+        modes = {layer.mode for layer in model.graph_layers}
+        out[mode] = dict(model_launches=launches, model_rel_err=err)
+        log(f"[surface] VMGN eval, graph {mode:7s} (--use-pose {use_pose}, --learn-graph "
+            f"{learn_graph}): K1 launches {launches} for 16 clips, kernel vs plain path "
+            f"{err:.3e} of max (tol 1e-5)")
+        if not (launches == 2 and modes == {mode} and err <= 1e-5):
+            raise AssertionError(f"graph mode {mode}: {launches} launches, layers {modes}, "
+                                 f"err {err}")
+        del model
+        torch.cuda.empty_cache()
+    B, V, C = BATCH, SEQ_LEN * 7, FEATURE_DIM
+    args = graph_inputs(torch, B, V, C, 90, device)
+    for mode in gc.GRAPH_MODES:
+        gc.launches = 0  # the op-level check of this mode
+        got = gc.graph_propagate(*args, mode=mode)
+        torch.cuda.synchronize()
+        launched = gc.launches
+        want = gc.graph_propagate_reference(*args, mode=mode)
+        err = rel_err(got.cpu().numpy(), want.cpu().numpy())
+        ms = time_cuda(torch, lambda: gc.graph_propagate(*args, mode=mode), flush)
+        plain_ms = time_cuda(torch, lambda: gc.graph_propagate_reference(*args, mode=mode),
+                             flush, iters=5)
+        bound, by = graph_mode_bound_ms(B, V, C, mode)
+        out.setdefault(mode, {}).update(op_launches=launched, max_rel_err=err,
+                                        max_abs_err=float((got - want).abs().max()), ms=ms,
+                                        plain_ms=plain_ms, bound_ms=bound, bound_by=by)
+        log(f"[surface] K1 mode {mode:7s} B={B} V={V} C={C}: {ms:.4f} ms (plain {plain_ms:.4f}, "
+            f"bound {bound:.4f} by {by}), max|diff|/max|plain| {err:.3e} (tol 1e-5)")
+        if not (launched == 1 and err <= 1e-5):
+            raise AssertionError(f"K1 mode {mode}: {launched} launches, err {err}")
+    return out
+
+
+def flax_layout(arr, kind):
+    """The inverse of weight_convert's layout change: OIHW -> HWIO, a torch
+    Linear (out, in) -> flax Dense (in, out)."""
+    if kind == "conv":
+        return arr.transpose(2, 3, 1, 0)
+    return arr.T if kind == "linear" else arr
+
+
+def optax_state_tree(model, optim, count, seed):
+    """An optax-layout opt_state of agrl_tpu's init_optim(optim) for
+    `model`'s parameters, from seeded numpy arrays: the moment trees have
+    the params' flax paths and layouts (core/optax_state.py's table)."""
+    from agrl_torch.models.weight_convert import torch_name_map
+
+    rng = np.random.RandomState(seed)
+
+    def tree(positive=False):
+        out = {}
+        for name, p in model.named_parameters():
+            if not p.requires_grad:
+                continue
+            path, _, kind = torch_name_map(name)
+            arr = rng.randn(*p.shape).astype(np.float32) * 1e-3
+            arr = arr * arr if positive else arr
+            node = out
+            for key in path[:-1]:
+                node = node.setdefault(key, {})
+            node[path[-1]] = flax_layout(arr, kind)
+        return out
+
+    c = np.int32(count)
+    if optim == "adam":
+        return {"0": {"count": c}, "1": {"0": {"count": c, "mu": tree(), "nu": tree(True)},
+                                         "1": {"count": c}}}
+    if optim == "sgd":
+        return {"0": {"count": c}, "1": {"0": {"trace": tree()}, "1": {"count": c}}}
+    if optim == "radam":
+        return {"count": c, "exp_avg": tree(), "exp_avg_sq": tree(True)}
+    raise KeyError(optim)
+
+
+def phase_migration(torch, device):
+    """(e) agrl_tpu's optax state migrated into the port's optimizer (adam,
+    sgd, radam), from seeded optax-layout trees (no JAX here): one resumed
+    step on the card and on the CPU from the same parameters, state and
+    gradients, within 1e-6 of max per entry."""
+    import copy
+
+    from agrl_torch.core.optax_state import load_optax_state
+    from agrl_torch.models import init_model
+    from agrl_torch.optim import init_optim
+
+    model = init_model("vmgn", num_classes=NUM_CLASSES, device=device, seed=3, num_split=4,
+                       pyramid_part=True, num_gb=2, use_pose=True, learn_graph=True,
+                       consistent_loss=True)
+    cpu_model = copy.deepcopy(model).cpu()
+    init = {k: v.detach().clone() for k, v in model.state_dict().items()}
+    rng = np.random.RandomState(9)
+    grads = {n: torch.from_numpy(rng.randn(*p.shape).astype(np.float32) * 1e-1)
+             for n, p in model.named_parameters() if p.requires_grad}
+    out = {}
+    for k, optim in enumerate(("adam", "sgd", "radam")):
+        tree = optax_state_tree(cpu_model, optim, count=7, seed=20 + k)
+        model.load_state_dict(init)
+        cpu_model.load_state_dict({n: v.cpu() for n, v in init.items()})
+        steps = []
+        for m in (model, cpu_model):
+            opt = init_optim(optim, m.parameters(), 1e-4, weight_decay=5e-4)
+            steps.append(load_optax_state(opt, m, tree, optim))
+            for n, p in m.named_parameters():
+                if p.requires_grad:
+                    p.grad = grads[n].to(p.device)
+            opt.step()
+        card = {n: p for n, p in model.named_parameters() if p.requires_grad}
+        cpu = {n: p for n, p in cpu_model.named_parameters() if p.requires_grad}
+        err = max(leaf_rel_errs(torch, card, cpu).values())
+        moved = max(leaf_rel_errs(torch, cpu, {n: init[n] for n in cpu}).values())
+        out[optim] = dict(count=steps[0], card_vs_cpu_max_rel_err=err, step_moved=moved)
+        log(f"[surface] migration {optim:5s}: optax count {steps[0]} -> the port's step; the "
+            f"resumed step card vs CPU {err:.3e} of max per entry (tol 1e-6; the step moved "
+            f"the weights by {moved:.3e})")
+        if not (steps == [7, 7] and err <= 1e-6 and moved > 100 * max(err, 1e-12)):
+            raise AssertionError(f"migration {optim}: counts {steps}, err {err}, moved {moved}")
+    del model, cpu_model
+    torch.cuda.empty_cache()
+    return out
+
+
+def phase_cli_surface(torch, tri, gc):
+    """(f) The CLI on phase 16's MARS layout: one epoch of the preset with
+    --optim radam --rand-erase --rand-crop --misalign-aug --remat dots, and
+    one epoch of -a vmgn --use-pose without --learn-graph, each evaluated
+    at evenly; the wrappers counted."""
+    from agrl_torch.cli import train_vidreid_xent_htri as cli
+    from agrl_torch.data.datasets import init_vidreid_dataset
+    from agrl_torch.data.datasets.synthetic_mars import materialize_mars_layout
+    from agrl_torch.engine import trainer
+
+    build_dir = REPO / "agrl_torch" / "_build"
+    build_dir.mkdir(parents=True, exist_ok=True)
+    preset = vmgn_args()
+    runs = {
+        "radam_augment_remat": ["--optim", "radam", "--rand-erase", "--rand-crop",
+                                "--misalign-aug", "--remat", "dots"],
+        "pose_graph": None,  # the preset without --learn-graph
+    }
+    out = {}
+    with tempfile.TemporaryDirectory(dir=build_dir) as tmp:
+        root = f"{tmp}/data"
+        materialize_mars_layout(root, **CLI_DATA)
+        ds = init_vidreid_dataset("mars", root=root, verbose=False)
+        test_batch = int(preset[preset.index("--test-batch") + 1])
+        eval_batches = -(-len(ds.query) // test_batch) + -(-len(ds.gallery) // test_batch)
+        for label, extra in runs.items():
+            args = (without_flag(preset, "--optim") + extra if extra is not None
+                    else [a for a in preset if a != "--learn-graph"])
+            argv = ["-d", "mars", *args, "--root", root, "--max-epoch", "1", "--print-freq",
+                    "1", "--save-dir", f"{tmp}/{label}"]
+            seen, real = {}, trainer.make_train_step
+
+            def recording(model, optimizer, lr_fn, **kw):
+                seen.update(kw, model=model, optimizer=type(optimizer).__name__)
+                return real(model, optimizer, lr_fn, **kw)
+
+            trainer.make_train_step = recording
+            tri.launches = tri.backward_launches = gc.launches = 0  # this run starts here
+            t0 = time.perf_counter()
+            try:
+                _, text = run_cli_in_process(cli, argv)
+            finally:
+                trainer.make_train_step = real
+            secs = time.perf_counter() - t0
+            fwd, bwd, k1 = tri.launches, tri.backward_launches, gc.launches  # and ends here
+            meters = [m.groups() for m in METER.finditer(text)]
+            step_ms = [float(m[3]) * 1e3 for m in meters]
+            data_ms = [float(m[4]) * 1e3 for m in meters]
+            losses = [float(v) for m in meters for v in m[5:7]]
+            blocks = cmc_blocks(text)
+            n = len(meters)
+            modes = sorted({layer.mode for layer in seen["model"].graph_layers})
+            rec = dict(argv_extra=extra if extra is not None else ["(no --learn-graph)"],
+                       steps=n, step_ms_median=float(np.median(step_ms[1:])) if n > 1 else None,
+                       step_ms_all=step_ms, data_ms_median=float(np.median(data_ms[1:]))
+                       if n > 1 else None, k3_per_step=[fwd / max(n, 1), bwd / max(n, 1)],
+                       k1_per_eval_batch=k1 / eval_batches, graph_modes=modes,
+                       optimizer=seen["optimizer"], remat=seen["remat"], aug=seen["aug"],
+                       evals=blocks, seconds=secs)
+            out[label] = rec
+            log(f"[surface] cli {label}: {n} steps, Time meter median {rec['step_ms_median']} ms, "
+                f"Data {rec['data_ms_median']} ms; {seen['optimizer']}, remat {seen['remat']}, "
+                f"aug {seen['aug']}, graph {modes}; hard_mine {fwd}+{bwd}, K1 {k1} for "
+                f"{eval_batches} eval batches; CMC (rank-1, mAP) {blocks}; {secs:.1f} s")
+            ok = (n > 0 and fwd == bwd == n and k1 == 2 * eval_batches and len(blocks) == 1
+                  and all(math.isfinite(v) for v in losses))
+            if label == "pose_graph":
+                ok = ok and modes == ["pose"]
+            else:
+                ok = ok and seen["optimizer"] == "RAdam" and seen["remat"] == "dots" and all(
+                    seen["aug"][k] for k in ("rand_erase", "misalign_aug", "rand_translate"))
+            if not ok:
+                raise AssertionError(f"CLI {label}: {rec}")
+    return out
+
+
+def phase_train_surface(torch, tri, gc, layers_mod, device, flush):
+    """Phase 23: (a) optimizers, (b) augmentations, (c) remat, (d) graph
+    modes, (e) migration, (f) the CLI."""
+    from agrl_torch.models import init_model
+
+    t_phase = time.perf_counter()
+    batches = surface_batches(SURFACE_STEPS, 100)
+    model = build_train_model(init_model, device, seed=4)
+    init = {k: v.detach().clone() for k, v in model.state_dict().items()}
+    out = {}
+    t0 = time.perf_counter()
+    out["optimizers"] = phase_optimizers(torch, tri, model, init, batches, device)
+    out["optimizers_seconds"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    out["augment"] = phase_augment(torch, tri, model, init, batches, device)
+    out["augment_seconds"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    out["remat"] = phase_remat(torch, tri, model, init, batches, device)
+    out["remat_seconds"] = time.perf_counter() - t0
+    del model, init, batches
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    out["graph_modes"] = phase_graph_modes(torch, gc, layers_mod, device, flush)
+    out["graph_modes_seconds"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    out["migration"] = phase_migration(torch, device)
+    out["migration_seconds"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    out["cli"] = phase_cli_surface(torch, tri, gc)
+    out["cli_seconds"] = time.perf_counter() - t0
+    out["phase_seconds"] = time.perf_counter() - t_phase
+    return out
+
+
 def main() -> int:
     if not all((REPO / "agrl_torch" / "csrc" / f"{n}.cu").exists() for n in LIBS):
         print("chip_smoke.py: the agrl_torch package is not beside this script", file=sys.stderr)
@@ -2610,6 +3147,9 @@ def main() -> int:
         print("chip_smoke.py: torch.cuda.is_available() is False; this needs an NVIDIA GPU",
               file=sys.stderr)
         return 3
+    # cuBLAS's deterministic workspace, for phase 23's deterministic remat step
+    # (set before the first cuBLAS call; 32 MiB, the size it has on Hopper anyway)
+    os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
     sys.path.insert(0, str(REPO))
     from agrl_torch import losses as losses_mod
     from agrl_torch.models import default_num_vertices, init_model
@@ -2751,6 +3291,9 @@ def main() -> int:
     # 22. the CLI's host side: decoders, caches, prefetch, async checkpoints,
     # the profile, the FLOPs line, the host scorers
     host_input = phase_input(torch, tri, gc)
+    # 23. the rest of the training surface: optimizers, augmentations, remat,
+    # graph modes, optax-state migration, the CLI with the new flags
+    surface = phase_train_surface(torch, tri, gc, layers_mod, device, L2Flusher(torch, device))
 
     print(json.dumps({"serving": serving}))
     print(json.dumps({"training": training}))
@@ -2760,6 +3303,7 @@ def main() -> int:
     evaluation["cli_k1_launches"] = cli["eval_strategies"]
     print(json.dumps({"evaluation": evaluation}))
     print(json.dumps({"input": host_input}))
+    print(json.dumps({"train_surface": surface}))
     kernel = {
         "name": "graph_propagate",
         "route": "cuda",
@@ -2795,6 +3339,14 @@ def main() -> int:
         "bf16_eval_launches_per_chunk": {k: v["k1_per_chunk"]
                                          for k, v in serving["bf16"]["models"].items()},
         "artifact_launches": serving["artifact"]["launches"],
+        "graph_modes": {m: {k: v for k, v in r.items()} for m, r in
+                        surface["graph_modes"].items()},
+        "graph_modes_note": "phase 23: model_launches per 16-clip eval forward of VMGN built "
+                            "with the mode's flags; ms, plain_ms: "
+                            "CUDA events, L2 flushed, at B=16 V=56 C=2048; bound without the "
+                            "Gram where the mode has none",
+        "surface_cli_launches_per_eval_batch": {k: v["k1_per_eval_batch"]
+                                                for k, v in surface["cli"].items()},
         "cli_bf16_artifact_launches": cli["bf16"]["artifact_k1_launches"],
         "v2_launches_on_paths": serving["bf16"]["v2_launches"] + sum(
             v["k2_per_chunk"] for v in serving["bf16"]["models"].values()),
@@ -2820,6 +3372,12 @@ def main() -> int:
         "input_cli_launches_per_step": {k: v["k3_per_step"]
                                         for k, v in host_input["cli"].items()},
         "bf16_train_launches": bf16_tri,
+        "optimizer_launches_per_step": {k: v["k3_per_step"]
+                                        for k, v in surface["optimizers"].items()},
+        "augment_launches_per_step": surface["augment"]["steps"]["k3_per_step"],
+        "remat_launches_per_step": {k: v["k3_per_step"] for k, v in surface["remat"].items()},
+        "surface_cli_launches_per_step": {k: v["k3_per_step"]
+                                          for k, v in surface["cli"].items()},
         "bf16_train_backward_launches": bf16_tri_backward,
         "max_abs_err": trec["max_abs_err"],
         "grad_max_abs_err": trec["grad_max_abs_err"],

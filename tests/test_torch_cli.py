@@ -8,6 +8,7 @@ import glob
 import io
 import os.path as osp
 import re
+import shutil
 import sys
 
 import numpy as np
@@ -48,11 +49,6 @@ def test_parser_flag_matches_agrl_tpu(dest):
 # the refusals: extra argv -> (flag the message names, value it names)
 REFUSALS = {
     "arch": (["-a", "gsta"], "--arch", "gsta"),
-    "optim": (["--optim", "sgd"], "--optim", "sgd"),
-    "rand_erase": (["--rand-erase"], "--rand-erase", "True"),
-    "rand_crop": (["--rand-crop"], "--rand-crop", "True"),
-    "misalign_aug": (["--misalign-aug"], "--misalign-aug", "True"),
-    "remat": (["--remat", "dots"], "--remat", "dots"),
     "mesh_dp": (["--mesh-dp", "2"], "--mesh-dp", "2"),
     "mesh_mp": (["--mesh-mp", "2"], "--mesh-mp", "2"),
     "dist_coordinator": (["--dist-coordinator", "localhost:1234"], "--dist-coordinator",
@@ -291,12 +287,74 @@ def test_evaluate_dense_and_all(trained, tmp_path, test_sample):
     assert 0.0 <= r1 <= 1.0 and 0.0 <= mAP <= 1.0
 
 
-def test_resume_refuses_an_agrl_tpu_msgpack(tmp_path, trained):
-    fake = tmp_path / "checkpoint_ep1.msgpack"
-    fake.write_bytes(b"\x82\xa6params\x80\xabbatch_stats\x80")
-    with pytest.raises(SystemExit, match="--load-weights"):
-        _run_cli(trained["base"] + ["--max-epoch", "1", "--save-dir", str(tmp_path / "log"),
-                                    "--resume", str(fake)])
+def _spy_train_step(monkeypatch):
+    """Records make_train_step's optimizer and keywords as the CLI calls it."""
+    from agrl_torch.engine import trainer
+
+    seen, real = {}, trainer.make_train_step
+
+    def recording_make(model, optimizer, lr_fn, **kw):
+        seen.update(kw, model=model, optimizer=optimizer)
+        return real(model, optimizer, lr_fn, **kw)
+
+    monkeypatch.setattr(trainer, "make_train_step", recording_make)
+    return seen
+
+
+# the train flags ported in ROADMAP A2, and VMGN's pose-only and
+# learned-only graphs: extra argv, flags dropped from the base, and what
+# the run must have been built with
+TRAIN_FLAGS = {
+    "optim": (["--optim", "radam"], [], lambda seen: type(seen["optimizer"]).__name__ == "RAdam"),
+    "rand_erase": (["--rand-erase"], [], lambda seen: seen["aug"]["rand_erase"]),
+    "rand_crop": (["--rand-crop"], [], lambda seen: seen["aug"]["rand_translate"]),
+    "misalign_aug": (["--misalign-aug"], [], lambda seen: seen["aug"]["misalign_aug"]),
+    "remat": (["--remat", "dots"], [], lambda seen: seen["remat"] == "dots"),
+    "pose_graph": ([], ["--learn-graph"],
+                   lambda seen: {g.mode for g in seen["model"].graph_layers} == {"pose"}),
+    "learned_graph": ([], ["--use-pose"],
+                      lambda seen: {g.mode for g in seen["model"].graph_layers} == {"learned"}),
+}
+
+
+@pytest.mark.parametrize("case", sorted(TRAIN_FLAGS))
+def test_preflight_takes_the_train_flags_and_a_cpu_epoch_runs_with_them(
+        case, trained, tmp_path, monkeypatch):
+    """The pre-flight passes each (with --use-cpu and for the card), and
+    one CPU epoch with an evaluation runs with it: finite meter lines, a
+    CMC block, a checkpoint. tests/test_torch_optim.py,
+    test_torch_augment.py, test_torch_remat.py and test_torch_graph_modes.py
+    hold what each computes against agrl_tpu."""
+    extra, dropped, built_with = TRAIN_FLAGS[case]
+    save_dir = str(tmp_path / "log")
+    base = [a if a != trained["save_dir"] else save_dir for a in trained["base"]
+            if a not in dropped]
+    tcli.preflight(tcli.build_parser().parse_args(base + extra))
+    tcli.preflight(tcli.build_parser().parse_args([a for a in base + extra if a != "--use-cpu"]))
+    seen = _spy_train_step(monkeypatch)
+    try:
+        result, out = _run_cli(base + extra + ["--max-epoch", "1", "--eval-step", "1",
+                                               "--print-freq", "1"])
+        assert osp.exists(osp.join(save_dir, "checkpoint_ep1.pth.tar"))
+    finally:
+        shutil.rmtree(save_dir, ignore_errors=True)  # two ~220 MB checkpoints
+    assert result is None and built_with(seen), case
+    meters = [METER.match(line) for line in out.splitlines() if line.startswith("CurTime: ")]
+    assert len(meters) == 4 and all(m is not None for m in meters)
+    assert all(np.isfinite(float(v)) for m in meters for v in m.groups())
+    assert out.count("Computing CMC and mAP on device") == 1
+
+
+def test_graph_layers_without_a_graph_raise_as_agrl_tpu(trained, tmp_path):
+    """-a with graph layers and neither --use-pose nor --learn-graph: the
+    model build raises, as agrl_tpu's GraphConvLayer asserts one of them;
+    an unknown optimizer is refused before any data is read."""
+    base = [a if a != trained["save_dir"] else str(tmp_path / "log") for a in trained["base"]
+            if a not in ("--use-pose", "--learn-graph")]
+    with pytest.raises(ValueError, match="use_pose or learn_graph"):
+        _run_cli(base + ["--max-epoch", "1"])
+    with pytest.raises(SystemExit, match="unsupported optimizer"):
+        tcli.preflight(tcli.build_parser().parse_args(base + ["--optim", "lamb"]))
 
 
 def test_cli_trains_and_evaluates_in_bf16(trained, tmp_path, monkeypatch):

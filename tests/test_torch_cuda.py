@@ -144,6 +144,43 @@ def test_masked_and_long_kernel_matches_plain(cuda, B, V, masked):
     assert float((got - want).abs().max()) <= 1e-5 * float(want.abs().max())
 
 
+@pytest.mark.parametrize("mode", graph_conv.GRAPH_MODES)
+@pytest.mark.parametrize("B,V,masked", [(16, 56, False), (64, 56, True), (3, 129, True),
+                                        (9, 392, False)])
+def test_graph_modes_match_plain(cuda, mode, B, V, masked):
+    """Each graph mode (both, pose, learned) on both schedules, with
+    and without a vertex mask: one launch per call, within 1e-5 of
+    max|plain|."""
+    args, mask = _masked_case(cuda, B, V, 2048, masked, seed=V + 1)
+    before = graph_conv.launches
+    got = graph_conv.graph_propagate(*args, vertex_mask=mask, mode=mode)
+    torch.cuda.synchronize()
+    assert graph_conv.launches == before + 1
+    want = graph_conv.graph_propagate_reference(*args, vertex_mask=mask, mode=mode)
+    assert float((got - want).abs().max()) <= 1e-5 * float(want.abs().max())
+    with pytest.raises(ValueError):
+        graph_conv.graph_propagate(*args, mode="dot")
+
+
+def test_graph_modes_through_the_layer(cuda):
+    """GraphConvLayer by flags (pose only, learned only) takes the kernel in
+    its mode in eval, and its bf16 input takes K2's entry in the same mode."""
+    from agrl_torch.models.layers import GraphConvLayer
+
+    t = _to(cuda, _inputs(4, 56, 2048, seed=3, relu_like=True))
+    for use_pose, learn_graph, mode in ((True, False, "pose"), (False, True, "learned")):
+        layer = GraphConvLayer(2048, 2048, use_pose=use_pose, learn_graph=learn_graph)
+        layer = layer.to(cuda).eval()
+        before = graph_conv.launches
+        with torch.no_grad():
+            got = layer(t["f"], t["adj"])
+            want = graph_conv.graph_propagate_reference(
+                t["f"], t["adj"], layer.linear.weight.t(), layer.bn.weight, layer.bn.bias,
+                layer.bn.running_mean, layer.bn.running_var, layer.gamma, mode=mode)
+        assert layer.mode == mode and graph_conv.launches == before + 1
+        assert float((got - want).abs().max()) <= 1e-5 * float(want.abs().max())
+
+
 def test_kernel_rejects_what_it_does_not_take(cuda):
     t = _to(cuda, _inputs(2, 56, 256))
     rest = (t["W"], t["scale"], t["bias"], t["mean"], t["var"])
@@ -658,3 +695,36 @@ def test_bf16_train_step_on_the_card(cuda):
     assert np.isfinite(float(metrics["loss"]))
     assert all(p.dtype == torch.float32 and (p.grad is None or p.grad.dtype == torch.float32)
                for p in model.parameters())
+
+
+@pytest.mark.parametrize("optim,remat", [("adam", "none"), ("amsgrad", "dots"), ("sgd", "full"),
+                                         ("nesterov", "none"), ("rmsprop", "dots"),
+                                         ("adabound", "full"), ("radam", "dots")])
+def test_train_surface_on_the_card(cuda, optim, remat):
+    """Two steps at VMGN (1,1,1,1), 128x64, S=8, 16 clips with the
+    consistent loss and every augmentation, under each optimizer and a
+    remat policy: one K3 forward and one backward launch a step, finite
+    losses, parameters that moved, and the running statistics updated
+    once a step."""
+    from agrl_torch.engine.trainer import make_train_step
+    from agrl_torch.models.vmgn import VMGN
+    from agrl_torch.optim import init_optim
+
+    model = VMGN(num_classes=4, layers=(1, 1, 1, 1), consistent_loss=True)
+    model.init_weights(torch.Generator().manual_seed(0))
+    model = model.to(cuda)
+    before_w = model.conv1.weight.detach().clone()
+    opt = init_optim(optim, model.parameters(), 1e-4, weight_decay=5e-4)
+    aug = dict(flip_aug=True, rand_erase=True, misalign_aug=True, rand_translate=True)
+    step = make_train_step(model, opt, lambda s: 1e-4, aug=aug, remat=remat)
+    rng = np.random.RandomState(0)
+    imgs = rng.randint(0, 256, (16, 8, 128, 64, 3)).astype(np.uint8)
+    adjs = (rng.rand(16, 56, 56) > 0.5).astype(np.float32)
+    gen = torch.Generator().manual_seed(1)
+    before = (triplet.launches, triplet.backward_launches)
+    losses = [float(step(imgs, np.repeat(np.arange(4), 4), adjs, generator=gen)["loss"])
+              for _ in range(2)]
+    assert (triplet.launches - before[0], triplet.backward_launches - before[1]) == (2, 2)
+    assert all(np.isfinite(losses))
+    assert not torch.equal(model.conv1.weight, before_w)
+    assert int(model.bn1.num_batches_tracked) == 2

@@ -128,6 +128,13 @@ def test_train_preprocess_draws_and_refuses():
     assert torch.equal(flipped, drawn)
     with pytest.raises(ValueError):
         preprocess_clips(imgs, train=True)  # neither a generator nor flips
+    # the other augmentations draw from the generator too and refuse to run
+    # without one (tests/test_torch_augment.py holds them against agrl_tpu)
+    noise = torch.randint(0, 256, imgs.shape, generator=g, dtype=torch.uint8)
+    plain = preprocess_clips(noise, train=True, flip_aug=False)
     for aug in ("rand_erase", "misalign_aug", "rand_translate"):
-        with pytest.raises(NotImplementedError):
-            preprocess_clips(imgs, train=True, generator=g, **{aug: True})
+        kw = {"flip_aug": False, aug: True}
+        drawn = preprocess_clips(noise, train=True, generator=g, **kw)
+        assert (drawn - plain).abs().max() > 0.1, aug
+        with pytest.raises(ValueError):
+            preprocess_clips(noise, train=True, **kw)

@@ -105,12 +105,16 @@ def test_graph_conv_layer_eval_matches_jax():
         dict(dist_method="dot"),
         dict(mask_diag=True),
         dict(residual="additive"),
-        dict(use_pose=False),
-        dict(learn_graph=False),
+        # the pose-only and learned-only graphs are ported
+        # (tests/test_torch_graph_modes.py); neither is refused, as agrl_tpu's
+        # layer asserts, and the unported variants stay so under either graph
+        dict(use_pose=False, learn_graph=False),
+        dict(mask_diag=True, learn_graph=False),
     ],
 )
 def test_unported_layer_variants_raise(kwargs):
-    with pytest.raises(NotImplementedError):
+    neither = not (kwargs.get("use_pose", True) or kwargs.get("learn_graph", True))
+    with pytest.raises(ValueError if neither else NotImplementedError):
         TorchGraphConvLayer(128, 128, **kwargs)
 
 
