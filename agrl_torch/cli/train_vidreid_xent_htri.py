@@ -40,12 +40,19 @@ import numpy as np
 import torch
 
 # agrl_tpu's model registry (agrl_tpu/models/__init__.py), the choices of
-# -a; the port builds the VMGN family and refuses the rest (ROADMAP A7)
+# -a; the port builds the VMGN family and the single-scale archs (gsta,
+# ganet, sta, simple_sta, res50tp, resnet50_s1) and refuses the rest by
+# ROADMAP item (UNPORTED_ARCHS)
 ARCH_NAMES = (
     "vmgn", "gsta", "ganet", "msppn", "msppgn", "sta", "simple_sta", "res50tp",
     "resnet50_s1", "vmgn_tiny", "res50tp_legacy", "res50ta", "res50rnn", "resnet3d50",
     "resnet3dt",
 )
+UNPORTED_ARCHS = {
+    "msppn": "A7c", "msppgn": "A7c",  # the multi-scale pair
+    "res50tp_legacy": "A7e", "res50ta": "A7e", "res50rnn": "A7e",  # legacy video families
+    "resnet3d50": "A7e", "resnet3dt": "A7e",  # 3D
+}
 PROTOCOL = "mars"  # the reference's train script always scores with evaluate_mars (:531)
 
 
@@ -103,7 +110,8 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--warmup", action="store_true")
     # Architecture
     p.add_argument("-a", "--arch", type=str, default="vmgn", choices=list(ARCH_NAMES),
-                   help="agrl_tpu's registry; vmgn and vmgn_tiny are ported")
+                   help="agrl_tpu's registry; ported: vmgn, vmgn_tiny, gsta, ganet, sta, "
+                        "simple_sta, res50tp, resnet50_s1")
     p.add_argument("--pool", type=str, default="avg", choices=["avg", "max"])
     p.add_argument("--last-stride", type=int, default=1, choices=[1, 2])
     p.add_argument("--num-split", type=int, default=4)
@@ -217,7 +225,7 @@ def preflight(args) -> None:
     from agrl_torch.ops.triplet import MAX_BATCH
 
     if args.arch not in get_names():
-        _refuse("-a/--arch", args.arch, "A7", f"ported: {get_names()}")
+        _refuse("-a/--arch", args.arch, UNPORTED_ARCHS[args.arch], f"ported: {get_names()}")
     if args.optim not in OPTIMIZER_NAMES:
         raise SystemExit(f"--optim {args.optim!r}: unsupported optimizer; choices "
                          f"{OPTIMIZER_NAMES}")

@@ -10,11 +10,20 @@
 //   A    = row_l1(adj_b * P)
 //   S    = row_l1(2 * sigmoid(-sqrt(max(d2, 1e-12))) * P),  d2_ij = |f_i - f_j|^2
 //   G    = (A + S) / 2, A or S      (mode 0 both, 1 pose, 2 learned)
-//   out  = (1 - gamma) f_b + gamma * lrelu_0.1(bn_eval(G @ h))
+//   out  = (1 - gamma) f_b + gamma * lrelu_0.1(bn_eval(G @ h))     convex
+//          f_b + gamma * lrelu_0.1(bn_eval(G @ h))                 additive
 //
 // The modes are agrl_tpu's GraphConvLayer graphs (use_pose and learn_graph,
 // agrl_tpu/models/layers.py:219-238). Mode 1 needs no Gram: its launch is
 // skipped, and the blend reads only the adjacency.
+//
+// Two flags give ganet's layer (agrl_tpu/models/layers.py:186-187, 252):
+// mask_diag multiplies P by (1 - I), so each vertex's own entry leaves both
+// row sums and G; additive makes the residual's f coefficient 1. The
+// epilogues take additive as a template argument, so the convex kernels
+// compile as they did without it: with a run-time coefficient ptxas gave
+// graph_propagate_kernel 196 registers instead of 208, and it ran ~15%
+// slower at the serving shape.
 //
 // The mask is agrl_tpu's GraphConvLayer vertex_mask (padding frames of the
 // bucketed `--test-sample all` eval): pairs with a padded end drop out of
@@ -42,7 +51,7 @@
 //                   group p on the tensor cores, keeps it in shared
 //                   memory, multiplies each clip's rows by its G_b, and
 //                   applies BN (running stats), LeakyReLU(0.1) and the
-//                   convex residual on the same tile. h never goes to
+//                   residual on the same tile. h never goes to
 //                   device memory.
 //
 // V > 128 (long clips, up to 8288 vertices for a 1184-frame bucket): a
@@ -309,7 +318,8 @@ __host__ __device__ __forceinline__ bool needs_gram(int mode) { return mode == 0
 template <int R>
 __global__ void __launch_bounds__(kThreads)
 graph_blend_kernel(const float* __restrict__ partial, int slices, const float* __restrict__ adj,
-                   const float* __restrict__ mask, float* __restrict__ graph, int V, int mode) {
+                   const float* __restrict__ mask, float* __restrict__ graph, int V, int mode,
+                   int mask_diag) {
   constexpr int VP = 16 * R;
   constexpr int JPL = (VP + 31) / 32;  // columns per lane
   __shared__ float diag[VP];
@@ -343,7 +353,8 @@ graph_blend_kernel(const float* __restrict__ partial, int slices, const float* _
       s[q] = 0.f;
       a[q] = 0.f;
       if (j < V) {
-        const float pm = mb == nullptr ? 1.f : mb[i] * mb[j];  // the pair's mask
+        // the pair's mask; the diagonal's is 0 under mask_diag
+        const float pm = mask_diag && j == i ? 0.f : mb == nullptr ? 1.f : mb[i] * mb[j];
         if (learned) {
           const float d2 = gii + diag[j] - 2.f * gram(i, j);  // exactly 0 when i == j
           const float d = sqrtf(fmaxf(d2, kNormEps));
@@ -409,7 +420,7 @@ struct PropagateSmem {
 // matrix of the flattened rows, block y takes rows 128 y .. 128 y + 127,
 // and the tile is stored into out (the h scratch) as it comes from the
 // accumulators.
-template <int VP, bool STORE_H>
+template <int VP, bool STORE_H, bool ADDITIVE>
 __global__ void __launch_bounds__(kThreads, 1)
 graph_propagate_kernel(const __grid_constant__ CUtensorMap f_map,
                        const __grid_constant__ CUtensorMap wt_map,
@@ -593,7 +604,7 @@ graph_propagate_kernel(const __grid_constant__ CUtensorMap f_map,
     }
   }
 
-  // epilogue: BN (running stats), LeakyReLU(0.1), convex residual
+  // epilogue: BN (running stats), LeakyReLU(0.1), the convex or additive residual
 #pragma unroll
   for (int c = 0; c < BN / 16; ++c) {
     const int col = col0 + tx + 16 * c;
@@ -606,7 +617,10 @@ graph_propagate_kernel(const __grid_constant__ CUtensorMap f_map,
       const size_t at = ((size_t)(b0 + r / VP) * V + r % VP) * C + col;
       float y = (o[i][c] - sub) * mul + add;
       y = y >= 0.f ? y : 0.1f * y;
-      out[at] = (1.f - gamma) * f[at] + gamma * y;
+      if constexpr (ADDITIVE)
+        out[at] = f[at] + gamma * y;
+      else
+        out[at] = (1.f - gamma) * f[at] + gamma * y;
     }
   }
 }
@@ -701,7 +715,7 @@ __device__ __forceinline__ float block_sum(float v, float* red) {
 __global__ void __launch_bounds__(kThreads)
 graph_blend_long_kernel(float* __restrict__ graph, const float* __restrict__ diag,
                         const float* __restrict__ adj, const float* __restrict__ mask, int V,
-                        int mode) {
+                        int mode, int mask_diag) {
   __shared__ float red[kThreads / 32];
   const int i = blockIdx.x, b = blockIdx.y;
   float* row = graph + ((size_t)b * V + i) * V;
@@ -712,7 +726,7 @@ graph_blend_long_kernel(float* __restrict__ graph, const float* __restrict__ dia
   const float gii = learned ? db[i] : 0.f, mi = mb == nullptr ? 1.f : mb[i];
   // without the Gram (mode 1) the row holds nothing yet and is only written
   auto entries = [&](int j, float& s, float& a) {
-    const float pm = mb == nullptr ? 1.f : mi * mb[j];
+    const float pm = mask_diag && j == i ? 0.f : mb == nullptr ? 1.f : mi * mb[j];
     s = 0.f;
     if (learned) {
       const float d2 = gii + db[j] - 2.f * row[j];  // exactly 0 when i == j
@@ -738,8 +752,9 @@ graph_blend_long_kernel(float* __restrict__ graph, const float* __restrict__ dia
 
 // Tile (rows i0.., columns col0..) of G_b @ h_b, K over V in 32-deep
 // chunks (each chunk's 32 products summed apart, then added into the
-// total), then BN (running stats), LeakyReLU(0.1) and the convex residual.
+// total), then BN (running stats), LeakyReLU(0.1) and the residual.
 // Thread (tx, ty) owns rows ty + 16 i and columns tx + 16 c.
+template <bool ADDITIVE>
 __global__ void __launch_bounds__(kThreads)
 graph_apply_long_kernel(const float* __restrict__ graph, const float* __restrict__ h,
                         const float* __restrict__ f, const float* __restrict__ scale,
@@ -804,7 +819,10 @@ graph_apply_long_kernel(const float* __restrict__ graph, const float* __restrict
       const size_t at = ((size_t)b * V + r) * C + col;
       float y = (tot[i][c] - sub) * mul + add;
       y = y >= 0.f ? y : 0.1f * y;
-      out[at] = (1.f - gamma) * f[at] + gamma * y;
+      if constexpr (ADDITIVE)
+        out[at] = f[at] + gamma * y;
+      else
+        out[at] = (1.f - gamma) * f[at] + gamma * y;
     }
   }
 }
@@ -848,8 +866,8 @@ bool tensor_map(CUtensorMap* map, const float* base, cuuint32_t rank, const cuui
 template <int R>
 int launch(const float* f, const float* adj, const float* mask, const float* wt,
            const float* scale, const float* bias, const float* mean, const float* var,
-           float gamma, int mode, float* scratch, float* out, int B, int V, int C,
-           cudaStream_t stream) {
+           float gamma, bool additive, int mode, int mask_diag, float* scratch, float* out,
+           int B, int V, int C, cudaStream_t stream) {
   constexpr int VP = 16 * R;
   const int slices = gram_slices(C);
   float* partial = scratch;                            // (B, slices, VP, VP)
@@ -863,7 +881,7 @@ int launch(const float* f, const float* adj, const float* mask, const float* wt,
   }
 
   graph_blend_kernel<R><<<dim3(B, (V + kThreads / 32 - 1) / (kThreads / 32)), kThreads, 0,
-                           stream>>>(partial, slices, adj, mask, graph, V, mode);
+                           stream>>>(partial, slices, adj, mask, graph, V, mode, mask_diag);
   err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
 
@@ -875,12 +893,13 @@ int launch(const float* f, const float* adj, const float* mask, const float* wt,
   const cuuint32_t wt_box[2] = {KC, BN};
   if (!tensor_map(&f_map, f, 3, f_dims, f_box) || !tensor_map(&wt_map, wt, 2, wt_dims, wt_box))
     return (int)cudaErrorInvalidValue;
-  err = cudaFuncSetAttribute(graph_propagate_kernel<VP, false>,
-                             cudaFuncAttributeMaxDynamicSharedMemorySize, (int)L::BYTES);
+  const auto kernel =
+      additive ? graph_propagate_kernel<VP, false, true> : graph_propagate_kernel<VP, false, false>;
+  err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)L::BYTES);
   if (err != cudaSuccess) return (int)err;
   const dim3 grid(C / BN, (B + L::CLIPS - 1) / L::CLIPS);
-  graph_propagate_kernel<VP, false><<<grid, kThreads, L::BYTES, stream>>>(
-      f_map, wt_map, f, graph, scale, bias, mean, var, gamma, out, B, V, C);
+  kernel<<<grid, kThreads, L::BYTES, stream>>>(f_map, wt_map, f, graph, scale, bias, mean, var,
+                                               gamma, out, B, V, C);
   return (int)cudaGetLastError();
 }
 
@@ -888,8 +907,8 @@ int launch(const float* f, const float* adj, const float* mask, const float* wt,
 // (B, V, V), then the Gram's diagonal (B, V).
 int launch_long(const float* f, const float* adj, const float* mask, const float* wt,
                 const float* scale, const float* bias, const float* mean, const float* var,
-                float gamma, int mode, float* scratch, float* out, int B, int V, int C,
-                cudaStream_t stream) {
+                float gamma, bool additive, int mode, int mask_diag, float* scratch,
+                float* out, int B, int V, int C, cudaStream_t stream) {
   const size_t rows = (size_t)B * V;
   float* h = scratch;
   float* graph = h + rows * C;
@@ -903,7 +922,8 @@ int launch_long(const float* f, const float* adj, const float* mask, const float
     if (err != cudaSuccess) return (int)err;
   }
 
-  graph_blend_long_kernel<<<dim3(V, B), kThreads, 0, stream>>>(graph, diag, adj, mask, V, mode);
+  graph_blend_long_kernel<<<dim3(V, B), kThreads, 0, stream>>>(graph, diag, adj, mask, V, mode,
+                                                                mask_diag);
   err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
 
@@ -916,17 +936,18 @@ int launch_long(const float* f, const float* adj, const float* mask, const float
   const cuuint32_t wt_box[2] = {KC, BN};
   if (!tensor_map(&f_map, f, 3, f_dims, f_box) || !tensor_map(&wt_map, wt, 2, wt_dims, wt_box))
     return (int)cudaErrorInvalidValue;
-  err = cudaFuncSetAttribute(graph_propagate_kernel<BM, true>,
+  err = cudaFuncSetAttribute(graph_propagate_kernel<BM, true, false>,
                              cudaFuncAttributeMaxDynamicSharedMemorySize, (int)L::BYTES);
   if (err != cudaSuccess) return (int)err;
-  graph_propagate_kernel<BM, true><<<dim3(C / BN, (unsigned)((rows + BM - 1) / BM)), kThreads,
-                                      L::BYTES, stream>>>(
+  graph_propagate_kernel<BM, true, false><<<dim3(C / BN, (unsigned)((rows + BM - 1) / BM)),
+                                             kThreads, L::BYTES, stream>>>(
       f_map, wt_map, f, nullptr, scale, bias, mean, var, gamma, h, 1, (int)rows, C);
   err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
 
-  graph_apply_long_kernel<<<dim3(C / AT, (V + AT - 1) / AT, B), kThreads, 0, stream>>>(
-      graph, h, f, scale, bias, mean, var, gamma, out, V, C);
+  const auto apply = additive ? graph_apply_long_kernel<true> : graph_apply_long_kernel<false>;
+  apply<<<dim3(C / AT, (V + AT - 1) / AT, B), kThreads, 0, stream>>>(graph, h, f, scale, bias,
+                                                                     mean, var, gamma, out, V, C);
   return (int)cudaGetLastError();
 }
 
@@ -947,26 +968,31 @@ long long graph_conv_scratch_floats(int B, int V, int C) {
 
 // f, out (B, V, C); adj (B, V, V); mask (B, V) of 0/1 or null; wt (C, C) =
 // W^T (a torch Linear weight); scale/bias/mean/var (C,); mode 0 both, 1
-// pose, 2 learned; scratch of graph_conv_scratch_floats(B, V, C).
+// pose, 2 learned; mask_diag 1 drops each vertex's own entry from G (ganet);
+// additive 1 gives out = f + gamma y, 0 the convex (1 - gamma) f + gamma y;
+// scratch of graph_conv_scratch_floats(B, V, C).
 // All fp32, contiguous, on the current device; f and wt 16-byte aligned.
 // Any V >= 1; B and B * V / 128 within a grid dimension (65535). Returns 0
 // or the cudaError_t of the first failing call.
 int graph_conv_forward(const float* f, const float* adj, const float* mask, const float* wt,
                        const float* scale, const float* bias, const float* mean,
-                       const float* var, float gamma, int mode, float* scratch, float* out,
+                       const float* var, float gamma, int mode, int mask_diag, int additive,
+                       float* scratch, float* out,
                        int B, int V, int C, void* stream) {
   if (B <= 0 || B > 65535 || V <= 0 || C <= 0 || C % BN != 0 || mode < 0 || mode > 2 ||
       ((long long)B * V + BM - 1) / BM > 65535)
     return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const bool add = additive != 0;
+  const int md = mask_diag ? 1 : 0;
   if (V <= 64)
-    return launch<4>(f, adj, mask, wt, scale, bias, mean, var, gamma, mode, scratch, out, B, V,
-                     C, s);
+    return launch<4>(f, adj, mask, wt, scale, bias, mean, var, gamma, add, mode, md, scratch, out,
+                     B, V, C, s);
   if (V <= 128)
-    return launch<8>(f, adj, mask, wt, scale, bias, mean, var, gamma, mode, scratch, out, B, V,
-                     C, s);
-  return launch_long(f, adj, mask, wt, scale, bias, mean, var, gamma, mode, scratch, out, B, V,
-                     C, s);
+    return launch<8>(f, adj, mask, wt, scale, bias, mean, var, gamma, add, mode, md, scratch, out,
+                     B, V, C, s);
+  return launch_long(f, adj, mask, wt, scale, bias, mean, var, gamma, add, mode, md, scratch, out,
+                     B, V, C, s);
 }
 
 const char* graph_conv_error_string(int code) {

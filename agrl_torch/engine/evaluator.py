@@ -11,7 +11,9 @@ test(), train_vidreid_xent_htri.py:450-546). Extraction by test_sample:
   * `all`: each tracklet pads to the next `_bucket_len` frame count with
     a frame mask the model honours exactly, and same-bucket tracklets
     batch together under a frame budget of clip_batch * 8.
-Features end on the Evaluator's device as (N, 4096) float32 in every case.
+Features end on the Evaluator's device as (N, D) float32, D the model's
+eval width: 4096 (vmgn), 6144 (ganet), 2048 (gsta, res50tp, resnet50_s1)
+or 1024 (sta, simple_sta).
 With `bf16=True` (`--bf16-eval`) every forward is agrl_tpu's bf16 eval
 (`eval_program`: weights, pixels and adjacency rounded to bf16, the model
 at its own dtype).
@@ -31,7 +33,7 @@ The ranking stage takes agrl_tpu's branches and console lines:
     and re-ranked on the host by the host algorithm, as in agrl_tpu.
 
 Not ported yet: the mesh Evaluator (ROADMAP A8) and the
-`pad_eval_adjacency` hook of msppn/msppgn (A7).
+`pad_eval_adjacency` hook of msppn/msppgn (A7c).
 """
 
 from __future__ import annotations

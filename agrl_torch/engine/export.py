@@ -30,7 +30,11 @@ bf16 rounding, the model at its own dtype), is served two ways:
     from agrl_torch.core.checkpoint import load_variables
     fx = FeatureExtractor.from_exported(
         "vmgn_eval.pt2", load_variables("best_model.pth.tar"))
-    feats = fx(clips_uint8)  # (N, 4096) float32, any N
+    feats = fx(clips_uint8)  # (N, D) float32, any N (D = 4096 for vmgn)
+
+Archs that read no adjacency (res50tp, resnet50_s1, sta, simple_sta) are
+served the same way: `fx(imgs)` with adjs=None passes an all-ones one,
+which they ignore.
 
 `bf16=True` is the default of both, as in agrl_tpu (export.py:57, :132).
 The program an artifact holds runs on the device it was exported on.

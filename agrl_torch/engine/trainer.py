@@ -5,7 +5,10 @@ Behavioral parity with the reference train() iteration
   loss = lambda_xent * DeepSupervision(xent, outputs, pids)
        + lambda_htri * DeepSupervision(htri, features, pids)
   backward + optimizer step; top-1 precision over all heads is averaged
-  for the meter (train_vidreid_xent_htri.py:419).
+  for the meter (train_vidreid_xent_htri.py:419). Single-head archs
+  (res50tp, resnet50_s1, sta, simple_sta, gsta/ganet without the
+  consistent loss) return bare tensors, taken as one head, as agrl_tpu's
+  trainer takes them (agrl_tpu/engine/trainer.py:90-91).
 
 Everything runs on the model's device. Parameters, Adam's state and the
 losses are fp32; a model built with dtype=torch.bfloat16 (`--bf16-train`,
@@ -14,7 +17,7 @@ those fp32 parameters and hands fp32 features to the heads, so no loss
 scaling is needed (bf16 keeps fp32's exponent range). The batch-hard
 triplet term goes through losses.batch_hard_triplet_heads: on the card,
 one forward and one backward launch of the mining kernels per step for
-all heads (the consistent loss's 5).
+all heads (VMGN's consistent loss's 5, gsta's and ganet's 2, or one).
 
 `remat` is agrl_tpu's gradient rematerialization
 (agrl_tpu/engine/trainer.py:72-82): one checkpoint around the model
@@ -24,8 +27,9 @@ each way). `full` saves nothing (torch.utils.checkpoint, non-reentrant);
 (`aten.mm`/`aten.addmm`, as jax's dots_with_no_batch_dims_saveable) and
 recomputes the rest, convolutions and batched products included. The
 recompute leaves the BN running statistics alone (they are updated once,
-by the first forward) and takes the consistent-loss subclips drawn
-before the forward, so it computes the first forward's values.
+by the first forward) and takes the consistent-loss draw made before the
+forward (the model's `draw_subclips`: VMGN's subclips, gsta's and
+ganet's dropped frames), so it computes the first forward's values.
 """
 
 from __future__ import annotations
@@ -98,8 +102,11 @@ def make_train_step(
     of preprocess_clips), `imgs` is the raw uint8 (B, S, H, W, 3) batch
     and is preprocessed on the device; without it, `imgs` is already the
     normalized float batch. `generator` (a CPU torch.Generator) draws the
-    augmentations and then the consistent-loss subclips; `flip` and
-    `subclip_indices` inject the flips and the subclips instead. `remat` is
+    augmentations and then the consistent-loss draw; `flip` and
+    `subclip_indices` inject the flips and that draw instead (VMGN: the
+    three sorted subclips; gsta, ganet: each clip's dropped frame). The
+    adjacency goes to every arch, as agrl_tpu passes it; res50tp,
+    resnet50_s1, sta and simple_sta do not read it. `remat` is
     none, dots or full (module docstring). Each call sets every
     param group's lr to `lr_fn(step)` (step = updates taken so far)
     before the optimizer step, as optax reads lr(count) before counting.
@@ -127,6 +134,8 @@ def make_train_step(
     step = start_step
 
     def forward(x, adj, subclips):
+        if subclips is None:
+            return model(x, adj)
         return model(x, adj, subclip_indices=subclips)
 
     def train_step(imgs, pids, adj, *, generator=None, flip=None, subclip_indices=None):
@@ -138,7 +147,7 @@ def make_train_step(
             imgs, train=True, generator=generator, flip=flip, **aug
         )
         # drawn before the forward, so a recompute takes the same frames
-        subclips = (model.subclip_indices(x.shape[1], generator, subclip_indices)
+        subclips = (model.draw_subclips(x.shape[0], x.shape[1], generator, subclip_indices)
                     if getattr(model, "consistent_loss", False) else None)
 
         model.train()
@@ -147,6 +156,8 @@ def make_train_step(
         else:
             outputs, features = checkpoint(forward, x, adj, subclips, use_reentrant=False,
                                            context_fn=_remat_contexts(remat))
+        if not isinstance(outputs, (list, tuple)):  # a single-head arch
+            outputs, features = [outputs], [features]
         xent = deep_supervision(xent_fn, outputs, pids)
         htri = batch_hard_triplet_heads(features, pids, margin=margin, soft=soft_margin)
         loss = lambda_xent * xent + lambda_htri * htri

@@ -3,8 +3,11 @@
 `init_model(name, num_classes, device=..., seed=...)` returns a model with
 random weights drawn from a seeded torch.Generator, on the device (CUDA
 unless the caller passes device="cpu"), in eval mode; a trainer calls
-`.train()`. `loss` and `consistent_loss` shape the train forward. Only the VMGN
-family is ported; the other archs of agrl_tpu's registry follow later.
+`.train()`. `loss` and `consistent_loss` shape the train forward. Ported:
+the VMGN family and the single-scale archs of the reference's factory
+(gsta, ganet, sta, simple_sta, res50tp, resnet50_s1), each factory taking
+and dropping keywords as agrl_tpu's does. Not yet: msppn/msppgn (ROADMAP
+A7c), the legacy video families and the image registry (A7e).
 """
 
 from __future__ import annotations
@@ -12,6 +15,10 @@ from __future__ import annotations
 import torch
 
 from agrl_torch import resolve_device
+from agrl_torch.models.ganet import ganet
+from agrl_torch.models.gsta import gsta
+from agrl_torch.models.res50tp import res50tp, resnet50_s1
+from agrl_torch.models.sta import simple_sta, sta
 from agrl_torch.models.vmgn import VMGN, check_factory_kwargs, vmgn
 
 
@@ -38,6 +45,12 @@ def vmgn_tiny(num_classes, loss=frozenset({"xent", "htri"}), last_stride=1, num_
 
 __model_factory = {
     "vmgn": vmgn,  # reference models/vmgn.py:373 (the paper model)
+    "gsta": gsta,  # models/gsta.py:340
+    "ganet": ganet,  # models/ganet.py:458
+    "sta": sta,  # models/sta.py:268
+    "simple_sta": simple_sta,  # models/simple_sta.py:243
+    "res50tp": res50tp,  # models/res50tp.py:224
+    "resnet50_s1": resnet50_s1,  # models/resnet50_s1.py:217
     "vmgn_tiny": vmgn_tiny,  # debug/smoke-test arch (not in the reference)
 }
 

@@ -118,7 +118,19 @@ class Conv2d(nn.Conv2d):
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         dt = self.compute_dtype or torch.promote_types(x.dtype, self.weight.dtype)
-        return self._conv_forward(x.to(dt), self.weight.to(dt), None)
+        bias = None if self.bias is None else self.bias.to(dt)
+        return self._conv_forward(x.to(dt), self.weight.to(dt), bias)
+
+
+class Linear(nn.Linear):
+    """nn.Linear computing at the promotion of its input's and weight's
+    dtypes, as flax's Dense with dtype None: the bf16 eval's rounded
+    weights on float32 features compute in float32."""
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        dt = torch.promote_types(x.dtype, self.weight.dtype)
+        bias = None if self.bias is None else self.bias.to(dt)
+        return F.linear(x.to(dt), self.weight.to(dt), bias)
 
 
 def set_compute_dtype(module: nn.Module, dtype) -> None:
@@ -185,11 +197,12 @@ class ResLayer(nn.Sequential):
 
 class ResNetTrunk(nn.Module):
     """Stem (conv7x7/2 + BN + relu + maxpool3x3/2) + layer1..layer3 — the
-    trunk shared by two-branch models. Subclasses keep these names at
-    their top level, as the reference's GSTA does."""
+    trunk every video arch shares; each adds its own layer4. Subclasses
+    keep these names at their top level, as the reference's models do."""
 
     def __init__(self, layers=(3, 4, 6, 3)):
         super().__init__()
+        self._pool_cache: dict = {}
         self.conv1 = Conv2d(3, 64, 7, stride=2, padding=3, bias=False)
         self.bn1 = batch_norm2d(64)
         self.relu = nn.ReLU(inplace=True)
@@ -202,6 +215,46 @@ class ResNetTrunk(nn.Module):
         """(N, 3, H, W) -> layer3 activation (N, 1024, H/16, W/16)."""
         x = self.maxpool(self.relu(self.bn1(self.conv1(x))))
         return self.layer3(self.layer2(self.layer1(x)))
+
+    def init_backbone(self, generator: torch.Generator) -> None:
+        """Reference _init_params for convolutions and BatchNorms: every
+        conv kaiming (fan_out) with a zero bias, every BN scale 1 / shift 0."""
+        for m in self.modules():
+            if isinstance(m, nn.Conv2d):
+                init_conv_(m, generator)
+                if m.bias is not None:
+                    nn.init.zeros_(m.bias)
+            elif isinstance(m, nn.modules.batchnorm._BatchNorm):
+                nn.init.ones_(m.weight)
+                nn.init.zeros_(m.bias)
+
+    def part_pool(self, fmap: torch.Tensor, splits) -> torch.Tensor:
+        """(N, c, h, w) -> (N, sum(splits), c): the width mean, then each
+        split's adaptive average over the rows, as one product with
+        agrl_tpu's float32 pooling matrix, which promotes a bf16 fmap
+        (agrl_tpu's einsum with a numpy constant)."""
+        fw = fmap.mean(dim=3)
+        fw = fw.to(torch.promote_types(fw.dtype, torch.float32))
+        return torch.matmul(self._pool_matrix(fw.shape[2], fw, tuple(splits)), fw.transpose(1, 2))
+
+    def _pool_matrix(self, h: int, ref: torch.Tensor, splits: tuple) -> torch.Tensor:
+        """(sum(splits), h) pooling matrix on ref's device and in its dtype,
+        cached per height, splits, device and dtype, and made outside
+        inference mode (a model served first and trained after takes it in
+        autograd). While torch.export traces, it is made anew (a constant of
+        the program): the cache must not keep a tensor of the trace."""
+        key = (h, splits, ref.device, ref.dtype)
+        tracing = torch.compiler.is_compiling()
+        if key in self._pool_cache and not tracing:
+            return self._pool_cache[key]
+        rows = [adaptive_avg_pool_matrix(h, n) for n in splits]
+        # a normal tensor even under inference_mode: a later train forward
+        # reuses it in autograd
+        with torch.inference_mode(False):
+            m = torch.cat([torch.from_numpy(r) for r in rows]).to(ref.device, ref.dtype)
+        if not tracing:
+            self._pool_cache[key] = m
+        return m
 
 
 def adaptive_avg_pool_matrix(in_size: int, out_size: int) -> np.ndarray:

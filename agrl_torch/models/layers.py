@@ -2,10 +2,12 @@
 attention fusion. Counterpart of agrl_tpu/models/layers.py.
 
 Parity targets in the reference:
-  * GraphLayer         — torchreid/models/vmgn.py:68-172: pose adjacency
-    row-L1-normalized, averaged with the row-L1-normalized l2 affinity;
-    h' = graph @ (W x); BatchNorm over all (batch x vertex) rows;
-    LeakyReLU(0.1); convex residual (1 - gamma) x + gamma h'.
+  * GraphLayer         — torchreid/models/vmgn.py:68-172 (gsta.py:66-170):
+    pose adjacency row-L1-normalized, averaged with the row-L1-normalized
+    l2 affinity; h' = graph @ (W x); BatchNorm over all (batch x vertex)
+    rows; LeakyReLU(0.1); convex residual (1 - gamma) x + gamma h'.
+    ganet.py:170-274's variant zeroes both graphs' diagonals before the
+    normalization and adds x + gamma h'.
   * BNNeck             — vmgn.py:238-239: BatchNorm1d with the bias frozen
     at zero.
   * temporal attention — vmgn.py:270-278: per-vertex L2 feature norms,
@@ -42,9 +44,11 @@ __all__ = [
 
 
 class GraphConvLayer(nn.Module):
-    """Adaptive graph convolution with residual learning — the vmgn/gsta
-    variant (vmgn.py:68-172): no diagonal mask, gamma 0.1, convex
-    residual, and the graph of agrl_tpu/models/layers.py:219-238 by flags:
+    """Adaptive graph convolution with residual learning, agrl_tpu's two
+    reference variants by flags: vmgn/gsta (vmgn.py:68-172; no diagonal
+    mask, gamma 0.1, convex residual) and ganet (ganet.py:170-274;
+    `mask_diag=True`, `residual="additive"`, gamma 0.0, a plain float);
+    and the graph of agrl_tpu/models/layers.py:219-238 by flags:
     pose and l2 learned graphs averaged (both, the paper's), the
     row-normalized pose graph alone (`use_pose`) or the row-normalized l2
     affinity alone (`learn_graph`); the fused op's `mode` ("both", "pose",
@@ -60,8 +64,8 @@ class GraphConvLayer(nn.Module):
     output is float32 either way. The train forward is the plain composition
     of agrl_tpu/models/layers.py:219-251 under autograd (BN on batch
     statistics, which the eval kernel's fusion cannot take). Variants no
-    VMGN flag reaches raise NotImplementedError (ROADMAP A7): `dot`
-    affinity, `mask_diag`, the `additive` residual.
+    ported arch reaches raise NotImplementedError: `dot` affinity and
+    in_features != out_features.
     """
 
     def __init__(
@@ -79,15 +83,17 @@ class GraphConvLayer(nn.Module):
         unsupported = [
             msg for bad, msg in (
                 (dist_method != "l2", f"dist_method={dist_method!r}"),
-                (mask_diag, "mask_diag"),
-                (residual != "convex", f"residual={residual!r}"),
                 (in_features != out_features, "in_features != out_features"),
             ) if bad
         ]
         if unsupported:
             raise NotImplementedError(f"GraphConvLayer: {', '.join(unsupported)} not ported yet")
+        if residual not in ("convex", "additive"):
+            raise ValueError(f"residual must be convex or additive, got {residual!r}")
         self.mode = graph_mode(use_pose, learn_graph)
         self.gamma = gamma
+        self.mask_diag = mask_diag
+        self.additive = residual == "additive"
         self.linear = nn.Linear(in_features, out_features, bias=False)
         self.bn = BatchNorm1d(out_features, eps=BN_EPS)
 
@@ -117,11 +123,15 @@ class GraphConvLayer(nn.Module):
             return propagate(
                 x, adj, self.linear.weight.t(), bn.weight, bn.bias,
                 bn.running_mean, var, self.gamma, vertex_mask=vertex_mask, mode=self.mode,
+                mask_diag=self.mask_diag, additive=self.additive,
             )
         B, V, C = x.shape
-        h_prime = torch.matmul(blended_graph(x, adj, vertex_mask, self.mode), self.linear(x))
+        graph = blended_graph(x, adj, vertex_mask, self.mode, self.mask_diag)
+        h_prime = torch.matmul(graph, self.linear(x))
         # BatchNorm over all (B * V) vertex rows, as BN1d(view(N * V, C))
         h_prime = F.leaky_relu(bn(h_prime.reshape(B * V, C)).reshape(B, V, C), 0.1)
+        if self.additive:
+            return x + self.gamma * h_prime
         return (1.0 - self.gamma) * x + self.gamma * h_prime
 
 

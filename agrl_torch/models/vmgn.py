@@ -53,8 +53,6 @@ from agrl_torch.models.backbone import (
     Bottleneck,
     ResLayer,
     ResNetTrunk,
-    adaptive_avg_pool_matrix,
-    init_conv_,
     set_compute_dtype,
 )
 from agrl_torch.models.layers import BNNeck, GraphConvLayer, temporal_attention
@@ -102,38 +100,17 @@ class VMGN(ResNetTrunk):
         for stage in (self.conv1, self.bn1, self.layer1, self.layer2, self.layer3,
                       self.layer4_1, self.layer4_2):
             set_compute_dtype(stage, dtype)
-        self._pool_cache: dict = {}
 
     def init_weights(self, generator: torch.Generator) -> None:
         """Random init from one generator: convs kaiming (fan_out), BN
         scale 1 / shift 0, graph Linear N(0, 0.01), classifiers
         N(0, 0.001) (reference _init_params / weights_init_classifier)."""
-        for m in self.modules():
-            if isinstance(m, nn.Conv2d):
-                init_conv_(m, generator)
-            elif isinstance(m, nn.modules.batchnorm._BatchNorm):
-                nn.init.ones_(m.weight)
-                nn.init.zeros_(m.bias)
+        self.init_backbone(generator)
         for layer in self.graph_layers:
             layer.init_weights(generator)
         with torch.no_grad():
             for head in (self.global_classifier, self.att_classifier):
                 head.weight.normal_(0.0, 0.001, generator=generator)
-
-    def _pool_matrix(self, h: int, ref: torch.Tensor) -> torch.Tensor:
-        """(total_split, h) pyramid pooling matrix on ref's device and in its
-        dtype, cached per height, device and dtype. While torch.export
-        traces, it is made anew (a constant of the program): the cache must
-        not keep a tensor of the trace."""
-        key = (h, ref.device, ref.dtype)
-        tracing = torch.compiler.is_compiling()
-        if key in self._pool_cache and not tracing:
-            return self._pool_cache[key]
-        rows = [adaptive_avg_pool_matrix(h, n) for n in self.total_split_list]
-        m = torch.cat([torch.from_numpy(r) for r in rows]).to(ref.device, ref.dtype)
-        if not tracing:
-            self._pool_cache[key] = m
-        return m
 
     def forward(
         self, x: torch.Tensor, adj: torch.Tensor, frame_mask=None, *,
@@ -171,13 +148,8 @@ class VMGN(ResNetTrunk):
             g_f = g_sum / (fm.sum(dim=1)[:, None] * (h * w))
         g_bn = self.global_bottleneck(g_f)
 
-        # attention branch: pyramid part pooling against an (at least) float32
-        # matrix, which promotes a bf16 fmap (agrl_tpu's einsum with a numpy
-        # constant)
-        fmap = x4_2.mean(dim=3)  # pool width -> (B*S, c, h)
-        fmap = fmap.to(torch.promote_types(fmap.dtype, torch.float32))
-        v_f = torch.matmul(self._pool_matrix(h, fmap), fmap.transpose(1, 2))  # (B*S, P, c)
-        f = v_f.reshape(B, S * self.total_split, c)
+        # attention branch: pyramid part pooling, (B*S, P, c), at least float32
+        f = self.part_pool(x4_2, self.total_split_list).reshape(B, S * self.total_split, c)
         for layer in self.graph_layers:
             f = layer(f, adj, vertex_mask=vmask)
         f = f.reshape(B, S, self.total_split, c)
@@ -190,7 +162,7 @@ class VMGN(ResNetTrunk):
         out_list = [self.global_classifier(g_bn), self.att_classifier(att_bn)]
         f_list = [g_f, att_f]
         if self.consistent_loss:
-            for index in self.subclip_indices(S, generator, subclip_indices):
+            for index in self.draw_subclips(B, S, generator, subclip_indices):
                 sf = f.index_select(1, torch.as_tensor(index, dtype=torch.long).to(f.device))
                 satt_f = temporal_attention(sf).mean(dim=1)
                 out_list.append(self.att_classifier(self.att_bottleneck(satt_f)))
@@ -199,10 +171,11 @@ class VMGN(ResNetTrunk):
             return out_list
         return out_list, f_list
 
-    @staticmethod
-    def subclip_indices(S: int, generator, given=None) -> list:
-        """Sorted random subsets of S-3, S-2, S-1 of the S frames: `given`
-        checked, else drawn from `generator`."""
+    def draw_subclips(self, batch: int, S: int, generator, given=None) -> list:
+        """The consistent loss's draw (the trainer asks for it before the
+        forward, so a `--remat` recompute sees the same frames): sorted
+        random subsets of S-3, S-2, S-1 of the S frames, shared by the
+        batch's clips; `given` checked, else drawn from `generator`."""
         if S < 5:
             raise ValueError(f"the consistent loss needs seq_len >= 5, got {S}")
         sizes = (S - 3, S - 2, S - 1)
@@ -223,8 +196,8 @@ class VMGN(ResNetTrunk):
 
 def check_dtype(dtype) -> None:
     if dtype not in (None, torch.float32, torch.bfloat16):
-        raise ValueError(f"VMGN computes in float32 or bfloat16 (or follows its input: None), "
-                         f"got dtype={dtype}")
+        raise ValueError(f"the model computes in float32 or bfloat16 (or follows its input: "
+                         f"None), got dtype={dtype}")
 
 
 def check_factory_kwargs(num_scale=1, dtype=None, num_parts=None, bnneck=False, **unknown):

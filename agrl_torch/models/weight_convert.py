@@ -10,11 +10,14 @@ whose submodules carry the reference GSTA names:
   * BatchNorm: scale/bias (params) -> weight/bias, mean/var
     (batch_stats) -> running_mean/running_var.
 
-The name map is a copy of the VMGN-family part of
-agrl_tpu/models/weight_convert.py:_split_torch_name. Every state-dict
-entry must find its leaf and every leaf must be used, except the
-entries with no flax counterpart: `num_batches_tracked` and the BNNeck
-biases, which are frozen at zero. `partial=True` gives `--load-weights`
+The name map is a copy of the part of
+agrl_tpu/models/weight_convert.py:_split_torch_name the ported archs use
+(vmgn, gsta, ganet, sta, simple_sta, res50tp, resnet50_s1): the trunk,
+`layer4` or `layer4_1`/`layer4_2`, the BNNecks, the classifiers (sta's
+with a bias), the graph layers, ganet's `pam_layer` and sta's `fc1`.
+Every state-dict entry must find its leaf and every leaf must be used,
+except the entries with no flax counterpart: `num_batches_tracked` and
+the BNNeck biases, which are frozen at zero. `partial=True` gives `--load-weights`
 semantics instead (agrl_tpu core/checkpoint.py:shape_filtered_merge).
 
 `init_pretrained_weights` loads a torchvision-style ImageNet ResNet
@@ -69,15 +72,33 @@ def torch_name_map(name: str):
                 return _bn(prefix + ("downsample_bn",), rest[2])
         return None
 
-    if parts[0] in ("global_bottleneck", "att_bottleneck"):
+    if parts[0] in ("global_bottleneck", "att_bottleneck", "bottleneck"):
         if parts[1] == "bias":
             return None  # frozen at zero; flax BNNeck has no bias
         return _bn((parts[0], "bn"), parts[1])
 
-    if parts[0] in ("global_classifier", "att_classifier"):
+    if parts[0] in ("global_classifier", "att_classifier", "classifier"):
         if parts[1] == "weight":
             return (parts[0], "kernel"), "params", "linear"
+        if parts[1] == "bias":
+            return (parts[0], "bias"), "params", None
         return None
+
+    # ganet's PAM: 1x1 convs with bias and the gamma scalar
+    if parts[0] == "pam_layer":
+        if parts[1] == "gamma":
+            return ("pam_layer", "gamma"), "params", None
+        if parts[1] in ("query_conv", "key_conv", "value_conv"):
+            if parts[2] == "weight":
+                return ("pam_layer", parts[1], "kernel"), "params", "conv"
+            return ("pam_layer", parts[1], "bias"), "params", None
+
+    # sta's fc1 = Sequential(Linear(bias=False), BatchNorm1d, ReLU) -> fc1 + fc1_bn
+    if parts[0] == "fc1":
+        if parts[1] == "0" and parts[2] == "weight":
+            return ("fc1", "kernel"), "params", "linear"
+        if parts[1] == "1":
+            return _bn(("fc1_bn",), parts[2])
 
     if parts[0] == "graph_layers":
         prefix = (f"graph_layer_{parts[1]}",)
@@ -160,7 +181,8 @@ def init_pretrained_weights(model: torch.nn.Module, source):
     (.pth/.pth.tar through torch, .npz/.npy through numpy). The `fc.*`
     head is dropped; the reference loads the backbone before it deep-copies
     layer4 (vmgn.py:224-234), so each `layer4.*` entry goes to every
-    `layer4*` branch of the model (VMGN: layer4_1 and layer4_2). Then a
+    `layer4*` branch of the model (VMGN: layer4_1 and layer4_2; the
+    single-branch archs: layer4). Then a
     shape-filtered partial load: returns (matched, skipped) names; what is
     not matched keeps its initialization."""
     from agrl_torch.core.checkpoint import load_weights_partial, read_state_dict

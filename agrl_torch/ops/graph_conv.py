@@ -12,11 +12,15 @@ all ones without it):
     G   = (A + S) / 2     mode "both" (--use-pose --learn-graph)
           A               mode "pose" (--use-pose alone)
           S               mode "learned" (--learn-graph alone)
-    out = (1 - gamma) * f + gamma * lrelu_0.1(bn_eval(G @ h))
+    out = (1 - gamma) * f + gamma * lrelu_0.1(bn_eval(G @ h))   (convex)
+          f + gamma * lrelu_0.1(bn_eval(G @ h))                 (additive)
 
 The modes are agrl_tpu's GraphConvLayer graphs
 (agrl_tpu/models/layers.py:219-238); its Pallas kernel builds "both"
-only. "pose" needs no Gram, and the kernel skips it.
+only. "pose" needs no Gram, and the kernel skips it. Two flags give
+ganet's layer (agrl_tpu/models/layers.py:186-187, 252): `mask_diag`
+multiplies P by (1 - I) before both row normalizations, and `additive`
+takes the residual x + gamma * h'.
 
 On the card this op IS the hand-written kernel (csrc/graph_conv.cu: f @ W
 on the tensor cores in 3xTF32, each K chunk promoted into fp32 registers,
@@ -101,11 +105,15 @@ def _check_mode(mode: str) -> int:
 
 
 def blended_graph(f: torch.Tensor, adj: torch.Tensor, vertex_mask=None,
-                  mode: str = "both") -> torch.Tensor:
+                  mode: str = "both", mask_diag: bool = False) -> torch.Tensor:
     """The layer's graph G (B, V, V) in `mode` (module docstring),
-    P = pair_mask(vertex_mask) (no mask: P = 1)."""
+    P = pair_mask(vertex_mask) (no mask: P = 1), times (1 - I) under
+    `mask_diag`."""
     _check_mode(mode)
     pair = None if vertex_mask is None else pair_mask(vertex_mask)
+    if mask_diag:
+        off = 1.0 - torch.eye(f.shape[1], dtype=adj.dtype, device=adj.device)
+        pair = off if pair is None else off * pair
     if mode != "pose":
         sim = l2_affinity(f)
         sim = l1_normalize(sim if pair is None else sim * pair, dim=2)
@@ -121,18 +129,18 @@ def _widen(t):
 
 
 def graph_propagate_reference(f, adj, W, scale, bias, mean, var, gamma=0.1, vertex_mask=None,
-                              mode="both"):
+                              mode="both", mask_diag=False, additive=False):
     """Plain PyTorch version: (B, V, C) -> (B, V, C), eval-mode BN;
-    `vertex_mask` (B, V) of 0/1 or None; `mode` one of GRAPH_MODES. bf16
-    inputs are widened to float32 first, as the kernel's wrapper widens
-    them."""
+    `vertex_mask` (B, V) of 0/1 or None; `mode` one of GRAPH_MODES;
+    `mask_diag` and `additive` as the module docstring says. bf16 inputs
+    are widened to float32 first, as the kernel's wrapper widens them."""
     f, adj, W, scale, bias, mean, var, vertex_mask = map(
         _widen, (f, adj, W, scale, bias, mean, var, vertex_mask))
     h = torch.matmul(f, W)
-    hp = torch.matmul(blended_graph(f, adj, vertex_mask, mode), h)
+    hp = torch.matmul(blended_graph(f, adj, vertex_mask, mode, mask_diag), h)
     hp = (hp - mean) / torch.sqrt(var + BN_EPS) * scale + bias
     hp = torch.where(hp >= 0, hp, 0.1 * hp)
-    return (1.0 - gamma) * f + gamma * hp
+    return (f if additive else (1.0 - gamma) * f) + gamma * hp
 
 
 @functools.lru_cache(maxsize=None)
@@ -142,8 +150,8 @@ def _lib() -> ctypes.CDLL:
 
     lib = load_library("graph_conv")
     p, i = ctypes.c_void_p, ctypes.c_int
-    lib.graph_conv_forward.argtypes = [p, p, p, p, p, p, p, p, ctypes.c_float, i, p, p, i, i,
-                                       i, p]
+    lib.graph_conv_forward.argtypes = [p, p, p, p, p, p, p, p, ctypes.c_float, i, i, i, p, p,
+                                       i, i, i, p]
     lib.graph_conv_forward.restype = i
     lib.graph_conv_scratch_floats.argtypes = [i, i, i]
     lib.graph_conv_scratch_floats.restype = ctypes.c_longlong
@@ -163,7 +171,7 @@ def _check(name: str, t: torch.Tensor, shape: tuple, device, aligned: bool = Fal
         raise ValueError(f"{name} must be 16-byte aligned")
 
 
-def _launch(f, adj, W, scale, bias, mean, var, gamma, vertex_mask, mode):
+def _launch(f, adj, W, scale, bias, mean, var, gamma, vertex_mask, mode, mask_diag, additive):
     """Run csrc/graph_conv.cu on CUDA tensors; raises on anything it does
     not take (never falls back)."""
     code = _check_mode(mode)
@@ -198,8 +206,8 @@ def _launch(f, adj, W, scale, bias, mean, var, gamma, vertex_mask, mode):
         rc = lib.graph_conv_forward(
             f.data_ptr(), adj.data_ptr(), None if vertex_mask is None else vertex_mask.data_ptr(),
             wt.data_ptr(), scale.data_ptr(), bias.data_ptr(),
-            mean.data_ptr(), var.data_ptr(), float(gamma), code, scratch.data_ptr(),
-            out.data_ptr(), B, V, C, stream,
+            mean.data_ptr(), var.data_ptr(), float(gamma), code, int(mask_diag), int(additive),
+            scratch.data_ptr(), out.data_ptr(), B, V, C, stream,
         )
     if rc != 0:
         msg = lib.graph_conv_error_string(rc).decode()
@@ -207,7 +215,8 @@ def _launch(f, adj, W, scale, bias, mean, var, gamma, vertex_mask, mode):
     return out
 
 
-def _fake(f, adj, W, scale, bias, mean, var, gamma, vertex_mask=None, mode="both"):
+def _fake(f, adj, W, scale, bias, mean, var, gamma, vertex_mask=None, mode="both",
+          mask_diag=False, additive=False):
     return f.new_empty(f.shape, dtype=torch.promote_types(f.dtype, torch.float32))
 
 
@@ -215,16 +224,20 @@ def _fake(f, adj, W, scale, bias, mean, var, gamma, vertex_mask=None, mode="both
 def _graph_propagate_op(
     f: torch.Tensor, adj: torch.Tensor, W: torch.Tensor, scale: torch.Tensor,
     bias: torch.Tensor, mean: torch.Tensor, var: torch.Tensor, gamma: float,
-    vertex_mask: torch.Tensor | None = None, mode: str = "both",
+    vertex_mask: torch.Tensor | None = None, mode: str = "both", mask_diag: bool = False,
+    additive: bool = False,
 ) -> torch.Tensor:
     _check_mode(mode)
-    return graph_propagate_reference(f, adj, W, scale, bias, mean, var, gamma, vertex_mask, mode)
+    return graph_propagate_reference(f, adj, W, scale, bias, mean, var, gamma, vertex_mask, mode,
+                                     mask_diag, additive)
 
 
 @_graph_propagate_op.register_kernel("cuda")
-def _(f, adj, W, scale, bias, mean, var, gamma, vertex_mask=None, mode="both"):
+def _(f, adj, W, scale, bias, mean, var, gamma, vertex_mask=None, mode="both", mask_diag=False,
+      additive=False):
     global launches
-    out = _launch(f, adj, W, scale, bias, mean, var, gamma, vertex_mask, mode)
+    out = _launch(f, adj, W, scale, bias, mean, var, gamma, vertex_mask, mode, mask_diag,
+                  additive)
     launches += 1
     return out
 
@@ -233,12 +246,14 @@ _graph_propagate_op.register_fake(_fake)
 
 
 def graph_propagate(f, adj, W, scale, bias, mean, var, gamma=0.1, vertex_mask=None,
-                    mode="both"):
+                    mode="both", mask_diag=False, additive=False):
     """Fused eval graph conv, any V; `vertex_mask` (B, V) of 0/1 or None;
-    `mode` one of GRAPH_MODES. CPU tensors: the plain version. CUDA
-    tensors: the kernel (csrc/graph_conv.cu), or an exception."""
+    `mode` one of GRAPH_MODES; `mask_diag` and `additive` give ganet's
+    layer. CPU tensors: the plain version. CUDA tensors: the kernel
+    (csrc/graph_conv.cu), or an exception."""
     return torch.ops.agrl_torch.graph_propagate(
-        f, adj, W, scale, bias, mean, var, float(gamma), vertex_mask, mode)
+        f, adj, W, scale, bias, mean, var, float(gamma), vertex_mask, mode, bool(mask_diag),
+        bool(additive))
 
 
 def round_bf16(x: torch.Tensor) -> torch.Tensor:
@@ -250,18 +265,20 @@ def round_bf16(x: torch.Tensor) -> torch.Tensor:
 def _graph_propagate_v2_op(
     f: torch.Tensor, adj: torch.Tensor, W: torch.Tensor, scale: torch.Tensor,
     bias: torch.Tensor, mean: torch.Tensor, var: torch.Tensor, gamma: float,
-    vertex_mask: torch.Tensor | None = None, mode: str = "both",
+    vertex_mask: torch.Tensor | None = None, mode: str = "both", mask_diag: bool = False,
+    additive: bool = False,
 ) -> torch.Tensor:
     _check_mode(mode)
     return graph_propagate_reference(round_bf16(f), round_bf16(adj), W, scale, bias, mean, var,
-                                     gamma, vertex_mask, mode)
+                                     gamma, vertex_mask, mode, mask_diag, additive)
 
 
 @_graph_propagate_v2_op.register_kernel("cuda")
-def _(f, adj, W, scale, bias, mean, var, gamma, vertex_mask=None, mode="both"):
+def _(f, adj, W, scale, bias, mean, var, gamma, vertex_mask=None, mode="both", mask_diag=False,
+      additive=False):
     global v2_launches
     out = _launch(round_bf16(f), round_bf16(adj), W, scale, bias, mean, var, gamma,
-                  vertex_mask, mode)
+                  vertex_mask, mode, mask_diag, additive)
     v2_launches += 1
     return out
 
@@ -270,16 +287,18 @@ _graph_propagate_v2_op.register_fake(_fake)
 
 
 def graph_propagate_v2(f, adj, W, scale, bias, mean, var, gamma=0.1, vertex_mask=None,
-                       mode="both"):
+                       mode="both", mask_diag=False, additive=False):
     """The graph_conv_v2 entry: f and adj are held in bf16 (rounded here,
     as graph_conv_v2.py:159-160 does), the math stays fp32 — the same
     kernel on bf16-rounded inputs. CPU tensors: the plain version."""
     return torch.ops.agrl_torch.graph_propagate_v2(
-        f, adj, W, scale, bias, mean, var, float(gamma), vertex_mask, mode)
+        f, adj, W, scale, bias, mean, var, float(gamma), vertex_mask, mode, bool(mask_diag),
+        bool(additive))
 
 
 def _propagate_flops(f_shape, adj_shape, W_shape, scale=None, bias=None, mean=None, var=None,
-                     gamma=None, vertex_mask=None, mode="both", *, out_shape=None,
+                     gamma=None, vertex_mask=None, mode="both", mask_diag=False,
+                     additive=False, *, out_shape=None,
                      **kwargs) -> int:
     """The op's products as FlopCounterMode counts the plain version's
     (2 per multiply-add): f @ W, the Gram f f^T of the l2 affinity (modes

@@ -178,9 +178,32 @@ Phases (any failure exits non-zero before the result lines):
      the preset with --optim radam --rand-erase --rand-crop --misalign-aug
      --remat dots, and one of -a vmgn --use-pose without --learn-graph,
      each evaluated at evenly (K3 1 + 1 a step, K1 2 per eval batch);
+ 24. (run after phase 23; its kernel checks after phases 17 and 8) the
+     single-scale archs at the paper's flags
+     (ResNet-50 (3,4,6,3), 256x128, seq_len 8, V = 56, num_gb 2, pose and
+     learned graphs, fp32, 625 classes): for gsta, ganet, res50tp,
+     resnet50_s1, sta and simple_sta, a 16-clip request (median of 10),
+     the eval forward's CUDA-event ms, K1 launches per forward (counted: 2
+     for gsta and ganet, 0 for the others) and, for gsta and ganet, the
+     kernel path vs the plain path (1e-5 of max); 6 train steps at 4x4
+     with flips and the soft margin (the consistent loss for gsta and
+     ganet): median ms of steps 3-6, peak GB, finite losses, K3 1 + 1
+     launches a step; card vs CPU at depth (1,1,1,1), 64x32 from one seed
+     (the eval feature and one step's losses, 1e-3); K1 with ganet's
+     mask_diag and additive flags vs its plain twin at (16, 56), masked
+     (64, 56) and long (1, 2128), gamma 0.3 and 0.0 (1e-5 of max; at 0 the
+     output is f), timed as phase 17; K3 vs its twin at (H=2, D=6144) and
+     (H=1, D=1024); one CLI epoch each of -a gsta, -a ganet and -a sta on
+     phase 16's layout, then --evaluate under evenly and all for gsta and
+     ganet (K1 2 per eval batch); gsta and ganet as init_model builds
+     them (dtype None) behind the FeatureExtractor's bf16 default: K1 and
+     K2 launches per 16-clip request (gsta 2 and 0; ganet 1 and 1, its
+     bf16 stripe means take K2's entry, the first layer's float32 output
+     K1's), kernel vs plain path (1e-4);
 then one {"serving": ...} line (with "bf16" and "artifact"), one {"training": ...} line (with "bf16"),
 one {"reranking": ...} line, one {"cli": ...} line (with "bf16"), one {"evaluation": ...}
-line, one {"input": ...} line, one {"train_surface": ...} line, one {"kernels": [...]} line (each kernel's `slower_than_plain`
+line, one {"input": ...} line, one {"train_surface": ...} line, one {"archs": ...} line, one
+{"kernels": [...]} line (each kernel's `slower_than_plain`
 lists the shapes where this run timed it above its plain version), the
 card's name and power limit, and
 {"ok": true, "device": {...}} as the last line.
@@ -188,8 +211,8 @@ card's name and power limit, and
     python3 chip_smoke.py --term-only ROOT
 
 measures only the triplet term of a train step (5 heads, forward and
-backward) as the agrl_torch package in ROOT computes it, e.g. an
-unpacked earlier commit, and prints one JSON line.
+backward) and K1 at the serving shape as the agrl_torch package in ROOT
+computes them, e.g. an unpacked earlier commit, and prints one JSON line.
 """
 
 from __future__ import annotations
@@ -308,6 +331,19 @@ def device_ms_per_call(torch, fn, n=20):
             fn()
         torch.cuda.synchronize()
     return sum(r[1] for r in device_rows(prof, n))
+
+
+def device_ms_or_events(torch, fn, flush, tries=3):
+    """(ms, how) of one fn() call: its device time from torch.profiler
+    (device_ms_per_call), tried again when the profiler reported no device
+    event (it drops a window's device events now and then); after `tries`
+    empty windows, CUDA events around one call with the L2 flushed, host
+    dispatch included."""
+    for _ in range(tries):
+        ms = device_ms_per_call(torch, fn)
+        if ms > 0:
+            return ms, "profiler"
+    return time_cuda(torch, fn, flush), "events"
 
 
 def graph_inputs(torch, B, V, C, seed, device):
@@ -985,10 +1021,12 @@ def phase_triplet(torch, tri, losses_mod, device, flush):
             plain_backward=lambda: tri.hard_mine_backward_reference(heads, *got, g_ap, g_an),
             library=lambda: torch.cdist(stacked, stacked),
         )
-        rec = dict(max_abs_err=err, grad_max_abs_err=gerr, two_calls_bit_equal=same)
+        rec = dict(max_abs_err=err, grad_max_abs_err=gerr, two_calls_bit_equal=same,
+                   device_timing={})
         for name, fn in calls.items():
             prefix = "" if name == "kernel" else f"{name}_"
-            rec[f"{prefix}ms"] = device_ms_per_call(torch, fn)
+            rec[f"{prefix}ms"], rec["device_timing"][f"{prefix}ms"] = device_ms_or_events(
+                torch, fn, flush)
             rec[f"{prefix}call_ms"] = time_cuda(torch, fn, flush)
         rec["launch_floor_ms"] = time_cuda(torch, lambda: tri.empty_launch(device), flush)
         rec["bound_ms"], rec["bound_by"] = triplet_bound_ms(H, B, FEATURE_DIM)
@@ -1045,7 +1083,9 @@ def main_term_only(root: Path) -> int:
     forward and backward over 5 heads of (16, 2048), as the agrl_torch
     package found in ROOT (e.g. an unpacked earlier commit) computes it:
     batch_hard_triplet_heads where the package has it, else
-    deep_supervision(batch_hard_triplet, ...); prints one JSON line."""
+    deep_supervision(batch_hard_triplet, ...); then that package's K1 at
+    the serving shape (B=16 V=56 C=2048, CUDA events, L2 flushed, mean of
+    50); prints one JSON line."""
     if not (root / "agrl_torch" / "csrc" / "triplet.cu").exists():
         print(f"chip_smoke.py: no agrl_torch package in {root}", file=sys.stderr)
         return 2
@@ -1075,9 +1115,15 @@ def main_term_only(root: Path) -> int:
         f"{call_ms:.4f} ms (L2 flushed); {smi}")
     for name, ms, count in rows[:25]:
         log(f"[term]   {ms:8.4f} ms x{count:<3d} {name[:90]}")
+    from agrl_torch.ops import graph_conv as gc
+
+    args = graph_inputs(torch, BATCH, SEQ_LEN * 7, FEATURE_DIM, 0, device)
+    k1_ms = time_cuda(torch, lambda: gc.graph_propagate(*args), L2Flusher(torch, device),
+                      iters=50)
+    log(f"[term] {root}: K1 at B={BATCH} V={SEQ_LEN * 7} C={FEATURE_DIM}: {k1_ms:.4f} ms")
     print(json.dumps({"triplet_term": dict(
         root=str(root), loss=name, device_ms=dev_ms, device_ops=ops, call_ms=call_ms, rows=rows,
-        card=smi, kind=torch.cuda.get_device_name(0))}))
+        k1_ms=k1_ms, card=smi, kind=torch.cuda.get_device_name(0))}))
     return 0
 
 
@@ -3137,6 +3183,402 @@ def phase_train_surface(torch, tri, gc, layers_mod, device, flush):
     return out
 
 
+# ---- phase 24: the single-scale archs ---------------------------------------
+
+ARCHS = ("gsta", "ganet", "res50tp", "resnet50_s1", "sta", "simple_sta")
+GRAPH_ARCHS = ("gsta", "ganet")  # the archs with graph layers (K1) and a consistent loss
+ARCH_HEADS = {"gsta": (2, 2048), "ganet": (2, 6144), "res50tp": (1, 2048),
+              "resnet50_s1": (1, 2048), "sta": (1, 1024), "simple_sta": (1, 1024)}
+ARCH_STEPS = 6  # train steps per arch; the median takes steps 3-6
+K1_FLAG_SHAPES = ((16, 56, False), (64, 56, True), (1, 2128, True))
+
+
+def build_arch(torch, arch, device, seed=0):
+    """The registry's arch at the paper's flags (VMGN_ARGS), fp32 as the CLI
+    builds it without --bf16-train (gsta and ganet keep the dtype, the
+    others drop it)."""
+    from agrl_torch.models import init_model
+
+    return init_model(arch, num_classes=NUM_CLASSES, device=device, seed=seed, num_split=4,
+                      pyramid_part=True, num_gb=2, use_pose=True, learn_graph=True,
+                      consistent_loss=arch in GRAPH_ARCHS, dtype=torch.float32)
+
+
+def arch_serving(torch, gc, layers_mod, arch, model, device):
+    """A 16-clip request (median and quartiles of 10), the eval forward's
+    CUDA-event ms, K1 launches per forward (counted), and, for the graph
+    archs, the kernel path vs the plain path."""
+    from agrl_torch.data.transforms import preprocess_clips
+    from agrl_torch.engine.export import FeatureExtractor
+    from agrl_torch.models import default_num_vertices
+
+    V = default_num_vertices(model, SEQ_LEN)
+    imgs = random_clips(BATCH, 240)
+    adjs = pose_adjacency(BATCH, 240) if arch in GRAPH_ARCHS else np.ones((BATCH, V, V),
+                                                                          np.float32)
+    fx = FeatureExtractor(model, batch_size=BATCH, seq_len=SEQ_LEN, bf16=False, device=device)
+    gc.launches = 0  # this arch's 16-clip request starts here
+    feats = fx(imgs, adjs)
+    torch.cuda.synchronize()
+    launches = gc.launches  # and ends here
+    times = []
+    for _ in range(10):
+        t0 = time.perf_counter()
+        fx(imgs, adjs)
+        times.append((time.perf_counter() - t0) * 1e3)
+    q = [float(v) for v in np.percentile(times, [25, 50, 75])]
+    x = preprocess_clips(torch.from_numpy(imgs).to(device))
+    a = torch.from_numpy(adjs).to(device)
+    fwd = []
+    with torch.inference_mode():
+        model(x, a)
+        for _ in range(5):
+            start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            start.record()
+            out = model(x, a)
+            end.record()
+            end.synchronize()
+            fwd.append(start.elapsed_time(end))
+        err = None
+        if arch in GRAPH_ARCHS:
+            layers_mod.graph_propagate = gc.graph_propagate_reference
+            try:
+                plain = model(x, a)
+            finally:
+                layers_mod.graph_propagate = gc.graph_propagate
+            err = rel_err(out.cpu().numpy(), plain.cpu().numpy())
+    rec = dict(feature_dim=int(feats.shape[1]), request16_ms=q[1], request16_ms_quartiles=q,
+               clips_per_s=BATCH / q[1] * 1e3, forward16_ms=float(np.median(fwd)),
+               k1_launches_per_forward=launches, kernel_vs_plain_rel_err=err,
+               features_finite=bool(np.isfinite(feats).all()))
+    log(f"[archs] {arch}: serve 16 clips {q[1]:.2f} ms ({q[0]:.2f}-{q[2]:.2f}), "
+        f"{rec['clips_per_s']:.1f} clips/s; eval forward {rec['forward16_ms']:.2f} ms (CUDA "
+        f"events, median of 5); feature {feats.shape[1]}-d; K1 {launches} launches a forward"
+        + ("" if err is None else f"; kernel vs plain path {err:.3e} of max (tol 1e-5)"))
+    want_launches = 2 if arch in GRAPH_ARCHS else 0
+    if not (launches == want_launches and rec["features_finite"]
+            and feats.shape == (BATCH, ARCH_HEADS[arch][1])
+            and (err is None or err <= 1e-5)):
+        raise AssertionError(f"{arch} serving: {rec}")
+    return rec
+
+
+def arch_bf16_serving(torch, gc, layers_mod, arch, device):
+    """gsta and ganet as init_model builds them without a dtype (None: the
+    trunk follows its input) behind the FeatureExtractor's bf16 default:
+    K1 and K2 launches per 16-clip request (counted; ganet's stripe means
+    stay bf16, so its first graph layer takes K2's entry and, its output
+    being float32, the second K1's), the kernel path vs the plain path
+    (1e-4 of max, phase 19's bar) and the request's ms."""
+    from agrl_torch.engine.export import FeatureExtractor
+    from agrl_torch.models import init_model
+
+    model = init_model(arch, num_classes=NUM_CLASSES, device=device, seed=0, num_split=4,
+                       pyramid_part=True, num_gb=2, use_pose=True, learn_graph=True)
+    fx = FeatureExtractor(model, batch_size=BATCH, seq_len=SEQ_LEN, device=device)
+    imgs, adjs = random_clips(BATCH, 241), pose_adjacency(BATCH, 241)
+    gc.launches = gc.v2_launches = 0  # this arch's bf16 request starts here
+    kern = fx(imgs, adjs)
+    torch.cuda.synchronize()
+    k1, k2 = gc.launches, gc.v2_launches  # and ends here
+
+    def plain_v2(f, adj, *args, **kw):
+        return gc.graph_propagate_reference(gc.round_bf16(f), gc.round_bf16(adj), *args, **kw)
+
+    layers_mod.graph_propagate = gc.graph_propagate_reference
+    layers_mod.graph_propagate_v2 = plain_v2
+    try:
+        plain = fx(imgs, adjs)
+    finally:
+        layers_mod.graph_propagate = gc.graph_propagate
+        layers_mod.graph_propagate_v2 = gc.graph_propagate_v2
+    err = rel_err(kern, plain)
+    times = []
+    for _ in range(10):
+        t0 = time.perf_counter()
+        fx(imgs, adjs)
+        times.append((time.perf_counter() - t0) * 1e3)
+    rec = dict(dtype=str(model.dtype), k1_per_request=k1, k2_per_request=k2,
+               kernel_vs_plain_rel_err=err, request16_ms=float(np.median(times)))
+    log(f"[archs] {arch} (dtype None) bf16 serving: K1 {k1}, K2 {k2} per 16-clip request; kernel "
+        f"path vs plain path {err:.3e} of max (tol 1e-4); request {rec['request16_ms']:.2f} ms")
+    want = (1, 1) if arch == "ganet" else (2, 0)
+    if not ((k1, k2) == want and err <= 1e-4 and np.isfinite(kern).all()):
+        raise AssertionError(f"{arch} bf16 serving: {rec}")
+    return rec
+
+
+def arch_train(torch, tri, arch, model):
+    """ARCH_STEPS train steps of the paper recipe (4x4 colour batches, flips,
+    soft margin, Adam lr 1e-4; the consistent loss for gsta and ganet):
+    median ms of steps 3-6, peak GB, losses, K3 launches (1 + 1 a step)."""
+    from agrl_torch.engine.trainer import make_train_step
+    from agrl_torch.optim import init_optim
+
+    model.train()
+    opt = init_optim("adam", model.parameters(), 1e-4, weight_decay=5e-4)
+    step = make_train_step(model, opt, lambda s: 1e-4, label_smooth=False, soft_margin=True,
+                           aug={"flip_aug": True})
+    batches = surface_batches(ARCH_STEPS, 300)
+    gen = torch.Generator().manual_seed(24)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    tri.launches = tri.backward_launches = 0  # this arch's steps start here
+    times, losses = [], []
+    for imgs, pids, adjs in batches:
+        t0 = time.perf_counter()
+        metrics = step(imgs, pids, adjs, generator=gen)
+        losses.append([float(metrics[k]) for k in ("loss", "xent_loss", "htri_loss")])
+        times.append((time.perf_counter() - t0) * 1e3)
+    fwd, bwd = tri.launches, tri.backward_launches  # and end here
+    rec = dict(heads=ARCH_HEADS[arch][0], feature_dim=ARCH_HEADS[arch][1],
+               step_ms_median=float(np.median(times[2:])), step_ms_all=times,
+               peak_mem_gb=torch.cuda.max_memory_allocated() / 1e9, losses=losses,
+               k3_per_step=[fwd / ARCH_STEPS, bwd / ARCH_STEPS])
+    log(f"[archs] {arch}: train step {rec['step_ms_median']:.2f} ms (median of steps 3-"
+        f"{ARCH_STEPS}; all {', '.join(f'{t:.1f}' for t in times)}), peak "
+        f"{rec['peak_mem_gb']:.2f} GB, loss {losses[0][0]:.4f} -> {losses[-1][0]:.4f}; "
+        f"{rec['heads']} heads x {rec['feature_dim']}-d; hard_mine {fwd} + {bwd} launches")
+    if not (fwd == bwd == ARCH_STEPS and all(math.isfinite(v) for r in losses for v in r)):
+        raise AssertionError(f"{arch} training: {rec}")
+    return rec
+
+
+def banded_clips(n, seed, height, width):
+    """Colour clips under noise with a bright band over quarter s % 4 of
+    frame s's rows: sta's arg-max frame pick then has no near tie."""
+    rng = np.random.RandomState(seed)
+    x = rng.randint(0, 160, (n, 1, 1, 1, 3)) + rng.randint(0, 40, (n, SEQ_LEN, height, width, 3))
+    for s in range(SEQ_LEN):
+        x[:, s, (s % 4) * height // 4:(s % 4 + 1) * height // 4] += 80
+    return np.clip(x, 0, 255).astype(np.uint8)
+
+
+def arch_card_vs_cpu(torch, arch, device):
+    """The arch at depth (1,1,1,1) and 64x32 from one seed (ganet's PAM gamma
+    0.3) on the CPU and on the card: the eval feature of 4 clips, then one
+    train step's losses (lr 0) from the same flips and draws."""
+    import copy
+
+    from agrl_torch.engine.trainer import make_train_step
+    from agrl_torch.models.ganet import GANet
+    from agrl_torch.models.gsta import GSTA
+    from agrl_torch.models.res50tp import ResNet50S1, ResNet50TP
+    from agrl_torch.models.sta import STA
+    from agrl_torch.optim import init_optim
+
+    ctor = {"gsta": GSTA, "ganet": GANet, "res50tp": ResNet50TP, "resnet50_s1": ResNet50S1,
+            "sta": STA, "simple_sta": lambda **kw: STA(simple=True, **kw)}[arch]
+    kw = dict(consistent_loss=True) if arch in GRAPH_ARCHS else {}
+    cpu = ctor(num_classes=4, layers=(1, 1, 1, 1), **kw)
+    cpu.init_weights(torch.Generator().manual_seed(25))
+    if arch == "ganet":
+        with torch.no_grad():
+            cpu.pam_layer.gamma.fill_(0.3)
+    card = copy.deepcopy(cpu).to(device)
+    imgs = banded_clips(4, 25, 64, 32)
+    pids = np.array([0, 0, 1, 1])
+    adjs = pose_adjacency(4, 25)
+    x = imgs.astype(np.float32) / 255.0
+    feats, losses = {}, {}
+    for name, model, dev in (("cpu", cpu, "cpu"), ("card", card, device)):
+        with torch.inference_mode():
+            feats[name] = model.eval()(torch.from_numpy(x).to(dev),
+                                       torch.from_numpy(adjs).to(dev)).cpu().numpy()
+        step = make_train_step(model, init_optim("adam", model.parameters(), 0.0),
+                               lambda s: 0.0, label_smooth=False, aug={"flip_aug": True})
+        metrics = step(imgs, pids, adjs, flip=np.array([True, False, False, True]),
+                       subclip_indices=[1, 7, 0, 4] if arch in GRAPH_ARCHS else None)
+        losses[name] = [float(metrics[k]) for k in ("loss", "xent_loss", "htri_loss")]
+    feat_err = rel_err(feats["card"], feats["cpu"])
+    loss_err = max(abs(a - b) / abs(b) for a, b in zip(losses["card"], losses["cpu"]))
+    log(f"[archs] {arch} (1,1,1,1) 64x32, card vs CPU: eval feature {feat_err:.3e} of max (tol "
+        f"1e-3), train step losses rel {loss_err:.3e} (tol 1e-3)")
+    if not (feat_err <= 1e-3 and loss_err <= 1e-3):
+        raise AssertionError(f"{arch}: card and CPU disagree ({feat_err}, {loss_err})")
+    return dict(feature_rel_err=feat_err, loss_rel_err=loss_err)
+
+
+def phase_k1_flags(torch, gc, device, flush):
+    """K1 with ganet's mask_diag and additive flags vs its plain twin at the
+    serving shape, masked (64, 56) and long (1, 2128), gamma 0.3 and 0.0:
+    one launch a call, within 1e-5 of max; at gamma 0 the output is f.
+    CUDA events with the L2 flushed; bound as phase 17's."""
+    C, recs = 2048, []
+    for B, V, masked in K1_FLAG_SHAPES:
+        if masked:
+            args, mask, _ = masked_graph_inputs(torch, gc, B, V, C, V + 3, device)
+        else:
+            args, mask = graph_inputs(torch, B, V, C, 3, device), None
+        for gamma in (0.3, 0.0):
+            call = dict(vertex_mask=mask, mask_diag=True, additive=True)
+            targs = (*args[:7], gamma)
+            gc.launches = 0  # the op-level check of this case
+            got = gc.graph_propagate(*targs, **call)
+            torch.cuda.synchronize()
+            launched = gc.launches
+            want = gc.graph_propagate_reference(*targs, **call)
+            err = float((got - want).abs().max() / want.abs().max())
+            exact_f = bool(torch.equal(got, args[0])) if gamma == 0.0 else None
+            iters = 20 if V <= 392 else 5
+            rec = dict(B=B, V=V, masked=masked, gamma=gamma, launches=launched,
+                       max_rel_err=err, max_abs_err=float((got - want).abs().max()),
+                       gamma0_output_is_f=exact_f,
+                       ms=time_cuda(torch, lambda: gc.graph_propagate(*targs, **call), flush,
+                                    iters=iters),
+                       plain_ms=time_cuda(torch, lambda: gc.graph_propagate_reference(
+                           *targs, **call), flush, iters=max(2, iters // 4), warmup=1),
+                       library_ms=time_cuda(torch, lambda: torch.matmul(args[0], args[2]),
+                                            flush, iters=iters))
+            rec["bound_ms"], rec["bound_by"], _ = graph_bound_ms(B, V, C, masked)
+            log(f"[archs] K1 mask_diag + additive, B={B} V={V} {'masked' if masked else ''} "
+                f"gamma {gamma}: {rec['ms']:.4f} ms (plain {rec['plain_ms']:.4f}, "
+                f"torch.matmul(f, W) {rec['library_ms']:.4f}, bound {rec['bound_ms']:.4f} by "
+                f"{rec['bound_by']}), max|diff|/max|plain| {err:.3e} (tol 1e-5)"
+                + ("" if exact_f is None else f"; output is f: {exact_f}"))
+            if not (launched == 1 and err <= 1e-5 and exact_f is not False):
+                raise AssertionError(f"K1 flags at {rec}")
+            recs.append(rec)
+        del args, mask, got, want
+        torch.cuda.empty_cache()
+    return recs
+
+
+def phase_k3_arch_shapes(torch, tri, losses_mod, device, flush):
+    """K3 vs its twin at ganet's (H=2, D=6144) and sta's (H=1, D=1024) train
+    shapes: values atol 1e-4, picks equal, the multi-head loss's gradients
+    atol 1e-5; device ms of both kernels and their twins, and the bounds."""
+    plain_loss = plain_triplet_heads(tri, losses_mod)
+    recs = []
+    for H, D in ((2, 6144), (1, 1024)):
+        heads, labels = triplet_heads(torch, H, BATCH, D, device, seed=D)
+        got = tri.hard_mine_heads_kernel(heads, labels)
+        want = tri.hard_mine_heads_reference(heads, labels)
+        grads = triplet_term(torch, losses_mod.batch_hard_triplet_heads, heads, labels)()
+        plain_grads = triplet_term(torch, plain_loss, heads, labels)()
+        torch.cuda.synchronize()
+        err = max(float((got[0] - want[0]).abs().max()), float((got[1] - want[1]).abs().max()))
+        picks = bool(torch.equal(got[2], want[2]) and torch.equal(got[3], want[3]))
+        gerr = max(float((a - b).abs().max()) for a, b in zip(grads, plain_grads))
+        gen = torch.Generator(device=device).manual_seed(0)
+        g_ap, g_an = (torch.rand(H, BATCH, generator=gen, device=device) / BATCH
+                      for _ in range(2))
+        stacked = torch.stack(heads)
+        rec = dict(H=H, B=BATCH, D=D, max_abs_err=err, picks_equal=picks, grad_max_abs_err=gerr,
+                   timing={})
+        for name, fn in (("ms", lambda: tri.hard_mine_heads_kernel(heads, labels)),
+                         ("backward_ms", lambda: tri.hard_mine_heads_backward_kernel(
+                             heads, *got, g_ap, g_an)),
+                         ("plain_ms", lambda: tri.hard_mine_heads_reference(heads, labels)),
+                         ("plain_backward_ms", lambda: tri.hard_mine_backward_reference(
+                             heads, *got, g_ap, g_an)),
+                         ("library_ms", lambda: torch.cdist(stacked, stacked))):
+            rec[name], rec["timing"][name] = device_ms_or_events(torch, fn, flush)
+        rec["bound_ms"], rec["bound_by"] = triplet_bound_ms(H, BATCH, D)
+        rec["backward_bound_ms"], rec["backward_bound_by"] = triplet_bound_ms(
+            H, BATCH, D, s_nnz=s_nonzeros(torch, tri, *got))
+        log(f"[archs] K3 H={H} B={BATCH} D={D}: max|kernel - plain| {err:.3e} (atol 1e-4), "
+            f"picks equal {picks}, gradients {gerr:.3e} (atol 1e-5); device ms forward "
+            f"{rec['ms']:.4f} (bound {rec['bound_ms']:.6f}, plain {rec['plain_ms']:.4f}, cdist "
+            f"{rec['library_ms']:.4f}), backward {rec['backward_ms']:.4f} (bound "
+            f"{rec['backward_bound_ms']:.6f}, plain {rec['plain_backward_ms']:.4f}); timed by "
+            f"{rec['timing']}")
+        if not (err <= 1e-4 and picks and gerr <= 1e-5):
+            raise AssertionError(f"K3 at H={H} D={D}: {rec}")
+        recs.append(rec)
+    return recs
+
+
+def phase_cli_archs(torch, tri, gc):
+    """One CLI epoch of -a gsta, -a ganet and -a sta with the paper preset on
+    phase 16's MARS layout (in process, wrappers counted), each evaluated at
+    evenly; then --evaluate --resume best_model under evenly and all for
+    gsta and ganet (K1 2 per eval batch for them, 0 for sta)."""
+    from agrl_torch.cli import train_vidreid_xent_htri as cli
+    from agrl_torch.data.datasets import init_vidreid_dataset
+    from agrl_torch.data.datasets.synthetic_mars import materialize_mars_layout
+
+    build_dir = REPO / "agrl_torch" / "_build"
+    build_dir.mkdir(parents=True, exist_ok=True)
+    out = {}
+    with tempfile.TemporaryDirectory(dir=build_dir) as tmp:
+        root = f"{tmp}/data"
+        materialize_mars_layout(root, **CLI_DATA)
+        ds = init_vidreid_dataset("mars", root=root, verbose=False)
+        preset = vmgn_args()
+        test_batch = int(preset[preset.index("--test-batch") + 1])
+        evenly_batches = -(-len(ds.query) // test_batch) + -(-len(ds.gallery) // test_batch)
+        for arch in ("gsta", "ganet", "sta"):
+            argv = ["-d", "mars", *without_flag(preset, "-a"), "-a", arch, "--root", root,
+                    "--max-epoch", "1", "--print-freq", "1", "--save-dir", f"{tmp}/{arch}"]
+            tri.launches = tri.backward_launches = gc.launches = 0  # this run starts here
+            t0 = time.perf_counter()
+            _, text = run_cli_in_process(cli, argv)
+            secs = time.perf_counter() - t0
+            fwd, bwd, k1 = tri.launches, tri.backward_launches, gc.launches  # and ends here
+            meters = [m.groups() for m in METER.finditer(text)]
+            n = len(meters)
+            step_ms = [float(m[3]) * 1e3 for m in meters]
+            losses = [float(v) for m in meters for v in m[5:7]]
+            rec = dict(steps=n, step_ms_median=float(np.median(step_ms[1:])) if n > 1 else None,
+                       step_ms_all=step_ms, k3_per_step=[fwd / max(n, 1), bwd / max(n, 1)],
+                       k1_per_eval_batch=k1 / evenly_batches, evals=cmc_blocks(text),
+                       seconds=secs)
+            want_k1 = 2 if arch in GRAPH_ARCHS else 0
+            ok = (n > 0 and fwd == bwd == n and k1 == want_k1 * evenly_batches
+                  and len(rec["evals"]) == 1 and all(math.isfinite(v) for v in losses))
+            log(f"[archs] cli -a {arch}: {n} steps, Time meter median {rec['step_ms_median']} "
+                f"ms; hard_mine {fwd}+{bwd}, K1 {k1} for {evenly_batches} eval batches; CMC "
+                f"(rank-1, mAP) {rec['evals']}; {secs:.1f} s")
+            if arch in GRAPH_ARCHS:
+                best = f"{tmp}/{arch}/best_model.pth.tar"
+                for sample in ("evenly", "all"):
+                    eval_argv = (without_flag(argv, "--test-sample")
+                                 + ["--test-sample", sample, "--evaluate", "--resume", best])
+                    gc.launches = 0  # this evaluation starts here
+                    t0 = time.perf_counter()
+                    result, text = run_cli_in_process(cli, eval_argv)
+                    batches = (evenly_batches if sample == "evenly"
+                               else expected_eval_batches(ds, "all"))
+                    rec[f"evaluate_{sample}"] = dict(
+                        rank1_mAP=[float(v) for v in result], k1=gc.launches,
+                        eval_batches=batches, seconds=time.perf_counter() - t0)
+                    log(f"[archs] cli -a {arch} --evaluate --test-sample {sample}: (rank-1, "
+                        f"mAP) {rec[f'evaluate_{sample}']['rank1_mAP']}, K1 {gc.launches} for "
+                        f"{batches} eval batches")
+                    ok = ok and gc.launches == 2 * batches
+            out[arch] = rec
+            if not ok:
+                raise AssertionError(f"CLI -a {arch}: {rec}")
+    return out
+
+
+def phase_archs(torch, tri, gc, layers_mod, device):
+    """Phase 24: each single-scale arch served and trained at full width and
+    depth, card vs CPU at depth (1,1,1,1); the CLI. (Its kernel checks, K1's
+    ganet flags and K3's new shapes, run early, beside phases 17 and 8.)"""
+    t_phase = time.perf_counter()
+    out = {"archs": {}}
+    for arch in ARCHS:
+        model = build_arch(torch, arch, device)
+        rec = dict(params_m=sum(p.numel() for p in model.parameters()) / 1e6)
+        rec["serving"] = arch_serving(torch, gc, layers_mod, arch, model, device)
+        rec["training"] = arch_train(torch, tri, arch, model)
+        del model
+        torch.cuda.empty_cache()
+        rec["card_vs_cpu"] = arch_card_vs_cpu(torch, arch, device)
+        if arch in GRAPH_ARCHS:
+            rec["bf16_serving"] = arch_bf16_serving(torch, gc, layers_mod, arch, device)
+            torch.cuda.empty_cache()
+        out["archs"][arch] = rec
+    out["archs_seconds"] = time.perf_counter() - t_phase
+    t0 = time.perf_counter()
+    out["cli"] = phase_cli_archs(torch, tri, gc)
+    out["cli_seconds"] = time.perf_counter() - t0
+    out["phase_seconds"] = time.perf_counter() - t_phase
+    return out
+
+
 def main() -> int:
     if not all((REPO / "agrl_torch" / "csrc" / f"{n}.cu").exists() for n in LIBS):
         print("chip_smoke.py: the agrl_torch package is not beside this script", file=sys.stderr)
@@ -3193,8 +3635,16 @@ def main() -> int:
     # 17. K1 masked and long, at the `all` Evaluator's shapes
     k1_long = phase_k1_long(torch, gc, device, flush, serving_out)
     del serving_out
+    # 24, kernels: K1 with ganet's flags (beside phase 17)
+    t0 = time.perf_counter()
+    arch_kernels = dict(k1_flags=phase_k1_flags(torch, gc, device, flush))
+    kernels_seconds = time.perf_counter() - t0
     # 8. K3 vs plain (run here, beside the other kernel checks)
     trec = phase_triplet(torch, tri, losses_mod, device, flush)
+    # 24, kernels: K3 at the single-scale archs' shapes (beside phase 8)
+    t0 = time.perf_counter()
+    arch_kernels["k3_shapes"] = phase_k3_arch_shapes(torch, tri, losses_mod, device, flush)
+    arch_kernels["kernels_seconds"] = kernels_seconds + time.perf_counter() - t0
     # 12. K4 vs plain at the JAX package's test shapes
     phase_minsum_shapes(torch, ms, device)
 
@@ -3294,6 +3744,10 @@ def main() -> int:
     # 23. the rest of the training surface: optimizers, augmentations, remat,
     # graph modes, optax-state migration, the CLI with the new flags
     surface = phase_train_surface(torch, tri, gc, layers_mod, device, L2Flusher(torch, device))
+    # 24. the single-scale archs: serving, training, card vs CPU, K1's ganet
+    # flags, K3's new shapes, the CLI
+    archs = phase_archs(torch, tri, gc, layers_mod, device)
+    archs.update(arch_kernels)
 
     print(json.dumps({"serving": serving}))
     print(json.dumps({"training": training}))
@@ -3304,6 +3758,7 @@ def main() -> int:
     print(json.dumps({"evaluation": evaluation}))
     print(json.dumps({"input": host_input}))
     print(json.dumps({"train_surface": surface}))
+    print(json.dumps({"archs": archs}))
     kernel = {
         "name": "graph_propagate",
         "route": "cuda",
@@ -3348,16 +3803,33 @@ def main() -> int:
         "surface_cli_launches_per_eval_batch": {k: v["k1_per_eval_batch"]
                                                 for k, v in surface["cli"].items()},
         "cli_bf16_artifact_launches": cli["bf16"]["artifact_k1_launches"],
+        "arch_launches_per_forward": {a: r["serving"]["k1_launches_per_forward"]
+                                      for a, r in archs["archs"].items()},
+        "arch_cli_launches_per_eval_batch": {a: r["k1_per_eval_batch"]
+                                             for a, r in archs["cli"].items()},
+        "ganet_flags": archs["k1_flags"],
+        "ganet_flags_note": "phase 24: mask_diag + additive vs the plain twin; ms, plain_ms, "
+                            "library_ms (torch.matmul(f, W)): CUDA events, L2 flushed",
         "v2_launches_on_paths": serving["bf16"]["v2_launches"] + sum(
             v["k2_per_chunk"] for v in serving["bf16"]["models"].values()),
-        "v2_note": "K2's entry (graph_propagate_v2) takes bf16 vertex features; no VMGN path "
-                   "gives the graph layers bf16 features (the pyramid pooling matrix is "
-                   "float32, as agrl_tpu's numpy constant, and promotes them), so the bf16 "
-                   "eval's bf16-rounded weights and adjacency go to K1, widened",
+        "arch_bf16_launches_per_request": {a: [r["bf16_serving"]["k1_per_request"],
+                                               r["bf16_serving"]["k2_per_request"]]
+                                           for a, r in archs["archs"].items()
+                                           if "bf16_serving" in r},
+        "v2_note": "K2's entry (graph_propagate_v2) takes bf16 vertex features; no VMGN or "
+                   "gsta path gives the graph layers bf16 features (the pyramid pooling "
+                   "matrix is float32, as agrl_tpu's numpy constant, and promotes them), so "
+                   "their bf16 eval's bf16-rounded weights and adjacency go to K1, widened; "
+                   "ganet built without a dtype (init_model's default) serves its bf16 "
+                   "stripe means to K2 in its first graph layer (the second takes that "
+                   "layer's float32 output to K1): arch_bf16_launches_per_request is "
+                   "[K1, K2]",
         "slower_than_plain": slower_than_plain(
             ("B=16 V=56", krec["ms"], krec["plain_ms"]),
             *((f"B={r['B']} V={r['V']}{' masked' if r['masked'] else ''}", r["ms"], r["plain_ms"])
-              for r in k1_long)),
+              for r in k1_long),
+            *((f"ganet flags B={r['B']} V={r['V']} gamma {r['gamma']}", r["ms"], r["plain_ms"])
+              for r in archs["k1_flags"])),
     }
     triplet = {
         "name": "hard_mine",
@@ -3379,6 +3851,12 @@ def main() -> int:
         "surface_cli_launches_per_step": {k: v["k3_per_step"]
                                           for k, v in surface["cli"].items()},
         "bf16_train_backward_launches": bf16_tri_backward,
+        "arch_launches_per_step": {a: r["training"]["k3_per_step"]
+                                   for a, r in archs["archs"].items()},
+        "arch_cli_launches_per_step": {a: r["k3_per_step"] for a, r in archs["cli"].items()},
+        "arch_shapes": archs["k3_shapes"],
+        "arch_shapes_note": "phase 24: device time per call (torch.profiler), or CUDA events "
+                            "around one call where `timing` says so",
         "max_abs_err": trec["max_abs_err"],
         "grad_max_abs_err": trec["grad_max_abs_err"],
         "two_calls_bit_equal": trec["two_calls_bit_equal"],
@@ -3406,8 +3884,10 @@ def main() -> int:
                             "launch per head (this tree's kernel at H = 1) and the plain "
                             "backward",
         "launch_floor_ms": trec["launch_floor_ms"],
+        "device_timing": trec["device_timing"],
         "timing": "ms, backward_ms, plain_*, library_ms, *term_ms: device time per call "
-                  "(torch.profiler, L2 warm); *_call_ms, launch_floor_ms: CUDA events around "
+                  "(torch.profiler, L2 warm; CUDA events around one call where device_timing "
+                  "says events); *_call_ms, launch_floor_ms: CUDA events around "
                   "one call with the L2 flushed, host dispatch included; *term*: loss forward "
                   "and backward over the 5 heads; *_kernels: device operations per term",
         "call_ms": trec["call_ms"],
@@ -3418,7 +3898,10 @@ def main() -> int:
         "shape": f"H={TRAIN_HEADS} B={BATCH} D={FEATURE_DIM} fp32",
         "slower_than_plain": slower_than_plain(
             ("forward", trec["ms"], trec["plain_ms"]),
-            ("backward", trec["backward_ms"], trec["plain_backward_ms"])),
+            ("backward", trec["backward_ms"], trec["plain_backward_ms"]),
+            *((f"{n} H={r['H']} D={r['D']}", r[k], r[f"plain_{k}"])
+              for r in archs["k3_shapes"] for n, k in (("forward", "ms"),
+                                                       ("backward", "backward_ms")))),
     }
     min_sum = {
         "name": "min_sum",

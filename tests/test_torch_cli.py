@@ -48,7 +48,13 @@ def test_parser_flag_matches_agrl_tpu(dest):
 
 # the refusals: extra argv -> (flag the message names, value it names)
 REFUSALS = {
-    "arch": (["-a", "gsta"], "--arch", "gsta"),
+    # gsta, ganet, sta, simple_sta, res50tp and resnet50_s1 are ported
+    # (test_cli_trains_and_evaluates_each_arch); the multi-scale pair and the legacy
+    # and 3D families are refused, each naming its ROADMAP item
+    "arch": (["-a", "msppn"], "--arch", "msppn"),
+    "arch_msppgn": (["-a", "msppgn"], "--arch", "ROADMAP A7c"),
+    "arch_legacy": (["-a", "res50rnn"], "--arch", "ROADMAP A7e"),
+    "arch_3d": (["-a", "resnet3d50"], "--arch", "ROADMAP A7e"),
     "mesh_dp": (["--mesh-dp", "2"], "--mesh-dp", "2"),
     "mesh_mp": (["--mesh-mp", "2"], "--mesh-mp", "2"),
     "dist_coordinator": (["--dist-coordinator", "localhost:1234"], "--dist-coordinator",
@@ -79,6 +85,16 @@ def test_preflight_refuses_before_reading_data(case, tmp_path, monkeypatch):
     msg = str(exc.value)
     assert flag in msg and value in msg and "ROADMAP" in msg, msg
     assert not (tmp_path / "log").exists()
+
+
+def test_every_arch_choice_is_ported_or_refused_by_item():
+    """-a's choices (agrl_tpu's registry) split into the port's registry and
+    the refused names, each refusal naming A7c or A7e."""
+    from agrl_torch.models import get_names
+
+    ported, refused = set(get_names()), set(tcli.UNPORTED_ARCHS)
+    assert ported | refused == set(tcli.ARCH_NAMES) and not ported & refused
+    assert set(tcli.UNPORTED_ARCHS.values()) == {"A7c", "A7e"}
 
 
 def test_preflight_lets_the_cpu_take_the_card_limits():
@@ -343,6 +359,56 @@ def test_preflight_takes_the_train_flags_and_a_cpu_epoch_runs_with_them(
     assert len(meters) == 4 and all(m is not None for m in meters)
     assert all(np.isfinite(float(v)) for m in meters for v in m.groups())
     assert out.count("Computing CMC and mAP on device") == 1
+
+
+# the single-scale archs: the CLI's -a, the eval feature's width (ganet's
+# (num_gb + 1) * 2048 at the base's --num-gb 1)
+CLI_ARCHS = {"gsta": 2048, "ganet": 4096, "sta": 1024}
+
+
+@pytest.mark.parametrize("arch", sorted(CLI_ARCHS))
+def test_cli_trains_and_evaluates_each_arch(arch, trained, tmp_path, monkeypatch):
+    """-a gsta, ganet and sta at full ResNet-50 depth on the CPU (64x32,
+    seq_len 4): the pre-flight passes them (also for the card), one epoch
+    of 4 steps (gsta and ganet with --consistent-loss: 2 heads) with
+    finite meter lines, an evenly evaluation and a checkpoint; then
+    --evaluate --resume best_model under --test-sample all (frame-masked
+    buckets), whose features have the arch's width."""
+    import agrl_torch.engine.evaluator as ev
+
+    save_dir = str(tmp_path / "log")
+    base = [a if a != trained["save_dir"] else save_dir for a in trained["base"]]
+    base[base.index("vmgn_tiny")] = arch
+    if arch != "sta":
+        base.append("--consistent-loss")
+    tcli.preflight(tcli.build_parser().parse_args([a for a in base if a != "--use-cpu"]))
+    seen = _spy_train_step(monkeypatch)
+    widths, real_extract = [], ev.Evaluator.extract
+
+    def recording_extract(self, *a, **kw):
+        feats = real_extract(self, *a, **kw)
+        widths.append(feats[0].shape[1])
+        return feats
+
+    monkeypatch.setattr(ev.Evaluator, "extract", recording_extract)
+    try:
+        result, out = _run_cli(base + ["--max-epoch", "1", "--eval-step", "1",
+                                       "--print-freq", "1"])
+        assert result is None and type(seen["model"]).__name__ == {
+            "gsta": "GSTA", "ganet": "GANet", "sta": "STA"}[arch]
+        assert getattr(seen["model"], "consistent_loss", False) == (arch != "sta")
+        meters = [METER.match(line) for line in out.splitlines() if line.startswith("CurTime: ")]
+        assert len(meters) == 4 and all(m is not None for m in meters)
+        assert all(np.isfinite(float(v)) for m in meters for v in m.groups())
+        assert out.count("Computing CMC and mAP on device") == 1
+        best = osp.join(save_dir, "best_model.pth.tar")
+        test_sample = base.index("--test-sample") + 1
+        argv = base[:test_sample] + ["all"] + base[test_sample + 1:]
+        rank1, mAP = _run_cli(argv + ["--evaluate", "--resume", best])[0]
+    finally:
+        shutil.rmtree(save_dir, ignore_errors=True)  # full-size checkpoints
+    assert 0.0 <= rank1 <= 1.0 and 0.0 <= mAP <= 1.0
+    assert widths and set(widths) == {CLI_ARCHS[arch]}
 
 
 def test_graph_layers_without_a_graph_raise_as_agrl_tpu(trained, tmp_path):

@@ -728,3 +728,80 @@ def test_train_surface_on_the_card(cuda, optim, remat):
     assert all(np.isfinite(losses))
     assert not torch.equal(model.conv1.weight, before_w)
     assert int(model.bn1.num_batches_tracked) == 2
+
+
+@pytest.mark.parametrize("gamma", [0.3, 0.0])
+@pytest.mark.parametrize("mode", graph_conv.GRAPH_MODES)
+@pytest.mark.parametrize("B,V,masked", [(16, 56, False), (64, 56, True), (1, 2128, True),
+                                        (3, 129, False)])
+def test_ganet_flags_match_plain(cuda, mode, gamma, B, V, masked):
+    """K1 with ganet's diagonal mask and additive residual, on both
+    schedules, with and without a vertex mask: one launch per call, within
+    1e-5 of max|plain|; at gamma 0 the output is f exactly."""
+    args, mask = _masked_case(cuda, B, V, 2048, masked, seed=V + 7)
+    args = (*args[:7], gamma)
+    before = graph_conv.launches
+    got = graph_conv.graph_propagate(*args, vertex_mask=mask, mode=mode, mask_diag=True,
+                                     additive=True)
+    torch.cuda.synchronize()
+    assert graph_conv.launches == before + 1
+    want = graph_conv.graph_propagate_reference(*args, vertex_mask=mask, mode=mode,
+                                                mask_diag=True, additive=True)
+    assert float((got - want).abs().max()) <= 1e-5 * float(want.abs().max())
+    if gamma == 0.0:
+        assert torch.equal(got, args[0])
+
+
+@pytest.mark.parametrize("H,B,D", [(2, 16, 6144), (2, 16, 2048), (1, 16, 2048), (1, 16, 1024)])
+def test_hard_mine_heads_at_the_single_scale_archs_shapes(cuda, H, B, D):
+    """K3 at the train steps of ganet (H=2, D=6144), gsta (2, 2048),
+    res50tp / resnet50_s1 (1, 2048) and sta / simple_sta (1, 1024)."""
+    test_hard_mine_heads_kernels_match_plain(cuda, H, B, D)
+
+
+@pytest.mark.parametrize("arch", ["gsta", "ganet", "res50tp", "resnet50_s1", "sta",
+                                  "simple_sta"])
+def test_single_scale_arch_on_the_card(cuda, arch):
+    """Each arch at depth (1,1,1,1), 128x64, S=8: the eval forward
+    launches K1 twice for gsta and ganet (num_gb 2) and never for the
+    others, and equals the plain path (1e-5 of max); two train steps
+    launch K3 once each way per step with finite losses."""
+    from agrl_torch.engine.trainer import make_train_step
+    from agrl_torch.models import layers as layers_mod
+    from agrl_torch.models.ganet import GANet
+    from agrl_torch.models.gsta import GSTA
+    from agrl_torch.models.res50tp import ResNet50S1, ResNet50TP
+    from agrl_torch.models.sta import STA
+    from agrl_torch.optim import init_optim
+
+    ctor = {"gsta": GSTA, "ganet": GANet, "res50tp": ResNet50TP, "resnet50_s1": ResNet50S1,
+            "sta": STA, "simple_sta": lambda **kw: STA(simple=True, **kw)}[arch]
+    kw = dict(consistent_loss=True) if arch in ("gsta", "ganet") else {}
+    model = ctor(num_classes=4, layers=(1, 1, 1, 1), **kw)
+    model.init_weights(torch.Generator().manual_seed(0))
+    model = model.to(cuda).eval()
+    rng = np.random.RandomState(0)
+    imgs = rng.randint(0, 256, (16, 8, 128, 64, 3)).astype(np.uint8)
+    adjs = (rng.rand(16, 56, 56) > 0.5).astype(np.float32)
+    x = torch.from_numpy(imgs).to(cuda).float() / 255.0
+    a = torch.from_numpy(adjs).to(cuda)
+    with torch.no_grad():
+        before = graph_conv.launches
+        got = model(x, a)
+        torch.cuda.synchronize()
+        launched = graph_conv.launches - before
+        layers_mod.graph_propagate = graph_conv.graph_propagate_reference
+        try:
+            want = model(x, a)
+        finally:
+            layers_mod.graph_propagate = graph_conv.graph_propagate
+    assert launched == (2 if arch in ("gsta", "ganet") else 0)
+    assert float((got - want).abs().max()) <= 1e-5 * float(want.abs().max())
+    opt = init_optim("adam", model.parameters(), 1e-4, weight_decay=5e-4)
+    step = make_train_step(model, opt, lambda s: 1e-4, aug={"flip_aug": True})
+    gen = torch.Generator().manual_seed(1)
+    before = (triplet.launches, triplet.backward_launches)
+    losses = [float(step(imgs, np.repeat(np.arange(4), 4), adjs, generator=gen)["loss"])
+              for _ in range(2)]
+    assert (triplet.launches - before[0], triplet.backward_launches - before[1]) == (2, 2)
+    assert all(np.isfinite(losses))

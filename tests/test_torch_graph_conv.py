@@ -103,13 +103,16 @@ def test_graph_conv_layer_eval_matches_jax():
     "kwargs",
     [
         dict(dist_method="dot"),
-        dict(mask_diag=True),
-        dict(residual="additive"),
+        # ganet's diagonal mask and additive residual are ported
+        # (tests/test_torch_graph_conv_variants.py); the dot affinity stays
+        # refused under them
+        dict(dist_method="dot", mask_diag=True),
+        dict(dist_method="dot", residual="additive"),
         # the pose-only and learned-only graphs are ported
         # (tests/test_torch_graph_modes.py); neither is refused, as agrl_tpu's
         # layer asserts, and the unported variants stay so under either graph
         dict(use_pose=False, learn_graph=False),
-        dict(mask_diag=True, learn_graph=False),
+        dict(dist_method="dot", mask_diag=True, learn_graph=False),
     ],
 )
 def test_unported_layer_variants_raise(kwargs):
