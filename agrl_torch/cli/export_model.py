@@ -32,8 +32,8 @@ import os
 def build_parser():
     p = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     p.add_argument("-a", "--arch", default="vmgn",
-                   help="an arch of agrl_torch's registry: vmgn, vmgn_tiny, gsta, ganet, sta, "
-                        "simple_sta, res50tp, resnet50_s1")
+                   help="an arch of agrl_torch's registry: vmgn, vmgn_tiny, gsta, ganet, msppn, "
+                        "msppgn, sta, simple_sta, res50tp, resnet50_s1")
     p.add_argument("--num-classes", type=int, required=True,
                    help="classifier width the checkpoint was trained with")
     p.add_argument("--load-weights", required=True,

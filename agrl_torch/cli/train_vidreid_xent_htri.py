@@ -40,16 +40,15 @@ import numpy as np
 import torch
 
 # agrl_tpu's model registry (agrl_tpu/models/__init__.py), the choices of
-# -a; the port builds the VMGN family and the single-scale archs (gsta,
-# ganet, sta, simple_sta, res50tp, resnet50_s1) and refuses the rest by
-# ROADMAP item (UNPORTED_ARCHS)
+# -a; the port builds the VMGN family, the single-scale archs (gsta,
+# ganet, sta, simple_sta, res50tp, resnet50_s1) and the multi-scale pair
+# (msppn, msppgn), and refuses the rest by ROADMAP item (UNPORTED_ARCHS)
 ARCH_NAMES = (
     "vmgn", "gsta", "ganet", "msppn", "msppgn", "sta", "simple_sta", "res50tp",
     "resnet50_s1", "vmgn_tiny", "res50tp_legacy", "res50ta", "res50rnn", "resnet3d50",
     "resnet3dt",
 )
 UNPORTED_ARCHS = {
-    "msppn": "A7c", "msppgn": "A7c",  # the multi-scale pair
     "res50tp_legacy": "A7e", "res50ta": "A7e", "res50rnn": "A7e",  # legacy video families
     "resnet3d50": "A7e", "resnet3dt": "A7e",  # 3D
 }
@@ -110,8 +109,8 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--warmup", action="store_true")
     # Architecture
     p.add_argument("-a", "--arch", type=str, default="vmgn", choices=list(ARCH_NAMES),
-                   help="agrl_tpu's registry; ported: vmgn, vmgn_tiny, gsta, ganet, sta, "
-                        "simple_sta, res50tp, resnet50_s1")
+                   help="agrl_tpu's registry; ported: vmgn, vmgn_tiny, gsta, ganet, msppn, "
+                        "msppgn, sta, simple_sta, res50tp, resnet50_s1")
     p.add_argument("--pool", type=str, default="avg", choices=["avg", "max"])
     p.add_argument("--last-stride", type=int, default=1, choices=[1, 2])
     p.add_argument("--num-split", type=int, default=4)
@@ -214,15 +213,20 @@ def _refuse(flag: str, value, item: str, hint: str = "") -> None:
 
 
 def preflight(args) -> None:
-    """Refuses, before any data is read or model built, what the port does
+    """Refuses, before any data is read or weight made, what the port does
     not take: each SystemExit names the flag, its value and the ROADMAP
     item that will port it, or an unknown optimizer, which agrl_tpu
-    refuses only after reading the data. Without --use-cpu it also refuses what the
-    card's kernels would refuse later (ROADMAP C, limits): a train batch
-    above K3's."""
-    from agrl_torch.models import get_names
+    refuses only after reading the data. Then agrl_tpu's graph layout
+    check (its CLI :367-394), on the model built on the meta device: a
+    model that reads a multi-scale adjacency (`expected_adj_scales`, msppgn
+    with --use-pose or without --learn-graph) needs that --num-scale and
+    the data side's parts per frame. Without --use-cpu it also refuses what
+    the card's kernels would refuse later (ROADMAP C, limits): a train
+    batch above K3's, or more heads than it mines in one launch."""
+    from agrl_torch.models import build_model, get_names
     from agrl_torch.optim import OPTIMIZER_NAMES
-    from agrl_torch.ops.triplet import MAX_BATCH
+    from agrl_torch.ops.triplet import MAX_BATCH, MAX_HEADS
+    from agrl_torch.utils.reidtools import calc_splits
 
     if args.arch not in get_names():
         _refuse("-a/--arch", args.arch, UNPORTED_ARCHS[args.arch], f"ported: {get_names()}")
@@ -244,6 +248,55 @@ def preflight(args) -> None:
             f"takes at most {MAX_BATCH} clips (ROADMAP C, limits); the CPU path "
             "(--use-cpu) takes it"
         )
+    try:
+        with torch.device("meta"):  # the structure alone: no weights are made
+            model = build_model(args.arch, num_classes=1, **model_kwargs(args))
+    except ValueError:
+        return  # a model its flags cannot build raises where the run builds it
+    model_scales = getattr(model, "expected_adj_scales", None)
+    if model_scales is not None:
+        if args.num_scale != model_scales:
+            raise SystemExit(
+                f"arch '{args.arch}' consumes a {model_scales}-scale "
+                f"adjacency (vertices span layer2/3/4) but --num-scale is "
+                f"{args.num_scale}; pass --num-scale {model_scales} so the "
+                "pose adjacency matches the model's vertex count"
+            )
+        data_split = sum(calc_splits(args.num_split)) if args.pyramid_part else args.num_split
+        if data_split != model.total_split:
+            raise SystemExit(
+                f"arch '{args.arch}' pools {model.total_split} pyramid "
+                f"parts per frame (calc_splits({args.num_split})) but the "
+                f"pose graph is built with {data_split}; pass "
+                "--pyramid-part (and a matching --num-split) so the "
+                "adjacency layout matches the model's vertices"
+            )
+    heads = getattr(model, "num_heads", 1)
+    if not args.use_cpu and heads > MAX_HEADS:
+        raise SystemExit(
+            f"-a {args.arch} --num-split {args.num_split}: {heads} heads; the card's "
+            f"batch-hard mining kernel (K3) mines at most {MAX_HEADS} in one launch "
+            "(ROADMAP C, limits); the CPU path (--use-cpu) takes them"
+        )
+
+
+def model_kwargs(args, dtype=torch.float32) -> dict:
+    """The registry keywords of the run's flags, as agrl_tpu's CLI passes
+    them to init_model."""
+    return dict(
+        loss={"xent", "htri"},
+        last_stride=args.last_stride,
+        num_parts=args.num_parts,
+        num_scale=args.num_scale,
+        num_split=args.num_split,
+        pyramid_part=args.pyramid_part,
+        num_gb=args.num_gb,
+        use_pose=args.use_pose,
+        learn_graph=args.learn_graph,
+        consistent_loss=args.consistent_loss,
+        bnneck=args.bnneck,
+        dtype=dtype,
+    )
 
 
 def main(argv=None):
@@ -350,20 +403,9 @@ def _run(args, device, writer, stores):
     model = models.init_model(
         args.arch,
         num_classes=dataset.num_train_pids,
-        loss={"xent", "htri"},
-        last_stride=args.last_stride,
-        num_parts=args.num_parts,
-        num_scale=args.num_scale,
-        num_split=args.num_split,
-        pyramid_part=args.pyramid_part,
-        num_gb=args.num_gb,
-        use_pose=args.use_pose,
-        learn_graph=args.learn_graph,
-        consistent_loss=args.consistent_loss,
-        bnneck=args.bnneck,
-        dtype=torch.bfloat16 if args.bf16_train else torch.float32,
         device=device,
         seed=args.seed,
+        **model_kwargs(args, torch.bfloat16 if args.bf16_train else torch.float32),
     )
     _copy_model_source(model, args.save_dir)
     # the startup params/FLOPs line (reference train_vidreid_xent_htri.py:256-263
@@ -371,7 +413,8 @@ def _run(args, device, writer, stores):
     n_params, gflops = compute_model_complexity(
         model, seq_len=args.seq_len, height=args.height, width=args.width, verbose=False)
     print(f"Model complexity: params {n_params:.5f}M flops {gflops:.3f}G")
-    print(f"Model size: {count_num_param(model):.5f}M")
+    size_exclude = getattr(model, "size_line_exclude", ("classifier",))
+    print(f"Model size: {count_num_param(model, size_exclude):.5f}M")
 
     if args.pretrained_weights and check_isfile(args.pretrained_weights):
         matched, skipped = init_pretrained_weights(model, args.pretrained_weights)

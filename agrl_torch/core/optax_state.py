@@ -73,7 +73,7 @@ def load_optax_state(optimizer: torch.optim.Optimizer, model: torch.nn.Module, o
     for pname, p in model.named_parameters():
         if id(p) not in held:
             continue
-        mapped = torch_name_map(pname)
+        mapped = torch_name_map(pname, model)
         if mapped is None or mapped[1] != "params":
             raise KeyError(f"{pname} has no agrl_tpu parameter to take its moments from")
         path, _, kind = mapped

@@ -79,7 +79,12 @@
 // sums of S, reading S's column j as float4 broadcasts: deterministic, no
 // atomics.
 //
-// Limits: B <= 256, D % 4 == 0 and D <= 8192, H <= 8 heads of one shape.
+// The head table is a __grid_constant__ kernel parameter (64 pointers, 512
+// bytes), indexed by blockIdx directly: sm_70 and later read a dynamic
+// index of such a parameter in place, without the copy to local memory
+// that a plain by-value struct takes.
+//
+// Limits: B <= 256, D % 4 == 0 and D <= 8192, H <= 64 heads of one shape.
 
 #include <cooperative_groups.h>
 #include <cuda_runtime.h>
@@ -97,7 +102,7 @@ constexpr int kCluster = 8;            // blocks per (head, band): the portable 
 constexpr int kBand = 16;              // anchors per cluster
 constexpr int kMaxBatch = 256;
 constexpr int kMaxDim = 8192;
-constexpr int kMaxHeads = 8;
+constexpr int kMaxHeads = 64;        // 3 x 15 + 1 = 46 heads of msppn/msppgn at --num-split 8
 constexpr int kRingBytes = 64 * 1024;  // the staging ring, both stages
 constexpr int kHalfBand = kBand / 2;   // band rows per backward thread
 constexpr int kBwColumns = kThreads / 2;  // columns per backward block, two threads each
@@ -128,17 +133,6 @@ __host__ __device__ inline int labels_bytes(int B) { return (8 * B + 15) / 16 * 
 __host__ inline size_t forward_smem(int B, int n4) {
   const size_t ring = (size_t)ring_stages(B, n4) * B * (chunk4(B, n4) + 1) * 16;
   return labels_bytes(B) + ring + (size_t)(kRed + 3 * kCluster * B) * 4;
-}
-
-// a[h] without a dynamic index into the parameter space (which would copy
-// the struct to local memory)
-template <typename T>
-__device__ __forceinline__ T head_of(const T (&a)[kMaxHeads], int h) {
-  T p = a[0];
-#pragma unroll
-  for (int k = 1; k < kMaxHeads; ++k)
-    if (k == h) p = a[k];
-  return p;
 }
 
 __device__ __forceinline__ unsigned smem_u32(const void* p) {
@@ -178,7 +172,8 @@ __device__ __forceinline__ void keep_min(float& v, int& k, float v2, int k2) {
 }
 
 __global__ void __cluster_dims__(kCluster, 1, 1) __launch_bounds__(kThreads)
-hard_mine_heads_kernel(Heads heads, const long long* __restrict__ labels, int B, int D,
+hard_mine_heads_kernel(const __grid_constant__ Heads heads, const long long* __restrict__ labels,
+                       int B, int D,
                        float* __restrict__ d_ap, float* __restrict__ d_an,
                        long long* __restrict__ i_ap, long long* __restrict__ i_an) {
   cg::cluster_group cluster = cg::this_cluster();
@@ -204,7 +199,7 @@ hard_mine_heads_kernel(Heads heads, const long long* __restrict__ labels, int B,
   float* red = reinterpret_cast<float*>(ring + (size_t)stages * B * stride);  // (kg, 16 tiles + 1)
   float* recv_g = red + kRed;                   // (kCluster, 2, B): from rank r, Gram row of slot
   float* recv_sq = recv_g + 2 * kCluster * B;   // (kCluster, B): from rank r, the norms
-  const float4* f4 = reinterpret_cast<const float4*>(head_of(heads.f, h));
+  const float4* f4 = reinterpret_cast<const float4*>(heads.f[h]);
 
   auto issue = [&](int k) {  // every thread: its float4s of chunk k into stage k % stages
     const int s = k % stages;
@@ -361,7 +356,8 @@ __device__ __forceinline__ void row_picks(size_t at, int row, const float* d_ap,
 }
 
 __global__ void __launch_bounds__(kThreads)
-hard_mine_heads_backward_kernel(Heads heads, Grads grads, int B, int D,
+hard_mine_heads_backward_kernel(const __grid_constant__ Heads heads,
+                                const __grid_constant__ Grads grads, int B, int D,
                                 const float* __restrict__ d_ap, const float* __restrict__ d_an,
                                 const long long* __restrict__ i_ap,
                                 const long long* __restrict__ i_an,
@@ -378,7 +374,7 @@ hard_mine_heads_backward_kernel(Heads heads, Grads grads, int B, int D,
   const int c = blockIdx.x * kBwColumns + tid % kBwColumns;
   const int t0 = (tid / kBwColumns) * kHalfBand;
   const bool col = c < D;
-  const float* f = head_of(heads.f, h);
+  const float* f = heads.f[h];
 
   // this column of the first 16 rows and of this thread's band rows, and
   // this thread's picks (row tid's, for M^T, and band row i0 + tid's, for
@@ -427,7 +423,7 @@ hard_mine_heads_backward_kernel(Heads heads, Grads grads, int B, int D,
   for (int j = 0; j < kBand; ++j)
     if (j < B) add_row(j, x0[j]);
   for (int j = kBand; j < B; ++j) add_row(j, f[(size_t)j * D + c]);
-  float* g = head_of(grads.g, h);
+  float* g = grads.g[h];
 #pragma unroll
   for (int t = 0; t < kHalfBand; ++t)
     if (t0 + t < rows) g[(size_t)(i0 + t0 + t) * D + c] = rs[t] * xb[t] - acc[t];

@@ -12,8 +12,8 @@ test(), train_vidreid_xent_htri.py:450-546). Extraction by test_sample:
     a frame mask the model honours exactly, and same-bucket tracklets
     batch together under a frame budget of clip_batch * 8.
 Features end on the Evaluator's device as (N, D) float32, D the model's
-eval width: 4096 (vmgn), 6144 (ganet), 2048 (gsta, res50tp, resnet50_s1)
-or 1024 (sta, simple_sta).
+eval width: 4096 (vmgn), 6144 (ganet), 2048 (gsta, res50tp, resnet50_s1),
+1024 (sta, simple_sta), 512 (msppn) or (num_gb + 1) * 512 (msppgn).
 With `bf16=True` (`--bf16-eval`) every forward is agrl_tpu's bf16 eval
 (`eval_program`: weights, pixels and adjacency rounded to bf16, the model
 at its own dtype).
@@ -32,8 +32,9 @@ The ranking stage takes agrl_tpu's branches and console lines:
     With `device_rank=False` the distances are computed on the device
     and re-ranked on the host by the host algorithm, as in agrl_tpu.
 
-Not ported yet: the mesh Evaluator (ROADMAP A8) and the
-`pad_eval_adjacency` hook of msppn/msppgn (A7c).
+msppn and msppgn pad their `all` adjacency through their own
+`pad_eval_adjacency` hook, as agrl_tpu's Evaluator calls it. Not ported
+yet: the mesh Evaluator (ROADMAP A8).
 """
 
 from __future__ import annotations
@@ -191,7 +192,10 @@ class Evaluator:
         models/vmgn.py), so its feature equals the unpadded forward's, and
         same-bucket tracklets batch together up to clip_batch * 8 frames.
         The adjacency pads with a trailing zero block (frame-major
-        vertices). A bucket's last batch runs at its own size. Loader batches
+        vertices), or through the model's `pad_eval_adjacency` (msppn and
+        msppgn: split-major vertices over three scales, whose entries
+        scatter to their padded positions, models/graphnet.py). A bucket's
+        last batch runs at its own size. Loader batches
         hold whole tracklets: imgs (b, num, H, W, 3), adjs (b, V, V)."""
         frame_budget = max(self.clip_batch, 1) * 8
         batch_time = AverageMeter()
@@ -219,21 +223,28 @@ class Evaluator:
                 for (idx, *_), row in zip(chunk, f):
                     out[idx] = row
 
+        pad_adj = getattr(self.model, "pad_eval_adjacency", None)
         for imgs, bpids, bcamids, adjs in loader:
             for bi in range(imgs.shape[0]):
                 clip, adj = imgs[bi], adjs[bi]  # (num, H, W, 3), (V, V)
                 num = clip.shape[0]
-                if adj.shape[0] % num:
+                Sp = self._bucket_len(num)
+                if pad_adj is not None:
+                    # the split-major archs place the entries themselves, also
+                    # at Sp == num: one that ignores the adjacency maps any
+                    # layout to its own per-bucket shape
+                    adj = pad_adj(adj, num, Sp)
+                elif adj.shape[0] % num:
                     raise ValueError(f"adjacency ({adj.shape[0]} vertices) is not a multiple of "
                                      f"the frame count ({num}): bucketed 'all' eval needs the "
                                      "frame-major layout")
-                Sp = self._bucket_len(num)
-                if Sp > num:  # trailing pad frames and a trailing zero block of the adjacency
+                if Sp > num:  # trailing pad frames
                     clip = np.concatenate([clip, np.zeros((Sp - num, *clip.shape[1:]), clip.dtype)])
-                    Vp = Sp * (adj.shape[0] // num)
-                    adj_p = np.zeros((Vp, Vp), adj.dtype)
-                    adj_p[: adj.shape[0], : adj.shape[1]] = adj
-                    adj = adj_p
+                    if pad_adj is None:  # frame-major: a trailing zero block
+                        Vp = Sp * (adj.shape[0] // num)
+                        adj_p = np.zeros((Vp, Vp), adj.dtype)
+                        adj_p[: adj.shape[0], : adj.shape[1]] = adj
+                        adj = adj_p
                 fmask = np.zeros(Sp, np.float32)
                 fmask[:num] = 1.0
                 pend.setdefault(Sp, []).append((n_items, clip, adj, fmask))

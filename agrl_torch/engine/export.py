@@ -32,9 +32,11 @@ bf16 rounding, the model at its own dtype), is served two ways:
         "vmgn_eval.pt2", load_variables("best_model.pth.tar"))
     feats = fx(clips_uint8)  # (N, D) float32, any N (D = 4096 for vmgn)
 
-Archs that read no adjacency (res50tp, resnet50_s1, sta, simple_sta) are
-served the same way: `fx(imgs)` with adjs=None passes an all-ones one,
-which they ignore.
+Archs that read no adjacency (res50tp, resnet50_s1, sta, simple_sta,
+msppn) are served the same way: `fx(imgs)` with adjs=None passes an
+all-ones one, which they ignore. The all-ones adjacency has
+`default_num_vertices` vertices: S * total_split * 3 for msppn and msppgn
+(168 at --num-split 4 and S = 8), whose vertices span three scales.
 
 `bf16=True` is the default of both, as in agrl_tpu (export.py:57, :132).
 The program an artifact holds runs on the device it was exported on.

@@ -5,7 +5,8 @@ Behavioral parity with the reference train() iteration
   loss = lambda_xent * DeepSupervision(xent, outputs, pids)
        + lambda_htri * DeepSupervision(htri, features, pids)
   backward + optimizer step; top-1 precision over all heads is averaged
-  for the meter (train_vidreid_xent_htri.py:419). Single-head archs
+  for the meter (train_vidreid_xent_htri.py:419); msppn and msppgn give
+3 * total_split + 1 heads (22 at --num-split 4). Single-head archs
   (res50tp, resnet50_s1, sta, simple_sta, gsta/ganet without the
   consistent loss) return bare tensors, taken as one head, as agrl_tpu's
   trainer takes them (agrl_tpu/engine/trainer.py:90-91).
@@ -17,7 +18,8 @@ those fp32 parameters and hands fp32 features to the heads, so no loss
 scaling is needed (bf16 keeps fp32's exponent range). The batch-hard
 triplet term goes through losses.batch_hard_triplet_heads: on the card,
 one forward and one backward launch of the mining kernels per step for
-all heads (VMGN's consistent loss's 5, gsta's and ganet's 2, or one).
+all heads (VMGN's consistent loss's 5, gsta's and ganet's 2, msppn's and
+msppgn's 22, or one).
 
 `remat` is agrl_tpu's gradient rematerialization
 (agrl_tpu/engine/trainer.py:72-82): one checkpoint around the model
@@ -106,7 +108,7 @@ def make_train_step(
     `subclip_indices` inject the flips and that draw instead (VMGN: the
     three sorted subclips; gsta, ganet: each clip's dropped frame). The
     adjacency goes to every arch, as agrl_tpu passes it; res50tp,
-    resnet50_s1, sta and simple_sta do not read it. `remat` is
+    resnet50_s1, sta, simple_sta and msppn do not read it. `remat` is
     none, dots or full (module docstring). Each call sets every
     param group's lr to `lr_fn(step)` (step = updates taken so far)
     before the optimizer step, as optax reads lr(count) before counting.

@@ -64,7 +64,7 @@ _ANCHORS = (
     ("  cluster.sync();  // every partial has landed in the block that sums it\n",
      "  STAMP_F(5)\n"),
     ("      i_an[out] = k_an;\n    }\n  }\n", "  STAMP_F(6)\n"),
-    ("  const float* f = head_of(heads.f, h);\n\n", "  STAMP_B(0)\n"),
+    ("  const float* f = heads.f[h];\n\n", "  STAMP_B(0)\n"),
     ("  for (int e = tid; e < kBand * B; e += kThreads) ST[e] = 0.f;\n  __syncthreads();\n",
      "  STAMP_B(1)\n"),
     ("    if (wi[p] != 0.f) ST[ki[p] * kBand + tid] = wi[p];\n  __syncthreads();\n",

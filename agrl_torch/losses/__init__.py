@@ -82,6 +82,9 @@ def batch_hard_triplet_heads(features, labels, margin: float = 0.3, soft: bool =
         features = [features]
     if features[0].device.type == "cpu":
         return deep_supervision(batch_hard_triplet, features, labels, margin=margin, soft=soft)
+    # the kernels read dense rows: a head that is a view (msppn's and
+    # msppgn's per-vertex features) is copied
+    features = [f.contiguous() for f in features]
     return mean_over_heads(triplet_from_distances(*hard_mine_heads(features, labels), margin, soft))
 
 

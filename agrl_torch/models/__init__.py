@@ -6,8 +6,9 @@ unless the caller passes device="cpu"), in eval mode; a trainer calls
 `.train()`. `loss` and `consistent_loss` shape the train forward. Ported:
 the VMGN family and the single-scale archs of the reference's factory
 (gsta, ganet, sta, simple_sta, res50tp, resnet50_s1), each factory taking
-and dropping keywords as agrl_tpu's does. Not yet: msppn/msppgn (ROADMAP
-A7c), the legacy video families and the image registry (A7e).
+and dropping keywords as agrl_tpu's does, and the multi-scale pair msppn
+and msppgn (models/graphnet.py). Not yet: the legacy video families and
+the image registry (ROADMAP A7e).
 """
 
 from __future__ import annotations
@@ -16,6 +17,7 @@ import torch
 
 from agrl_torch import resolve_device
 from agrl_torch.models.ganet import ganet
+from agrl_torch.models.graphnet import msppgn, msppn
 from agrl_torch.models.gsta import gsta
 from agrl_torch.models.res50tp import res50tp, resnet50_s1
 from agrl_torch.models.sta import simple_sta, sta
@@ -47,6 +49,8 @@ __model_factory = {
     "vmgn": vmgn,  # reference models/vmgn.py:373 (the paper model)
     "gsta": gsta,  # models/gsta.py:340
     "ganet": ganet,  # models/ganet.py:458
+    "msppn": msppn,  # models/graphnet.py:120
+    "msppgn": msppgn,  # models/graphnet.py:217
     "sta": sta,  # models/sta.py:268
     "simple_sta": simple_sta,  # models/simple_sta.py:243
     "res50tp": res50tp,  # models/res50tp.py:224
@@ -76,5 +80,9 @@ def init_model(name: str, *args, device="cuda", seed: int = 0, **kwargs):
 
 
 def default_num_vertices(model, seq_len: int) -> int:
-    """Adjacency vertex count for a clip: frames x parts per frame."""
-    return seq_len * getattr(model, "total_split", 1)
+    """Adjacency vertex count for a clip: frames x parts per frame x vertex
+    scales (3 for msppn and msppgn, whose vertices span layer2/3/4). The
+    FeatureExtractor, the exported artifact and the FLOPs probe size
+    their all-ones adjacency through it."""
+    return (seq_len * getattr(model, "total_split", 1)
+            * getattr(model, "num_vertex_scales", 1))

@@ -112,13 +112,34 @@ class BatchNorm2d(_FlaxRunningStats, nn.BatchNorm2d):
 class Conv2d(nn.Conv2d):
     """nn.Conv2d computing at `compute_dtype` (flax's Conv `dtype`: input
     and kernel cast to it; None: their promotion), from float32 weights
-    under training, so autograd's gradients land in float32."""
+    under training, so autograd's gradients land in float32.
+
+    torch's CPU bf16 convolution (oneDNN) reads past its input when the
+    kernel spans more than one column, the column stride is above 1 and
+    the output is one column wide: msppn's layer4 at 64x32 frames (a 4x2
+    map to 2x1) comes out wrong by more than its size, or not finite.
+    Such a convolution computes in float64 on the bf16 values and rounds
+    its output to bf16 (float64, not float32: a float32 sum's last bits
+    follow the thread count, and the rounding turns them into whole bf16
+    steps). Every other CPU bf16 convolution is oneDNN's; CUDA tensors
+    take cuDNN's. tests/test_torch_graphnet.py shows the fault and the
+    repair."""
 
     compute_dtype = None
+
+    def onednn_bf16_faults(self, x: torch.Tensor) -> bool:
+        """Whether oneDNN's bf16 kernel gets this convolution of CPU `x` wrong."""
+        kw, sw = self.kernel_size[1], self.stride[1]
+        pw, dw = self.padding[1], self.dilation[1]
+        out_w = (x.shape[-1] + 2 * pw - dw * (kw - 1) - 1) // sw + 1
+        return x.device.type == "cpu" and kw > 1 and sw > 1 and out_w == 1
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         dt = self.compute_dtype or torch.promote_types(x.dtype, self.weight.dtype)
         bias = None if self.bias is None else self.bias.to(dt)
+        if dt == torch.bfloat16 and self.onednn_bf16_faults(x):
+            return self._conv_forward(x.to(dt).double(), self.weight.to(dt).double(),
+                                      None if bias is None else bias.double()).to(dt)
         return self._conv_forward(x.to(dt), self.weight.to(dt), bias)
 
 
@@ -195,38 +216,10 @@ class ResLayer(nn.Sequential):
         )
 
 
-class ResNetTrunk(nn.Module):
-    """Stem (conv7x7/2 + BN + relu + maxpool3x3/2) + layer1..layer3 — the
-    trunk every video arch shares; each adds its own layer4. Subclasses
-    keep these names at their top level, as the reference's models do."""
-
-    def __init__(self, layers=(3, 4, 6, 3)):
-        super().__init__()
-        self._pool_cache: dict = {}
-        self.conv1 = Conv2d(3, 64, 7, stride=2, padding=3, bias=False)
-        self.bn1 = batch_norm2d(64)
-        self.relu = nn.ReLU(inplace=True)
-        self.maxpool = nn.MaxPool2d(3, stride=2, padding=1)
-        self.layer1 = ResLayer(64, 64, layers[0])
-        self.layer2 = ResLayer(256, 128, layers[1], stride=2)
-        self.layer3 = ResLayer(512, 256, layers[2], stride=2)
-
-    def forward_trunk(self, x: torch.Tensor) -> torch.Tensor:
-        """(N, 3, H, W) -> layer3 activation (N, 1024, H/16, W/16)."""
-        x = self.maxpool(self.relu(self.bn1(self.conv1(x))))
-        return self.layer3(self.layer2(self.layer1(x)))
-
-    def init_backbone(self, generator: torch.Generator) -> None:
-        """Reference _init_params for convolutions and BatchNorms: every
-        conv kaiming (fan_out) with a zero bias, every BN scale 1 / shift 0."""
-        for m in self.modules():
-            if isinstance(m, nn.Conv2d):
-                init_conv_(m, generator)
-                if m.bias is not None:
-                    nn.init.zeros_(m.bias)
-            elif isinstance(m, nn.modules.batchnorm._BatchNorm):
-                nn.init.ones_(m.weight)
-                nn.init.zeros_(m.bias)
+class PartPooling:
+    """The pyramid part pooling of the video archs, with its pooling matrix
+    cached on the module, in a `_pool_cache` dict that the module's
+    __init__ sets."""
 
     def part_pool(self, fmap: torch.Tensor, splits) -> torch.Tensor:
         """(N, c, h, w) -> (N, sum(splits), c): the width mean, then each
@@ -255,6 +248,79 @@ class ResNetTrunk(nn.Module):
         if not tracing:
             self._pool_cache[key] = m
         return m
+
+
+class ResNetTrunk(PartPooling, nn.Module):
+    """Stem (conv7x7/2 + BN + relu + maxpool3x3/2) + layer1..layer3 — the
+    trunk every video arch shares; each adds its own layer4. Subclasses
+    keep these names at their top level, as the reference's models do."""
+
+    def __init__(self, layers=(3, 4, 6, 3)):
+        super().__init__()
+        self._pool_cache: dict = {}
+        self.conv1 = Conv2d(3, 64, 7, stride=2, padding=3, bias=False)
+        self.bn1 = batch_norm2d(64)
+        self.relu = nn.ReLU(inplace=True)
+        self.maxpool = nn.MaxPool2d(3, stride=2, padding=1)
+        self.layer1 = ResLayer(64, 64, layers[0])
+        self.layer2 = ResLayer(256, 128, layers[1], stride=2)
+        self.layer3 = ResLayer(512, 256, layers[2], stride=2)
+
+    def forward_trunk(self, x: torch.Tensor) -> torch.Tensor:
+        """(N, 3, H, W) -> layer3 activation (N, 1024, H/16, W/16)."""
+        x = self.maxpool(self.relu(self.bn1(self.conv1(x))))
+        return self.layer3(self.layer2(self.layer1(x)))
+
+    def init_backbone(self, generator: torch.Generator) -> None:
+        init_backbone_(self, generator)
+
+
+def init_backbone_(module: nn.Module, generator: torch.Generator) -> None:
+    """Reference _init_params for convolutions and BatchNorms: every 2-D
+    conv in `module` kaiming (fan_out) with a zero bias, every BN scale 1 /
+    shift 0."""
+    for m in module.modules():
+        if isinstance(m, nn.Conv2d):
+            init_conv_(m, generator)
+            if m.bias is not None:
+                nn.init.zeros_(m.bias)
+        elif isinstance(m, nn.modules.batchnorm._BatchNorm):
+            nn.init.ones_(m.weight)
+            nn.init.zeros_(m.bias)
+
+
+class MultiScaleTrunk(ResNetTrunk):
+    """The trunk with a layer4 at stride 2, whose layer2, layer3 and layer4
+    maps msppn and msppgn read (agrl_tpu/models/graphnet.py:52-64). Its
+    children, in order, are the reference's `base` Sequential (conv1, bn1,
+    relu, maxpool, layer1..4): msppn keeps them at its top level, msppgn
+    as `base.{0..7}`; `levels` runs either."""
+
+    def __init__(self, layers=(3, 4, 6, 3)):
+        super().__init__(layers)
+        self.layer4 = ResLayer(1024, 512, layers[3], stride=2)
+
+
+def levels(stages, x: torch.Tensor):
+    """(N, 3, H, W) through the 8 stages of a MultiScaleTrunk -> the
+    layer2, layer3 and layer4 maps, (N, c, h, w) each."""
+    for stage in stages[:5]:
+        x = stage(x)
+    f1 = stages[5](x)
+    f2 = stages[6](f1)
+    return f1, f2, stages[7](f2)
+
+
+def adaptive_max_pool_rows(x: torch.Tensor, out_size: int) -> torch.Tensor:
+    """torch's AdaptiveMaxPool2d((n, 1)) as agrl_tpu computes it
+    (agrl_tpu/models/backbone.py:243-257): the max over W, then the max
+    over row bins [floor(i*h/n), ceil((i+1)*h/n)), which overlap where n
+    does not divide h. x: (N, C, H, W) -> (N, n, C)."""
+    xw = x.amax(dim=3)  # (N, C, H)
+    h = xw.shape[2]
+    bins = [xw[:, :, (i * h) // out_size:-(-((i + 1) * h) // out_size)].amax(dim=2)
+            for i in range(out_size)]
+    return torch.stack(bins, dim=1)
 
 
 def adaptive_avg_pool_matrix(in_size: int, out_size: int) -> np.ndarray:

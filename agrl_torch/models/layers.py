@@ -12,6 +12,9 @@ Parity targets in the reference:
     at zero.
   * temporal attention — vmgn.py:270-278: per-vertex L2 feature norms,
     L1-normalized over the clip axis, used as fusion weights.
+  * GraphBlock         — graphnet.py:58-117 (msppgn): a softmax dot
+    affinity blended with the pose graph, ReLU before the vertex BN, an
+    additive residual.
 
 `l1_normalize`, `l2_affinity` and the vertex pair mask live beside the
 fused op they feed (ops/graph_conv.py) and are re-exported here, where
@@ -26,7 +29,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from agrl_torch.models.backbone import BN_EPS, BatchNorm1d
+from agrl_torch.models.backbone import BN_EPS, BatchNorm1d, Linear
 from agrl_torch.ops.graph_conv import (
     blended_graph,
     graph_mode,
@@ -38,7 +41,7 @@ from agrl_torch.ops.graph_conv import (
 from agrl_torch.ops.graph_conv import pair_mask as _pair_mask
 
 __all__ = [
-    "BNNeck", "GraphConvLayer", "blend_graph_l2", "l1_normalize", "l2_affinity",
+    "BNNeck", "GraphBlock", "GraphConvLayer", "blend_graph_l2", "l1_normalize", "l2_affinity",
     "temporal_attention",
 ]
 
@@ -133,6 +136,74 @@ class GraphConvLayer(nn.Module):
         if self.additive:
             return x + self.gamma * h_prime
         return (1.0 - self.gamma) * x + self.gamma * h_prime
+
+
+class GraphBlock(nn.Module):
+    """msppgn's graph block (agrl_tpu/models/layers.py:254-318, reference
+    graphnet.py:58-117): h = x W (no bias); the pose graph masked by the
+    vertex pair mask and row-L1-normalized; a softmax dot affinity of
+    128-d embeddings q, k of h (with biases), its logits in float32 and
+    -1e9 outside the pair mask (an all-padding row comes out uniform and
+    finite; the caller's masked temporal mean drops it); the blend
+    (adj + gamma G) / (1 + gamma), or the learned graph alone, or `adj`
+    as given when neither flag is set, as agrl_tpu does; h' = G h, ReLU,
+    then BatchNorm over the B * V rows (flax's rule), and x + alpha h'.
+
+    agrl_tpu has no Pallas kernel for this block: it runs as XLA ops there
+    and as these torch ops on either device. agrl_tpu's `self_loop` and
+    `dropout` fields are not ported: its factory leaves them at False and
+    0.0, and so does this block."""
+
+    def __init__(self, in_features: int, out_features: int, alpha: float = 1.0,
+                 gamma: float = 1.0, learn_graph: bool = True, use_pose: bool = True):
+        super().__init__()
+        self.alpha = alpha
+        self.gamma = gamma
+        self.learn_graph = learn_graph
+        self.use_pose = use_pose
+        self.linear = Linear(in_features, out_features, bias=False)
+        if learn_graph:
+            self.emb_q = Linear(out_features, 128)
+            self.emb_k = Linear(out_features, 128)
+        self.bn = BatchNorm1d(out_features, eps=BN_EPS)
+
+    def init_weights(self, generator: torch.Generator) -> None:
+        """agrl_tpu's init: every kernel N(0, 0.001), biases 0, BN 1 / 0."""
+        with torch.no_grad():
+            for lin in (self.linear, getattr(self, "emb_q", None), getattr(self, "emb_k", None)):
+                if lin is None:
+                    continue
+                lin.weight.normal_(0.0, 0.001, generator=generator)
+                if lin.bias is not None:
+                    lin.bias.zero_()
+            self.bn.weight.fill_(1.0)
+            self.bn.bias.zero_()
+
+    def forward(self, x: torch.Tensor, adj, vertex_mask=None) -> torch.Tensor:
+        """x: (B, V, C); adj: (B, V, V), read when use_pose is set or
+        learn_graph is not; `vertex_mask` (B, V) of 0/1 marks padding
+        vertices (0)."""
+        h = self.linear(x)
+        B, V, C = h.shape
+        pair = None if vertex_mask is None else _pair_mask(vertex_mask)
+        if self.use_pose:
+            if pair is not None:
+                adj = adj * pair
+            adj = l1_normalize(adj, dim=2)
+        if self.learn_graph:
+            q, k = self.emb_q(h).float(), self.emb_k(h).float()
+            logits = torch.matmul(q, k.transpose(1, 2))
+            if pair is not None:
+                logits = torch.where(pair > 0, logits, -1e9)
+            graph = torch.softmax(logits, dim=2)
+            if self.use_pose:
+                graph = (adj + self.gamma * graph) / (1.0 + self.gamma)
+        else:
+            graph = adj
+        dt = torch.promote_types(torch.promote_types(graph.dtype, h.dtype), torch.float32)
+        h_prime = torch.matmul(graph.to(dt), h.to(dt))
+        h_prime = self.bn(F.relu(h_prime).reshape(B * V, C)).reshape(B, V, C)
+        return x + self.alpha * h_prime
 
 
 def _blend_graph_l2_math(x: torch.Tensor, adj: torch.Tensor):

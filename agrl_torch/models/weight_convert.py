@@ -14,7 +14,10 @@ The name map is a copy of the part of
 agrl_tpu/models/weight_convert.py:_split_torch_name the ported archs use
 (vmgn, gsta, ganet, sta, simple_sta, res50tp, resnet50_s1): the trunk,
 `layer4` or `layer4_1`/`layer4_2`, the BNNecks, the classifiers (sta's
-with a bias), the graph layers, ganet's `pam_layer` and sta's `fc1`.
+with a bias), the graph layers, ganet's `pam_layer` and sta's `fc1`;
+and of its `_graphnet_name_map` for msppn and msppgn, whose names depend
+on the arch (the model's `name_scheme`): their fusion Conv1d is torch's
+(1, V, 1) and flax's (V, 1).
 Every state-dict entry must find its leaf and every leaf must be used,
 except the entries with no flax counterpart: `num_batches_tracked` and
 the BNNeck biases, which are frozen at zero. `partial=True` gives `--load-weights`
@@ -47,9 +50,14 @@ def _bn(prefix: tuple, leaf: str):
     return None if hit is None else (prefix + (hit[0],), hit[1], None)
 
 
-def torch_name_map(name: str):
+def torch_name_map(name: str, model=None):
     """Reference-style module path -> (flax path, collection, layout kind),
-    or None for entries without a flax counterpart."""
+    or None for entries without a flax counterpart. msppn and msppgn name
+    their modules their own way (their `name_scheme`), so their entries
+    map through `model`."""
+    scheme = getattr(model, "name_scheme", None)
+    if scheme is not None:
+        return _graphnet_name_map(re.sub(r"^module\.", "", name), scheme, model.num_vertices)
     parts = re.sub(r"^module\.", "", name).split(".")
     if parts[0] == "conv1" and parts[1] == "weight":
         return ("trunk", "stem", "conv1", "kernel"), "params", "conv"
@@ -59,18 +67,7 @@ def torch_name_map(name: str):
     if re.match(r"^layer(\d)(_\d)?$", parts[0]):
         stage = parts[0]
         prefix = ("trunk", stage) if stage in ("layer1", "layer2", "layer3") else (stage,)
-        prefix += (f"block{parts[1]}",)
-        rest = parts[2:]
-        if rest[0] in ("conv1", "conv2", "conv3") and rest[1] == "weight":
-            return prefix + (rest[0], "kernel"), "params", "conv"
-        if rest[0] in ("bn1", "bn2", "bn3"):
-            return _bn(prefix + (rest[0],), rest[1])
-        if rest[0] == "downsample":
-            if rest[1] == "0" and rest[2] == "weight":
-                return prefix + ("downsample_conv", "kernel"), "params", "conv"
-            if rest[1] == "1":
-                return _bn(prefix + ("downsample_bn",), rest[2])
-        return None
+        return _res_block(prefix, parts[1:])
 
     if parts[0] in ("global_bottleneck", "att_bottleneck", "bottleneck"):
         if parts[1] == "bias":
@@ -109,11 +106,77 @@ def torch_name_map(name: str):
     return None
 
 
+def _res_block(prefix: tuple, rest: list):
+    """layerX.N.{convK,bnK,downsample...} under `prefix` -> flax paths."""
+    prefix += (f"block{rest[0]}",)
+    if rest[1] in ("conv1", "conv2", "conv3") and rest[2] == "weight":
+        return prefix + (rest[1], "kernel"), "params", "conv"
+    if rest[1] in ("bn1", "bn2", "bn3"):
+        return _bn(prefix + (rest[1],), rest[2])
+    if rest[1] == "downsample":
+        if rest[2] == "0" and rest[3] == "weight":
+            return prefix + ("downsample_conv", "kernel"), "params", "conv"
+        if rest[2] == "1":
+            return _bn(prefix + ("downsample_bn",), rest[3])
+    return None
+
+
+def _graphnet_name_map(name: str, scheme: str, n_cls: int):
+    """msppn/msppgn entry -> (flax path, collection, layout kind), or None;
+    a copy of agrl_tpu/models/weight_convert.py:_graphnet_name_map. `n_cls`
+    is the fused classifier's index, the highest; the whole trunk, layer4
+    too, lives under flax's `trunk`."""
+    parts = name.split(".")
+    if scheme == "msppn":
+        if parts[0] == "conv1" and parts[1] == "weight":
+            return ("trunk", "stem", "conv1", "kernel"), "params", "conv"
+        if parts[0] == "bn1":
+            return _bn(("trunk", "stem", "bn1"), parts[1])
+        if re.match(r"^layer\d$", parts[0]):
+            return _res_block(("trunk", parts[0]), parts[1:])
+    elif parts[0] == "base":  # msppgn: Sequential(conv1, bn1, relu, maxpool, layer1..4)
+        if parts[1] == "0" and parts[2] == "weight":
+            return ("trunk", "stem", "conv1", "kernel"), "params", "conv"
+        if parts[1] == "1":
+            return _bn(("trunk", "stem", "bn1"), parts[2])
+        if parts[1] in ("4", "5", "6", "7"):
+            return _res_block(("trunk", f"layer{int(parts[1]) - 3}"), parts[2:])
+        return None
+    reduce_re, bn_re = (r"^reduce_f(\d)$", r"^bn_f(\d)$") if scheme == "msppn" else (
+        r"^reduce(\d)$", r"^bn(\d)$")
+    m = re.match(reduce_re, parts[0])
+    if m:
+        leaf = ("kernel", "linear") if parts[1] == "weight" else ("bias", None)
+        return (f"reduce_f{m.group(1)}", "reduce", leaf[0]), "params", leaf[1]
+    m = re.match(bn_re, parts[0])
+    if m:
+        return _bn((f"reduce_f{m.group(1)}", "bn"), parts[1])
+    if parts[0] == "gbs":
+        prefix, sub = (f"gb_{parts[1]}",), parts[2]
+        if sub == "linear" and parts[3] == "weight":
+            return prefix + ("linear", "kernel"), "params", "linear"
+        if sub in ("emb_q", "emb_k"):
+            leaf = ("kernel", "linear") if parts[3] == "weight" else ("bias", None)
+            return prefix + (sub, leaf[0]), "params", leaf[1]
+        if sub == "bn":
+            return _bn(prefix + ("bn",), parts[3])
+        return None
+    if parts[0] == "fusion_conv" and parts[1] == "weight":
+        return ("fusion_conv",), "params", "fusion"
+    if parts[0] in ("classifier", "classifiers"):
+        head = "classifier_fused" if int(parts[1]) == n_cls else f"classifier_{parts[1]}"
+        leaf = ("kernel", "linear") if parts[2] == "weight" else ("bias", None)
+        return (head, leaf[0]), "params", leaf[1]
+    return None
+
+
 def _to_torch_layout(arr: np.ndarray, kind) -> np.ndarray:
     if kind == "conv":
         return arr.transpose(3, 2, 0, 1)  # HWIO -> OIHW
     if kind == "linear":
         return arr.T  # (in, out) -> (out, in)
+    if kind == "fusion":
+        return arr.T[:, :, None]  # flax's (V, 1) -> Conv1d's (1, V, 1)
     return arr
 
 
@@ -147,7 +210,7 @@ def from_jax_variables(variables, model: torch.nn.Module, partial: bool = False)
     used = set()
     with torch.no_grad():
         for name, tensor in model.state_dict().items():
-            mapped = torch_name_map(name)
+            mapped = torch_name_map(name, model)
             if mapped is None:
                 if name.endswith(NO_COUNTERPART):
                     continue
@@ -182,13 +245,22 @@ def init_pretrained_weights(model: torch.nn.Module, source):
     head is dropped; the reference loads the backbone before it deep-copies
     layer4 (vmgn.py:224-234), so each `layer4.*` entry goes to every
     `layer4*` branch of the model (VMGN: layer4_1 and layer4_2; the
-    single-branch archs: layer4). Then a
+    single-branch archs and msppn: layer4). A model with
+    `imagenet_stages` (msppgn: base.{0,1,4..7}) gets each stage under its
+    own name. Then a
     shape-filtered partial load: returns (matched, skipped) names; what is
     not matched keeps its initialization."""
     from agrl_torch.core.checkpoint import load_weights_partial, read_state_dict
 
     if isinstance(source, str):
         source = read_state_dict(source)
+    stages = getattr(model, "imagenet_stages", None)
+    if stages:  # the model names its trunk's stages its own way
+        renamed = {}
+        for k, v in source.items():
+            stage, _, rest = re.sub(r"^module\.", "", k).partition(".")
+            renamed[f"{stages.get(stage, stage)}.{rest}" if rest else stage] = v
+        source = renamed
     branches = sorted({name.split(".", 1)[0] for name in model.state_dict()
                        if re.match(r"^layer4(_\d+)?\.", name)})
     fanned = {}

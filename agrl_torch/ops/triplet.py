@@ -31,7 +31,7 @@ launches = 0
 backward_launches = 0
 
 # What the kernels take (csrc/triplet.cu checks the same limits)
-MAX_BATCH, MAX_DIM, MAX_HEADS = 256, 8192, 8
+MAX_BATCH, MAX_DIM, MAX_HEADS = 256, 8192, 64
 
 D2_MIN = 1e-12  # the clamp under the square root, as the JAX package has it
 # the distance the clamp leaves; a pick at it carries no gradient (the

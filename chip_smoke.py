@@ -200,10 +200,25 @@ Phases (any failure exits non-zero before the result lines):
      K2 launches per 16-clip request (gsta 2 and 0; ganet 1 and 1, its
      bf16 stripe means take K2's entry, the first layer's float32 output
      K1's), kernel vs plain path (1e-4);
+ 25. (run after phase 24; its kernel checks after phase 8) msppn and msppgn
+     at the paper's flags with --num-scale 3 (ResNet-50 (3,4,6,3) with
+     layer4 at stride 2, 256x128, seq_len 8, --num-split 4: V = 168,
+     msppgn with num_gb 2 and pose and learned graphs, fp32, 625 classes):
+     for each, a 16-clip request (median of 10; msppgn with a 168-vertex
+     pose graph, msppn all ones), the eval forward's CUDA-event ms, K1
+     launches per forward (counted: 0, GraphBlock is torch ops), the bf16
+     request at the FeatureExtractor's default (finite, vs fp32); 6 train
+     steps at 4x4 with flips and the soft margin over 22 heads: median ms
+     of steps 3-6, peak GB, finite losses, K3 1 + 1 launches a step; card
+     vs CPU at depth (1,1,1,1), 64x32 (1e-3); K3 vs its twin at (H=22,
+     D=512), (22, 1536), (46, 1536) and (64, 1536), the most heads one
+     launch takes; one CLI epoch of -a msppgn
+     --num-scale 3 on phase 16's layout, then --evaluate under evenly and
+     all (all pads the adjacency through msppgn's pad_eval_adjacency; K1 0);
 then one {"serving": ...} line (with "bf16" and "artifact"), one {"training": ...} line (with "bf16"),
 one {"reranking": ...} line, one {"cli": ...} line (with "bf16"), one {"evaluation": ...}
 line, one {"input": ...} line, one {"train_surface": ...} line, one {"archs": ...} line, one
-{"kernels": [...]} line (each kernel's `slower_than_plain`
+{"graphnets": ...} line, one {"kernels": [...]} line (each kernel's `slower_than_plain`
 lists the shapes where this run timed it above its plain version), the
 card's name and power limit, and
 {"ok": true, "device": {...}} as the last line.
@@ -525,14 +540,15 @@ def random_clips(n, seed):
     return rng.randint(0, 256, (n, SEQ_LEN, HEIGHT, WIDTH, 3)).astype(np.uint8)
 
 
-def pose_adjacency(n, seed):
+def pose_adjacency(n, seed, num_scale=1):
     """Pose graphs from plausible random standing poses (the synthetic
-    dataset's pose model), built by the port's GraphBuilder."""
+    dataset's pose model), built by the port's GraphBuilder: 56 vertices,
+    or 168 at num_scale 3 (msppgn's three feature scales)."""
     from agrl_torch.data.datasets.synthetic import _make_pose
     from agrl_torch.data.graph import GraphBuilder
 
     rng = np.random.RandomState(seed)
-    gb = GraphBuilder(num_split=4, pyramid_part=True)
+    gb = GraphBuilder(num_split=4, pyramid_part=True, num_scale=num_scale)
     heights = np.full(SEQ_LEN, HEIGHT, np.float64)
     return np.stack([
         gb(np.stack([_make_pose(rng, WIDTH, HEIGHT) for _ in range(SEQ_LEN)]), heights)
@@ -3188,7 +3204,9 @@ def phase_train_surface(torch, tri, gc, layers_mod, device, flush):
 ARCHS = ("gsta", "ganet", "res50tp", "resnet50_s1", "sta", "simple_sta")
 GRAPH_ARCHS = ("gsta", "ganet")  # the archs with graph layers (K1) and a consistent loss
 ARCH_HEADS = {"gsta": (2, 2048), "ganet": (2, 6144), "res50tp": (1, 2048),
-              "resnet50_s1": (1, 2048), "sta": (1, 1024), "simple_sta": (1, 1024)}
+              "resnet50_s1": (1, 2048), "sta": (1, 1024), "simple_sta": (1, 1024),
+              # phase 25: 21 vertices and the fused head; msppgn at --num-gb 2
+              "msppn": (22, 512), "msppgn": (22, 1536)}
 ARCH_STEPS = 6  # train steps per arch; the median takes steps 3-6
 K1_FLAG_SHAPES = ((16, 56, False), (64, 56, True), (1, 2128, True))
 
@@ -3204,18 +3222,19 @@ def build_arch(torch, arch, device, seed=0):
                       consistent_loss=arch in GRAPH_ARCHS, dtype=torch.float32)
 
 
-def arch_serving(torch, gc, layers_mod, arch, model, device):
+def arch_serving(torch, gc, layers_mod, arch, model, device, tag="archs"):
     """A 16-clip request (median and quartiles of 10), the eval forward's
     CUDA-event ms, K1 launches per forward (counted), and, for the graph
-    archs, the kernel path vs the plain path."""
+    archs, the kernel path vs the plain path. An arch that reads a pose
+    graph gets one (msppgn's over its three scales), the others all ones."""
     from agrl_torch.data.transforms import preprocess_clips
     from agrl_torch.engine.export import FeatureExtractor
     from agrl_torch.models import default_num_vertices
 
     V = default_num_vertices(model, SEQ_LEN)
     imgs = random_clips(BATCH, 240)
-    adjs = pose_adjacency(BATCH, 240) if arch in GRAPH_ARCHS else np.ones((BATCH, V, V),
-                                                                          np.float32)
+    adjs = (pose_adjacency(BATCH, 240, getattr(model, "num_vertex_scales", 1))
+            if arch in GRAPH_ARCHS + ("msppgn",) else np.ones((BATCH, V, V), np.float32))
     fx = FeatureExtractor(model, batch_size=BATCH, seq_len=SEQ_LEN, bf16=False, device=device)
     gc.launches = 0  # this arch's 16-clip request starts here
     feats = fx(imgs, adjs)
@@ -3251,7 +3270,7 @@ def arch_serving(torch, gc, layers_mod, arch, model, device):
                clips_per_s=BATCH / q[1] * 1e3, forward16_ms=float(np.median(fwd)),
                k1_launches_per_forward=launches, kernel_vs_plain_rel_err=err,
                features_finite=bool(np.isfinite(feats).all()))
-    log(f"[archs] {arch}: serve 16 clips {q[1]:.2f} ms ({q[0]:.2f}-{q[2]:.2f}), "
+    log(f"[{tag}] {arch}: serve 16 clips {q[1]:.2f} ms ({q[0]:.2f}-{q[2]:.2f}), "
         f"{rec['clips_per_s']:.1f} clips/s; eval forward {rec['forward16_ms']:.2f} ms (CUDA "
         f"events, median of 5); feature {feats.shape[1]}-d; K1 {launches} launches a forward"
         + ("" if err is None else f"; kernel vs plain path {err:.3e} of max (tol 1e-5)"))
@@ -3308,10 +3327,11 @@ def arch_bf16_serving(torch, gc, layers_mod, arch, device):
     return rec
 
 
-def arch_train(torch, tri, arch, model):
+def arch_train(torch, tri, arch, model, batches=None, tag="archs"):
     """ARCH_STEPS train steps of the paper recipe (4x4 colour batches, flips,
     soft margin, Adam lr 1e-4; the consistent loss for gsta and ganet):
-    median ms of steps 3-6, peak GB, losses, K3 launches (1 + 1 a step)."""
+    median ms of steps 3-6, peak GB, losses, K3 launches (1 + 1 a step).
+    `batches`: phase 24's 56-vertex ones unless given."""
     from agrl_torch.engine.trainer import make_train_step
     from agrl_torch.optim import init_optim
 
@@ -3319,7 +3339,7 @@ def arch_train(torch, tri, arch, model):
     opt = init_optim("adam", model.parameters(), 1e-4, weight_decay=5e-4)
     step = make_train_step(model, opt, lambda s: 1e-4, label_smooth=False, soft_margin=True,
                            aug={"flip_aug": True})
-    batches = surface_batches(ARCH_STEPS, 300)
+    batches = batches or surface_batches(ARCH_STEPS, 300)
     gen = torch.Generator().manual_seed(24)
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
@@ -3335,7 +3355,7 @@ def arch_train(torch, tri, arch, model):
                step_ms_median=float(np.median(times[2:])), step_ms_all=times,
                peak_mem_gb=torch.cuda.max_memory_allocated() / 1e9, losses=losses,
                k3_per_step=[fwd / ARCH_STEPS, bwd / ARCH_STEPS])
-    log(f"[archs] {arch}: train step {rec['step_ms_median']:.2f} ms (median of steps 3-"
+    log(f"[{tag}] {arch}: train step {rec['step_ms_median']:.2f} ms (median of steps 3-"
         f"{ARCH_STEPS}; all {', '.join(f'{t:.1f}' for t in times)}), peak "
         f"{rec['peak_mem_gb']:.2f} GB, loss {losses[0][0]:.4f} -> {losses[-1][0]:.4f}; "
         f"{rec['heads']} heads x {rec['feature_dim']}-d; hard_mine {fwd} + {bwd} launches")
@@ -3362,13 +3382,16 @@ def arch_card_vs_cpu(torch, arch, device):
 
     from agrl_torch.engine.trainer import make_train_step
     from agrl_torch.models.ganet import GANet
+    from agrl_torch.models.graphnet import MSPyraPartGraphNet, MSPyraPartNet
     from agrl_torch.models.gsta import GSTA
     from agrl_torch.models.res50tp import ResNet50S1, ResNet50TP
     from agrl_torch.models.sta import STA
     from agrl_torch.optim import init_optim
 
     ctor = {"gsta": GSTA, "ganet": GANet, "res50tp": ResNet50TP, "resnet50_s1": ResNet50S1,
-            "sta": STA, "simple_sta": lambda **kw: STA(simple=True, **kw)}[arch]
+            "sta": STA, "simple_sta": lambda **kw: STA(simple=True, **kw),
+            "msppn": lambda **kw: MSPyraPartNet(num_split=4, **kw),
+            "msppgn": lambda **kw: MSPyraPartGraphNet(num_split=4, num_gb=2, **kw)}[arch]
     kw = dict(consistent_loss=True) if arch in GRAPH_ARCHS else {}
     cpu = ctor(num_classes=4, layers=(1, 1, 1, 1), **kw)
     cpu.init_weights(torch.Generator().manual_seed(25))
@@ -3378,7 +3401,7 @@ def arch_card_vs_cpu(torch, arch, device):
     card = copy.deepcopy(cpu).to(device)
     imgs = banded_clips(4, 25, 64, 32)
     pids = np.array([0, 0, 1, 1])
-    adjs = pose_adjacency(4, 25)
+    adjs = pose_adjacency(4, 25, getattr(cpu, "num_vertex_scales", 1))
     x = imgs.astype(np.float32) / 255.0
     feats, losses = {}, {}
     for name, model, dev in (("cpu", cpu, "cpu"), ("card", card, device)):
@@ -3392,7 +3415,8 @@ def arch_card_vs_cpu(torch, arch, device):
         losses[name] = [float(metrics[k]) for k in ("loss", "xent_loss", "htri_loss")]
     feat_err = rel_err(feats["card"], feats["cpu"])
     loss_err = max(abs(a - b) / abs(b) for a, b in zip(losses["card"], losses["cpu"]))
-    log(f"[archs] {arch} (1,1,1,1) 64x32, card vs CPU: eval feature {feat_err:.3e} of max (tol "
+    tag = "graphnets" if arch in GRAPHNETS else "archs"
+    log(f"[{tag}] {arch} (1,1,1,1) 64x32, card vs CPU: eval feature {feat_err:.3e} of max (tol "
         f"1e-3), train step losses rel {loss_err:.3e} (tol 1e-3)")
     if not (feat_err <= 1e-3 and loss_err <= 1e-3):
         raise AssertionError(f"{arch}: card and CPU disagree ({feat_err}, {loss_err})")
@@ -3444,13 +3468,15 @@ def phase_k1_flags(torch, gc, device, flush):
     return recs
 
 
-def phase_k3_arch_shapes(torch, tri, losses_mod, device, flush):
+def phase_k3_arch_shapes(torch, tri, losses_mod, device, flush,
+                         shapes=((2, 6144), (1, 1024)), tag="archs"):
     """K3 vs its twin at ganet's (H=2, D=6144) and sta's (H=1, D=1024) train
-    shapes: values atol 1e-4, picks equal, the multi-head loss's gradients
-    atol 1e-5; device ms of both kernels and their twins, and the bounds."""
+    shapes (phase 25: msppn's and msppgn's `shapes`): values atol 1e-4,
+    picks equal, the multi-head loss's gradients atol 1e-5; device ms of
+    both kernels and their twins, and the bounds."""
     plain_loss = plain_triplet_heads(tri, losses_mod)
     recs = []
-    for H, D in ((2, 6144), (1, 1024)):
+    for H, D in shapes:
         heads, labels = triplet_heads(torch, H, BATCH, D, device, seed=D)
         got = tri.hard_mine_heads_kernel(heads, labels)
         want = tri.hard_mine_heads_reference(heads, labels)
@@ -3477,7 +3503,7 @@ def phase_k3_arch_shapes(torch, tri, losses_mod, device, flush):
         rec["bound_ms"], rec["bound_by"] = triplet_bound_ms(H, BATCH, D)
         rec["backward_bound_ms"], rec["backward_bound_by"] = triplet_bound_ms(
             H, BATCH, D, s_nnz=s_nonzeros(torch, tri, *got))
-        log(f"[archs] K3 H={H} B={BATCH} D={D}: max|kernel - plain| {err:.3e} (atol 1e-4), "
+        log(f"[{tag}] K3 H={H} B={BATCH} D={D}: max|kernel - plain| {err:.3e} (atol 1e-4), "
             f"picks equal {picks}, gradients {gerr:.3e} (atol 1e-5); device ms forward "
             f"{rec['ms']:.4f} (bound {rec['bound_ms']:.6f}, plain {rec['plain_ms']:.4f}, cdist "
             f"{rec['library_ms']:.4f}), backward {rec['backward_ms']:.4f} (bound "
@@ -3489,11 +3515,13 @@ def phase_k3_arch_shapes(torch, tri, losses_mod, device, flush):
     return recs
 
 
-def phase_cli_archs(torch, tri, gc):
-    """One CLI epoch of -a gsta, -a ganet and -a sta with the paper preset on
-    phase 16's MARS layout (in process, wrappers counted), each evaluated at
-    evenly; then --evaluate --resume best_model under evenly and all for
-    gsta and ganet (K1 2 per eval batch for them, 0 for sta)."""
+def phase_cli_archs(torch, tri, gc, runs=(("gsta", ()), ("ganet", ()), ("sta", ()))):
+    """One CLI epoch of each (arch, extra flags) of `runs` with the paper
+    preset on phase 16's MARS layout (in process, wrappers counted), each
+    evaluated at evenly; then --evaluate --resume best_model under evenly
+    and all for gsta and ganet (phase 24) and msppgn (phase 25, whose `all`
+    pads its adjacency through pad_eval_adjacency). K1: 2 per eval batch
+    for gsta and ganet, 0 for the others."""
     from agrl_torch.cli import train_vidreid_xent_htri as cli
     from agrl_torch.data.datasets import init_vidreid_dataset
     from agrl_torch.data.datasets.synthetic_mars import materialize_mars_layout
@@ -3508,9 +3536,11 @@ def phase_cli_archs(torch, tri, gc):
         preset = vmgn_args()
         test_batch = int(preset[preset.index("--test-batch") + 1])
         evenly_batches = -(-len(ds.query) // test_batch) + -(-len(ds.gallery) // test_batch)
-        for arch in ("gsta", "ganet", "sta"):
+        for arch, extra in runs:
+            tag = "graphnets" if arch in GRAPHNETS else "archs"
             argv = ["-d", "mars", *without_flag(preset, "-a"), "-a", arch, "--root", root,
-                    "--max-epoch", "1", "--print-freq", "1", "--save-dir", f"{tmp}/{arch}"]
+                    "--max-epoch", "1", "--print-freq", "1", "--save-dir", f"{tmp}/{arch}",
+                    *extra]
             tri.launches = tri.backward_launches = gc.launches = 0  # this run starts here
             t0 = time.perf_counter()
             _, text = run_cli_in_process(cli, argv)
@@ -3527,10 +3557,11 @@ def phase_cli_archs(torch, tri, gc):
             want_k1 = 2 if arch in GRAPH_ARCHS else 0
             ok = (n > 0 and fwd == bwd == n and k1 == want_k1 * evenly_batches
                   and len(rec["evals"]) == 1 and all(math.isfinite(v) for v in losses))
-            log(f"[archs] cli -a {arch}: {n} steps, Time meter median {rec['step_ms_median']} "
+            log(f"[{tag}] cli -a {arch} {' '.join(extra)}: {n} steps, Time meter median "
+                f"{rec['step_ms_median']} "
                 f"ms; hard_mine {fwd}+{bwd}, K1 {k1} for {evenly_batches} eval batches; CMC "
                 f"(rank-1, mAP) {rec['evals']}; {secs:.1f} s")
-            if arch in GRAPH_ARCHS:
+            if arch in GRAPH_ARCHS + GRAPHNETS:
                 best = f"{tmp}/{arch}/best_model.pth.tar"
                 for sample in ("evenly", "all"):
                     eval_argv = (without_flag(argv, "--test-sample")
@@ -3543,10 +3574,10 @@ def phase_cli_archs(torch, tri, gc):
                     rec[f"evaluate_{sample}"] = dict(
                         rank1_mAP=[float(v) for v in result], k1=gc.launches,
                         eval_batches=batches, seconds=time.perf_counter() - t0)
-                    log(f"[archs] cli -a {arch} --evaluate --test-sample {sample}: (rank-1, "
+                    log(f"[{tag}] cli -a {arch} --evaluate --test-sample {sample}: (rank-1, "
                         f"mAP) {rec[f'evaluate_{sample}']['rank1_mAP']}, K1 {gc.launches} for "
                         f"{batches} eval batches")
-                    ok = ok and gc.launches == 2 * batches
+                    ok = ok and gc.launches == want_k1 * batches
             out[arch] = rec
             if not ok:
                 raise AssertionError(f"CLI -a {arch}: {rec}")
@@ -3574,6 +3605,87 @@ def phase_archs(torch, tri, gc, layers_mod, device):
     out["archs_seconds"] = time.perf_counter() - t_phase
     t0 = time.perf_counter()
     out["cli"] = phase_cli_archs(torch, tri, gc)
+    out["cli_seconds"] = time.perf_counter() - t0
+    out["phase_seconds"] = time.perf_counter() - t_phase
+    return out
+
+
+# ---- phase 25: msppn and msppgn ---------------------------------------------
+
+GRAPHNETS = ("msppn", "msppgn")
+NUM_SCALES_GRAPHNET = 3  # their vertices span layer2, layer3 and layer4
+# K3 at msppn's and msppgn's train steps (--num-gb 2), at --num-split 8,
+# and at the most heads one launch takes (ops/triplet.MAX_HEADS, 64)
+GRAPHNET_K3_SHAPES = ((22, 512), (22, 1536), (46, 1536), (64, 1536))
+
+
+def build_graphnet(torch, arch, device, seed=0):
+    """msppn or msppgn at the paper's flags with --num-scale 3 (V = 168),
+    as the CLI builds it (both drop the dtype: float32)."""
+    from agrl_torch.models import init_model
+
+    return init_model(arch, num_classes=NUM_CLASSES, device=device, seed=seed, num_split=4,
+                      pyramid_part=True, num_gb=2, use_pose=True, learn_graph=True,
+                      num_scale=3, dtype=torch.float32)
+
+
+def graphnet_batches(n, seed):
+    """n paper-config batches (16 colour clips of 4 ids) with 168-vertex pose
+    graphs (--num-scale 3)."""
+    pids = np.repeat(np.arange(BATCH // 4), 4)
+    return [(colour_clips(BATCH, seed + i), pids, pose_adjacency(BATCH, seed + i, 3))
+            for i in range(n)]
+
+
+def graphnet_bf16_serving(torch, arch, model, device):
+    """A 16-clip request through the FeatureExtractor's bf16 default
+    (weights, pixels and adjacency rounded; the trunk follows the bf16
+    input): finite features, their difference from the fp32 request's
+    (max over max), and the request's ms (median of 10)."""
+    from agrl_torch.engine.export import FeatureExtractor
+
+    imgs = random_clips(BATCH, 242)
+    adjs = pose_adjacency(BATCH, 242, NUM_SCALES_GRAPHNET) if arch == "msppgn" else None
+    f32 = FeatureExtractor(model, batch_size=BATCH, seq_len=SEQ_LEN, bf16=False,
+                           device=device)(imgs, adjs)
+    fx = FeatureExtractor(model, batch_size=BATCH, seq_len=SEQ_LEN, device=device)
+    feats = fx(imgs, adjs)
+    times = []
+    for _ in range(10):
+        t0 = time.perf_counter()
+        fx(imgs, adjs)
+        times.append((time.perf_counter() - t0) * 1e3)
+    rec = dict(request16_ms=float(np.median(times)), vs_fp32_rel=rel_err(feats, f32),
+               finite=bool(np.isfinite(feats).all()))
+    log(f"[graphnets] {arch} bf16 serving: request {rec['request16_ms']:.2f} ms; features vs "
+        f"fp32 {rec['vs_fp32_rel']:.3e} of max")
+    if not (rec["finite"] and feats.shape == f32.shape):
+        raise AssertionError(f"{arch} bf16 serving: {rec}")
+    return rec
+
+
+def phase_graphnets(torch, tri, gc, layers_mod, device):
+    """Phase 25: msppn and msppgn served and trained at full width and depth
+    (K1 0 launches a forward, K3 1 + 1 a step over 22 heads), card vs CPU at
+    depth (1,1,1,1); the CLI's msppgn epoch and its evenly and `all`
+    evaluations. (K3's new shapes run early, beside phase 8.)"""
+    t_phase = time.perf_counter()
+    out = {"archs": {}}
+    batches = graphnet_batches(ARCH_STEPS, 400)
+    for arch in GRAPHNETS:
+        model = build_graphnet(torch, arch, device)
+        rec = dict(params_m=sum(p.numel() for p in model.parameters()) / 1e6,
+                   vertices=NUM_SCALES_GRAPHNET * 7 * SEQ_LEN)
+        rec["serving"] = arch_serving(torch, gc, layers_mod, arch, model, device, "graphnets")
+        rec["bf16_serving"] = graphnet_bf16_serving(torch, arch, model, device)
+        rec["training"] = arch_train(torch, tri, arch, model, batches, "graphnets")
+        del model
+        torch.cuda.empty_cache()
+        rec["card_vs_cpu"] = arch_card_vs_cpu(torch, arch, device)
+        out["archs"][arch] = rec
+    out["archs_seconds"] = time.perf_counter() - t_phase
+    t0 = time.perf_counter()
+    out["cli"] = phase_cli_archs(torch, tri, gc, runs=(("msppgn", ("--num-scale", "3")),))
     out["cli_seconds"] = time.perf_counter() - t0
     out["phase_seconds"] = time.perf_counter() - t_phase
     return out
@@ -3645,6 +3757,11 @@ def main() -> int:
     t0 = time.perf_counter()
     arch_kernels["k3_shapes"] = phase_k3_arch_shapes(torch, tri, losses_mod, device, flush)
     arch_kernels["kernels_seconds"] = kernels_seconds + time.perf_counter() - t0
+    # 25, kernels: K3 at msppn's and msppgn's shapes (beside phase 8)
+    t0 = time.perf_counter()
+    graphnet_kernels = dict(k3_shapes=phase_k3_arch_shapes(
+        torch, tri, losses_mod, device, flush, GRAPHNET_K3_SHAPES, "graphnets"))
+    graphnet_kernels["kernels_seconds"] = time.perf_counter() - t0
     # 12. K4 vs plain at the JAX package's test shapes
     phase_minsum_shapes(torch, ms, device)
 
@@ -3748,6 +3865,10 @@ def main() -> int:
     # flags, K3's new shapes, the CLI
     archs = phase_archs(torch, tri, gc, layers_mod, device)
     archs.update(arch_kernels)
+    # 25. msppn and msppgn: serving, training over 22 heads, card vs CPU, the
+    # CLI's msppgn epoch and its evenly and all evaluations
+    graphnets = phase_graphnets(torch, tri, gc, layers_mod, device)
+    graphnets.update(graphnet_kernels)
 
     print(json.dumps({"serving": serving}))
     print(json.dumps({"training": training}))
@@ -3759,6 +3880,7 @@ def main() -> int:
     print(json.dumps({"input": host_input}))
     print(json.dumps({"train_surface": surface}))
     print(json.dumps({"archs": archs}))
+    print(json.dumps({"graphnets": graphnets}))
     kernel = {
         "name": "graph_propagate",
         "route": "cuda",
@@ -3807,6 +3929,14 @@ def main() -> int:
                                       for a, r in archs["archs"].items()},
         "arch_cli_launches_per_eval_batch": {a: r["k1_per_eval_batch"]
                                              for a, r in archs["cli"].items()},
+        "graphnet_launches_per_forward": {a: r["serving"]["k1_launches_per_forward"]
+                                          for a, r in graphnets["archs"].items()},
+        "graphnet_cli_launches": {a: [r["k1_per_eval_batch"]] + [
+            r[f"evaluate_{s}"]["k1"] for s in ("evenly", "all")]
+            for a, r in graphnets["cli"].items()},
+        "graphnet_note": "phase 25: msppn has no graph; msppgn's GraphBlocks are torch ops "
+                         "(agrl_tpu runs them as XLA ops, outside any Pallas kernel), so "
+                         "K1 launches 0 times on both",
         "ganet_flags": archs["k1_flags"],
         "ganet_flags_note": "phase 24: mask_diag + additive vs the plain twin; ms, plain_ms, "
                             "library_ms (torch.matmul(f, W)): CUDA events, L2 flushed",
@@ -3855,6 +3985,12 @@ def main() -> int:
                                    for a, r in archs["archs"].items()},
         "arch_cli_launches_per_step": {a: r["k3_per_step"] for a, r in archs["cli"].items()},
         "arch_shapes": archs["k3_shapes"],
+        "max_heads_checked": max(r["H"] for r in graphnets["k3_shapes"]),
+        "graphnet_launches_per_step": {a: r["training"]["k3_per_step"]
+                                       for a, r in graphnets["archs"].items()},
+        "graphnet_cli_launches_per_step": {a: r["k3_per_step"]
+                                           for a, r in graphnets["cli"].items()},
+        "graphnet_shapes": graphnets["k3_shapes"],
         "arch_shapes_note": "phase 24: device time per call (torch.profiler), or CUDA events "
                             "around one call where `timing` says so",
         "max_abs_err": trec["max_abs_err"],
@@ -3900,8 +4036,8 @@ def main() -> int:
             ("forward", trec["ms"], trec["plain_ms"]),
             ("backward", trec["backward_ms"], trec["plain_backward_ms"]),
             *((f"{n} H={r['H']} D={r['D']}", r[k], r[f"plain_{k}"])
-              for r in archs["k3_shapes"] for n, k in (("forward", "ms"),
-                                                       ("backward", "backward_ms")))),
+              for r in archs["k3_shapes"] + graphnets["k3_shapes"]
+              for n, k in (("forward", "ms"), ("backward", "backward_ms")))),
     }
     min_sum = {
         "name": "min_sum",

@@ -48,11 +48,11 @@ def test_parser_flag_matches_agrl_tpu(dest):
 
 # the refusals: extra argv -> (flag the message names, value it names)
 REFUSALS = {
-    # gsta, ganet, sta, simple_sta, res50tp and resnet50_s1 are ported
-    # (test_cli_trains_and_evaluates_each_arch); the multi-scale pair and the legacy
-    # and 3D families are refused, each naming its ROADMAP item
-    "arch": (["-a", "msppn"], "--arch", "msppn"),
-    "arch_msppgn": (["-a", "msppgn"], "--arch", "ROADMAP A7c"),
+    # gsta, ganet, sta, simple_sta, res50tp, resnet50_s1, msppn and msppgn
+    # are ported (test_cli_trains_and_evaluates_each_arch); the legacy and 3D
+    # families are refused, each naming its ROADMAP item
+    "arch": (["-a", "res50tp_legacy"], "--arch", "res50tp_legacy"),
+    "arch_res50ta": (["-a", "res50ta"], "--arch", "ROADMAP A7e"),
     "arch_legacy": (["-a", "res50rnn"], "--arch", "ROADMAP A7e"),
     "arch_3d": (["-a", "resnet3d50"], "--arch", "ROADMAP A7e"),
     "mesh_dp": (["--mesh-dp", "2"], "--mesh-dp", "2"),
@@ -63,6 +63,9 @@ REFUSALS = {
     "dist_process_id": (["--dist-process-id", "0"], "--dist-process-id", "0"),
     # the card's kernel limits, checked without --use-cpu before the device
     "card_train_batch": (["--train-batch", "257"], "--train-batch", "257"),
+    # 3 x 31 + 1 = 94 heads, above the 64 K3 mines in one launch
+    "card_heads": (["-a", "msppgn", "--num-split", "16", "--learn-graph"], "--num-split",
+                   "94 heads"),
 }
 
 
@@ -89,12 +92,52 @@ def test_preflight_refuses_before_reading_data(case, tmp_path, monkeypatch):
 
 def test_every_arch_choice_is_ported_or_refused_by_item():
     """-a's choices (agrl_tpu's registry) split into the port's registry and
-    the refused names, each refusal naming A7c or A7e."""
+    the refused names, each refusal naming A7e: the legacy and 3D video
+    families (msppn and msppgn are ported)."""
     from agrl_torch.models import get_names
 
     ported, refused = set(get_names()), set(tcli.UNPORTED_ARCHS)
     assert ported | refused == set(tcli.ARCH_NAMES) and not ported & refused
-    assert set(tcli.UNPORTED_ARCHS.values()) == {"A7c", "A7e"}
+    assert {"msppn", "msppgn"} <= ported
+    assert set(tcli.UNPORTED_ARCHS.values()) == {"A7e"}
+
+
+# graph layout flags -> the pre-flight's refusal, agrl_tpu's message
+# (agrl_tpu/cli/train_vidreid_xent_htri.py:367-394), or None: accepted
+LAYOUTS = {
+    "msppgn_pose_one_scale": (["-a", "msppgn", "--use-pose", "--num-scale", "1",
+                               "--pyramid-part"],
+                              "arch 'msppgn' consumes a 3-scale adjacency (vertices span "
+                              "layer2/3/4) but --num-scale is 1; pass --num-scale 3"),
+    "msppgn_no_pyramid": (["-a", "msppgn", "--use-pose", "--num-scale", "3"],
+                          "arch 'msppgn' pools 7 pyramid parts per frame (calc_splits(4)) but "
+                          "the pose graph is built with 4; pass --pyramid-part"),
+    "msppgn_neither_one_scale": (["-a", "msppgn", "--pyramid-part"],
+                                 "arch 'msppgn' consumes a 3-scale adjacency"),
+    "msppgn_learned_no_pyramid": (["-a", "msppgn", "--learn-graph", "--num-scale", "3"], None),
+    "msppgn_pose": (["-a", "msppgn", "--use-pose", "--num-scale", "3", "--pyramid-part"], None),
+    "msppgn_learned_any_scale": (["-a", "msppgn", "--learn-graph", "--num-scale", "1"], None),
+    "msppn_default_scale": (["-a", "msppn"], None),
+    "msppn_any_scale": (["-a", "msppn", "--num-scale", "3", "--num-split", "8"], None),
+}
+
+
+@pytest.mark.parametrize("case", sorted(LAYOUTS))
+def test_preflight_checks_the_graph_layout_as_agrl_tpu(case):
+    """When a model reads a multi-scale adjacency (msppgn with --use-pose,
+    or without --learn-graph) --num-scale must be 3 and the data side's
+    parts per frame the model's; msppn, and msppgn with --learn-graph
+    alone, never read it and take any layout. Refused with agrl_tpu's
+    message, on the CPU and for the card, before any data is read."""
+    extra, refusal = LAYOUTS[case]
+    for card in (False, True):
+        args = tcli.build_parser().parse_args(extra + ([] if card else ["--use-cpu"]))
+        if refusal is None:
+            tcli.preflight(args)
+            continue
+        with pytest.raises(SystemExit) as exc:
+            tcli.preflight(args)
+        assert refusal in str(exc.value), str(exc.value)
 
 
 def test_preflight_lets_the_cpu_take_the_card_limits():
@@ -361,26 +404,33 @@ def test_preflight_takes_the_train_flags_and_a_cpu_epoch_runs_with_them(
     assert out.count("Computing CMC and mAP on device") == 1
 
 
-# the single-scale archs: the CLI's -a, the eval feature's width (ganet's
-# (num_gb + 1) * 2048 at the base's --num-gb 1)
-CLI_ARCHS = {"gsta": 2048, "ganet": 4096, "sta": 1024}
+# the single-scale and multi-scale archs: the CLI's -a, the eval feature's
+# width (ganet's (num_gb + 1) * 2048 and msppgn's (num_gb + 1) * 512 at the
+# base's --num-gb 1)
+CLI_ARCHS = {"gsta": 2048, "ganet": 4096, "sta": 1024, "msppn": 512, "msppgn": 1024}
+CLI_CLASSES = {"gsta": "GSTA", "ganet": "GANet", "sta": "STA", "msppn": "MSPyraPartNet",
+               "msppgn": "MSPyraPartGraphNet"}
 
 
 @pytest.mark.parametrize("arch", sorted(CLI_ARCHS))
 def test_cli_trains_and_evaluates_each_arch(arch, trained, tmp_path, monkeypatch):
-    """-a gsta, ganet and sta at full ResNet-50 depth on the CPU (64x32,
-    seq_len 4): the pre-flight passes them (also for the card), one epoch
-    of 4 steps (gsta and ganet with --consistent-loss: 2 heads) with
-    finite meter lines, an evenly evaluation and a checkpoint; then
-    --evaluate --resume best_model under --test-sample all (frame-masked
-    buckets), whose features have the arch's width."""
+    """-a gsta, ganet, sta, msppn and msppgn at full ResNet-50 depth on the
+    CPU (64x32, seq_len 4): the pre-flight passes them (also for the card),
+    one epoch of 4 steps (gsta and ganet with --consistent-loss: 2 heads;
+    msppn and msppgn 22) with finite meter lines, an evenly evaluation and
+    a checkpoint; then --evaluate --resume best_model under --test-sample
+    all (frame-masked buckets; msppgn's adjacency padded split-major by its
+    pad_eval_adjacency), whose features have the arch's width. msppn runs
+    at the default --num-scale 1, msppgn (--use-pose) at 3."""
     import agrl_torch.engine.evaluator as ev
 
     save_dir = str(tmp_path / "log")
     base = [a if a != trained["save_dir"] else save_dir for a in trained["base"]]
     base[base.index("vmgn_tiny")] = arch
-    if arch != "sta":
+    if arch in ("gsta", "ganet"):
         base.append("--consistent-loss")
+    if arch == "msppgn":
+        base += ["--num-scale", "3"]
     tcli.preflight(tcli.build_parser().parse_args([a for a in base if a != "--use-cpu"]))
     seen = _spy_train_step(monkeypatch)
     widths, real_extract = [], ev.Evaluator.extract
@@ -394,9 +444,8 @@ def test_cli_trains_and_evaluates_each_arch(arch, trained, tmp_path, monkeypatch
     try:
         result, out = _run_cli(base + ["--max-epoch", "1", "--eval-step", "1",
                                        "--print-freq", "1"])
-        assert result is None and type(seen["model"]).__name__ == {
-            "gsta": "GSTA", "ganet": "GANet", "sta": "STA"}[arch]
-        assert getattr(seen["model"], "consistent_loss", False) == (arch != "sta")
+        assert result is None and type(seen["model"]).__name__ == CLI_CLASSES[arch]
+        assert getattr(seen["model"], "consistent_loss", False) == (arch in ("gsta", "ganet"))
         meters = [METER.match(line) for line in out.splitlines() if line.startswith("CurTime: ")]
         assert len(meters) == 4 and all(m is not None for m in meters)
         assert all(np.isfinite(float(v)) for m in meters for v in m.groups())

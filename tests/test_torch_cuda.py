@@ -247,7 +247,7 @@ def test_hard_mine_kernel_rejects_what_it_does_not_take(cuda):
         triplet.hard_mine_kernel(torch.zeros(257, 8, device=cuda),
                                  torch.zeros(257, dtype=torch.int64, device=cuda))
     with pytest.raises(ValueError):  # more heads than the kernel takes
-        triplet.hard_mine_heads_kernel([f] * 9, labels)
+        triplet.hard_mine_heads_kernel([f] * (triplet.MAX_HEADS + 1), labels)
     with pytest.raises(ValueError):  # heads of different shapes
         triplet.hard_mine_heads_kernel([f, f[:, :1024].contiguous()], labels)
     with pytest.raises(ValueError):  # D not a multiple of 4
@@ -797,6 +797,56 @@ def test_single_scale_arch_on_the_card(cuda, arch):
             layers_mod.graph_propagate = graph_conv.graph_propagate
     assert launched == (2 if arch in ("gsta", "ganet") else 0)
     assert float((got - want).abs().max()) <= 1e-5 * float(want.abs().max())
+    opt = init_optim("adam", model.parameters(), 1e-4, weight_decay=5e-4)
+    step = make_train_step(model, opt, lambda s: 1e-4, aug={"flip_aug": True})
+    gen = torch.Generator().manual_seed(1)
+    before = (triplet.launches, triplet.backward_launches)
+    losses = [float(step(imgs, np.repeat(np.arange(4), 4), adjs, generator=gen)["loss"])
+              for _ in range(2)]
+    assert (triplet.launches - before[0], triplet.backward_launches - before[1]) == (2, 2)
+    assert all(np.isfinite(losses))
+
+
+@pytest.mark.parametrize("H,B,D", [(22, 16, 512), (22, 16, 1536), (46, 16, 1536),
+                                   (64, 16, 64)])
+def test_hard_mine_heads_at_the_multi_scale_archs_shapes(cuda, H, B, D):
+    """K3 at the train steps of msppn (H=22, D=512) and msppgn at --num-gb
+    2 (22, 1536), msppgn at --num-split 8 (46, 1536), and the limit, 64
+    heads: one launch each way, against the plain twins."""
+    test_hard_mine_heads_kernels_match_plain(cuda, H, B, D)
+
+
+@pytest.mark.parametrize("arch", ["msppn", "msppgn"])
+def test_multi_scale_arch_on_the_card(cuda, arch):
+    """Each arch at depth (1,1,1,1), 128x64, S=8, --num-split 4 (V = 168):
+    the eval forward launches K1 never (GraphBlock is torch ops, as it is
+    XLA ops in agrl_tpu) and is finite; two train steps over 22 heads
+    launch K3 once each way per step with finite losses; the padded `all`
+    forward equals the unpadded one."""
+    from agrl_torch.engine.trainer import make_train_step
+    from agrl_torch.models.graphnet import MSPyraPartGraphNet, MSPyraPartNet
+    from agrl_torch.optim import init_optim
+
+    model = (MSPyraPartNet(num_classes=4, num_split=4, layers=(1, 1, 1, 1)) if arch == "msppn"
+             else MSPyraPartGraphNet(num_classes=4, num_split=4, num_gb=2, layers=(1, 1, 1, 1)))
+    model.init_weights(torch.Generator().manual_seed(0))
+    model = model.to(cuda).eval()
+    rng = np.random.RandomState(0)
+    imgs = rng.randint(0, 256, (16, 8, 128, 64, 3)).astype(np.uint8)
+    adjs = (rng.rand(16, 168, 168) > 0.5).astype(np.float32)
+    x = torch.from_numpy(imgs).to(cuda).float() / 255.0
+    a = torch.from_numpy(adjs).to(cuda)
+    with torch.no_grad():
+        before = graph_conv.launches
+        got = model(x, a)
+        torch.cuda.synchronize()
+        assert graph_conv.launches == before and torch.isfinite(got).all()
+        Sp = 16
+        xp = torch.cat([x[:1], torch.zeros_like(x[:1])], dim=1)
+        ap = torch.from_numpy(model.pad_eval_adjacency(adjs[0], 8, Sp))[None].to(cuda)
+        fm = torch.cat([torch.ones(1, 8), torch.zeros(1, 8)], dim=1).to(cuda)
+        padded = model(xp, ap, frame_mask=fm)
+        assert float((padded - got[:1]).abs().max()) <= 1e-4 * float(got[:1].abs().max())
     opt = init_optim("adam", model.parameters(), 1e-4, weight_decay=5e-4)
     step = make_train_step(model, opt, lambda s: 1e-4, aug={"flip_aug": True})
     gen = torch.Generator().manual_seed(1)

@@ -20,6 +20,8 @@ from agrl_tpu.ops.triplet import hard_mine_pallas
 
 D = 2048
 SHAPES = [(1, 16), (3, 15), (5, 16)]  # (H, B): one head, a ragged batch, a train step
+# and the 22 heads of an msppn/msppgn step at --num-split 4
+LOSS_SHAPES = SHAPES + [(22, 16)]
 
 
 def _heads(H, B, seed=0, K=4, D=D, scale=0.5):
@@ -66,7 +68,7 @@ def test_heads_reference_matches_pallas_and_jnp(H, B):
 
 
 @pytest.mark.parametrize("soft", [True, False])
-@pytest.mark.parametrize("H,B", SHAPES)
+@pytest.mark.parametrize("H,B", LOSS_SHAPES)
 def test_heads_loss_and_gradients_match_jax(H, B, soft):
     """The kernel path's structure (one mining call for all heads, the
     hand-written backward) with the plain twins: loss rtol 1e-6, every
@@ -86,7 +88,7 @@ def test_heads_loss_and_gradients_match_jax(H, B, soft):
 
 
 @pytest.mark.parametrize("soft", [True, False])
-@pytest.mark.parametrize("H,B", SHAPES)
+@pytest.mark.parametrize("H,B", LOSS_SHAPES)
 def test_heads_loss_on_cpu_is_deep_supervision(H, B, soft):
     """On CPU tensors the multi-head loss is deep_supervision(batch_hard_
     triplet, ...): bit-equal loss and gradients; and within 1e-6 of the
@@ -185,7 +187,7 @@ def test_heads_refuse_other_devices():
 
 
 @pytest.mark.parametrize("case,match", [
-    ("nine_heads", "heads"),
+    ("too_many_heads", "heads"),
     ("no_heads", "heads"),
     ("batch_257", "B <= 256"),
     ("dim_not_4", "D % 4"),
@@ -201,7 +203,7 @@ def test_kernel_wrappers_refuse_before_launching(case, match):
     f = torch.zeros(16, 64)
     y = torch.zeros(16, dtype=torch.int64)
     heads = {
-        "nine_heads": [f] * 9,
+        "too_many_heads": [f] * (triplet.MAX_HEADS + 1),
         "no_heads": [],
         "batch_257": [torch.zeros(257, 64)],
         "dim_not_4": [torch.zeros(16, 66)],
@@ -219,6 +221,21 @@ def test_kernel_wrappers_refuse_before_launching(case, match):
             ids = torch.zeros(len(heads), labels.shape[0], dtype=torch.int64)
             dist = torch.ones(len(heads), labels.shape[0])
             triplet.hard_mine_heads_backward_kernel(heads, dist, dist, ids, ids, dist, None)
+
+
+@pytest.mark.parametrize("H,match", [(64, "CUDA tensors"), (65, "1 to 64 heads")])
+def test_head_limit_is_64(H, match):
+    """K3 takes up to 64 heads in one launch (46 at msppgn's --num-split 8):
+    64 CPU heads pass the head check and stop at the device check, 65 stop
+    at the head check; the kernel source states the same limit, which
+    the wrapper compares with the built library's at first use."""
+    f = torch.zeros(16, 64)
+    with pytest.raises(ValueError, match=match):
+        triplet.hard_mine_heads_kernel([f] * H, torch.zeros(16, dtype=torch.int64))
+    from agrl_torch.kernels.build import CSRC_DIR
+
+    assert "constexpr int kMaxHeads = 64;" in (CSRC_DIR / "triplet.cu").read_text()
+    assert triplet.MAX_HEADS == 64
 
 
 def test_stamp_tool_finds_every_phase_of_the_kernels():
