@@ -32,8 +32,7 @@ import os
 def build_parser():
     p = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     p.add_argument("-a", "--arch", default="vmgn",
-                   help="an arch of agrl_torch's registry: vmgn, vmgn_tiny, gsta, ganet, msppn, "
-                        "msppgn, sta, simple_sta, res50tp, resnet50_s1")
+                   help="an arch of agrl_torch's video registry (models.get_names())")
     p.add_argument("--num-classes", type=int, required=True,
                    help="classifier width the checkpoint was trained with")
     p.add_argument("--load-weights", required=True,
@@ -87,6 +86,8 @@ def main(argv=None):
         use_pose=args.use_pose,
         learn_graph=args.learn_graph,
         bnneck=args.bnneck,
+        height=args.height,
+        width=args.width,
         device="cpu",
     )
     matched, skipped = load_any_checkpoint(model, args.load_weights)

@@ -40,18 +40,15 @@ import numpy as np
 import torch
 
 # agrl_tpu's model registry (agrl_tpu/models/__init__.py), the choices of
-# -a; the port builds the VMGN family, the single-scale archs (gsta,
-# ganet, sta, simple_sta, res50tp, resnet50_s1) and the multi-scale pair
-# (msppn, msppgn), and refuses the rest by ROADMAP item (UNPORTED_ARCHS)
+# -a; the port builds all of it (models/__init__.py). An arch of the
+# registry not yet ported would be refused by its ROADMAP item through
+# UNPORTED_ARCHS, as the flags of multi-device runs (A8) are through _refuse
 ARCH_NAMES = (
     "vmgn", "gsta", "ganet", "msppn", "msppgn", "sta", "simple_sta", "res50tp",
     "resnet50_s1", "vmgn_tiny", "res50tp_legacy", "res50ta", "res50rnn", "resnet3d50",
     "resnet3dt",
 )
-UNPORTED_ARCHS = {
-    "res50tp_legacy": "A7e", "res50ta": "A7e", "res50rnn": "A7e",  # legacy video families
-    "resnet3d50": "A7e", "resnet3dt": "A7e",  # 3D
-}
+UNPORTED_ARCHS: dict[str, str] = {}
 PROTOCOL = "mars"  # the reference's train script always scores with evaluate_mars (:531)
 
 
@@ -109,8 +106,7 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--warmup", action="store_true")
     # Architecture
     p.add_argument("-a", "--arch", type=str, default="vmgn", choices=list(ARCH_NAMES),
-                   help="agrl_tpu's registry; ported: vmgn, vmgn_tiny, gsta, ganet, msppn, "
-                        "msppgn, sta, simple_sta, res50tp, resnet50_s1")
+                   help="agrl_tpu's video registry, all ported")
     p.add_argument("--pool", type=str, default="avg", choices=["avg", "max"])
     p.add_argument("--last-stride", type=int, default=1, choices=[1, 2])
     p.add_argument("--num-split", type=int, default=4)
@@ -282,7 +278,9 @@ def preflight(args) -> None:
 
 def model_kwargs(args, dtype=torch.float32) -> dict:
     """The registry keywords of the run's flags, as agrl_tpu's CLI passes
-    them to init_model."""
+    them to init_model, and the frame size, which sizes res50ta's attention
+    conv at build (agrl_tpu sizes it at create_train_state from
+    --height/--width)."""
     return dict(
         loss={"xent", "htri"},
         last_stride=args.last_stride,
@@ -295,6 +293,8 @@ def model_kwargs(args, dtype=torch.float32) -> dict:
         learn_graph=args.learn_graph,
         consistent_loss=args.consistent_loss,
         bnneck=args.bnneck,
+        height=args.height,
+        width=args.width,
         dtype=dtype,
     )
 

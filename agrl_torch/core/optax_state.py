@@ -58,7 +58,7 @@ def load_optax_state(optimizer: torch.optim.Optimizer, model: torch.nn.Module, o
     agrl_tpu's `opt_state` tree (nested dicts of numpy arrays) for the
     same optimizer and model. Every trainable parameter must find its
     moments and every moment leaf must be used. Returns optax's count."""
-    from agrl_torch.models.weight_convert import _flatten, _to_torch_layout, torch_name_map
+    from agrl_torch.models.weight_convert import _flatten, _gather, torch_name_map
 
     if optim not in _LAYOUT:
         raise KeyError(f"Unsupported optimizer: {optim}. Choices: {tuple(_LAYOUT)}")
@@ -79,13 +79,15 @@ def load_optax_state(optimizer: torch.optim.Optimizer, model: torch.nn.Module, o
         path, _, kind = mapped
         state = {}
         for name, flat in leaves.items():
-            if path not in flat:
-                raise KeyError(f"{pname}: opt_state lacks {name} at {'/'.join(path)}")
-            arr = _to_torch_layout(np.asarray(flat[path], np.float32), kind)
+            try:
+                arr, keys = _gather(flat, path, kind, tuple(p.shape))
+            except KeyError as e:
+                raise KeyError(f"{pname}: opt_state lacks {name} at {'/'.join(e.args[0])}") \
+                    from None
             if tuple(arr.shape) != tuple(p.shape):
                 raise ValueError(f"{pname}: {name} shape {tuple(arr.shape)} != {tuple(p.shape)}")
             state[name] = torch.from_numpy(arr.copy()).to(p.device, p.dtype)
-            used.add(path)
+            used.update(keys)
         if optim not in _NO_STEP:
             # torch.optim.Adam keeps a float32 0-d tensor; the port's classes an int
             state["step"] = (torch.tensor(float(count), dtype=torch.float32)

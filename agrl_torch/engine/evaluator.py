@@ -10,10 +10,14 @@ test(), train_vidreid_xent_htri.py:450-546). Extraction by test_sample:
     (avg or max) on the host in float64 as the slices arrive;
   * `all`: each tracklet pads to the next `_bucket_len` frame count with
     a frame mask the model honours exactly, and same-bucket tracklets
-    batch together under a frame budget of clip_batch * 8.
+    batch together under a frame budget of clip_batch * 8. A model with
+    no `supports_frame_mask` (the legacy video archs: res50tp_legacy,
+    res50ta, res50rnn, resnet3d50, resnet3dt) runs each tracklet whole,
+    unpadded, one loader batch at a time, as agrl_tpu's Evaluator does.
 Features end on the Evaluator's device as (N, D) float32, D the model's
-eval width: 4096 (vmgn), 6144 (ganet), 2048 (gsta, res50tp, resnet50_s1),
-1024 (sta, simple_sta), 512 (msppn) or (num_gb + 1) * 512 (msppgn).
+eval width: 4096 (vmgn), 6144 (ganet), 2048 (gsta, res50tp, resnet50_s1,
+res50tp_legacy, res50ta, resnet3d50, resnet3dt), 1024 (sta, simple_sta),
+512 (msppn, res50rnn) or (num_gb + 1) * 512 (msppgn).
 With `bf16=True` (`--bf16-eval`) every forward is agrl_tpu's bf16 eval
 (`eval_program`: weights, pixels and adjacency rounded to bf16, the model
 at its own dtype).

@@ -33,7 +33,7 @@ bf16 rounding, the model at its own dtype), is served two ways:
     feats = fx(clips_uint8)  # (N, D) float32, any N (D = 4096 for vmgn)
 
 Archs that read no adjacency (res50tp, resnet50_s1, sta, simple_sta,
-msppn) are served the same way: `fx(imgs)` with adjs=None passes an
+msppn and the legacy video archs) are served the same way: `fx(imgs)` with adjs=None passes an
 all-ones one, which they ignore. The all-ones adjacency has
 `default_num_vertices` vertices: S * total_split * 3 for msppn and msppgn
 (168 at --num-split 4 and S = 8), whose vertices span three scales.

@@ -109,28 +109,33 @@ class BatchNorm2d(_FlaxRunningStats, nn.BatchNorm2d):
     pass
 
 
-class Conv2d(nn.Conv2d):
-    """nn.Conv2d computing at `compute_dtype` (flax's Conv `dtype`: input
-    and kernel cast to it; None: their promotion), from float32 weights
-    under training, so autograd's gradients land in float32.
+class BatchNorm3d(_FlaxRunningStats, nn.BatchNorm3d):
+    pass
+
+
+class _ComputeDtypeConv:
+    """A convolution computing at `compute_dtype` (flax's Conv `dtype`:
+    input and kernel cast to it; None: their promotion), from float32
+    weights under training, so autograd's gradients land in float32.
 
     torch's CPU bf16 convolution (oneDNN) reads past its input when the
     kernel spans more than one column, the column stride is above 1 and
     the output is one column wide: msppn's layer4 at 64x32 frames (a 4x2
-    map to 2x1) comes out wrong by more than its size, or not finite.
-    Such a convolution computes in float64 on the bf16 values and rounds
-    its output to bf16 (float64, not float32: a float32 sum's last bits
-    follow the thread count, and the rounding turns them into whole bf16
-    steps). Every other CPU bf16 convolution is oneDNN's; CUDA tensors
-    take cuDNN's. tests/test_torch_graphnet.py shows the fault and the
-    repair."""
+    map to 2x1) comes out wrong by more than its size, or not finite, and
+    so does the 3-D convolution of resnet3d's layer4 at 64x32 (a 1x4x2
+    map to 1x2x1). Such a convolution computes in float64 on the bf16
+    values and rounds its output to bf16 (float64, not float32: a float32
+    sum's last bits follow the thread count, and the rounding turns them
+    into whole bf16 steps). Every other CPU bf16 convolution is oneDNN's;
+    CUDA tensors take cuDNN's. tests/test_torch_graphnet.py and
+    tests/test_torch_legacy.py show the fault and the repair."""
 
     compute_dtype = None
 
     def onednn_bf16_faults(self, x: torch.Tensor) -> bool:
         """Whether oneDNN's bf16 kernel gets this convolution of CPU `x` wrong."""
-        kw, sw = self.kernel_size[1], self.stride[1]
-        pw, dw = self.padding[1], self.dilation[1]
+        kw, sw = self.kernel_size[-1], self.stride[-1]
+        pw, dw = self.padding[-1], self.dilation[-1]
         out_w = (x.shape[-1] + 2 * pw - dw * (kw - 1) - 1) // sw + 1
         return x.device.type == "cpu" and kw > 1 and sw > 1 and out_w == 1
 
@@ -141,6 +146,18 @@ class Conv2d(nn.Conv2d):
             return self._conv_forward(x.to(dt).double(), self.weight.to(dt).double(),
                                       None if bias is None else bias.double()).to(dt)
         return self._conv_forward(x.to(dt), self.weight.to(dt), bias)
+
+
+class Conv2d(_ComputeDtypeConv, nn.Conv2d):
+    pass
+
+
+class Conv1d(_ComputeDtypeConv, nn.Conv1d):
+    """res50ta's temporal attention convolution (N, C, T)."""
+
+
+class Conv3d(_ComputeDtypeConv, nn.Conv3d):
+    """The 3-D convolution of the resnet3d family (NCDHW)."""
 
 
 class Linear(nn.Linear):
@@ -155,20 +172,41 @@ class Linear(nn.Linear):
 
 
 def set_compute_dtype(module: nn.Module, dtype) -> None:
-    """Sets the compute dtype of every Conv2d and BatchNorm in `module`."""
+    """Sets the compute dtype of every convolution and BatchNorm in `module`."""
     for m in module.modules():
-        if isinstance(m, (Conv2d, _FlaxRunningStats)):
+        if isinstance(m, (_ComputeDtypeConv, _FlaxRunningStats)):
             m.compute_dtype = dtype
+
+
+def init_linear_default_(lin: nn.Linear, generator: torch.Generator) -> None:
+    """nn.Linear's own init, U(-1/sqrt(fan_in), 1/sqrt(fan_in)) for the
+    weight and the bias, from `generator` (agrl_tpu's
+    torch_linear_kernel_init and torch_linear_bias_init)."""
+    bound = 1.0 / math.sqrt(lin.in_features)
+    with torch.no_grad():
+        lin.weight.uniform_(-bound, bound, generator=generator)
+        if lin.bias is not None:
+            lin.bias.uniform_(-bound, bound, generator=generator)
+
+
+def init_lecun_normal_(weight: torch.Tensor, fan_in: int, generator: torch.Generator) -> None:
+    """flax's default kernel init, lecun_normal: a normal of variance
+    1 / fan_in truncated at two standard deviations (of the untruncated
+    normal, rescaled so the truncated one keeps the variance)."""
+    std = math.sqrt(1.0 / fan_in) / 0.87962566103423978
+    with torch.no_grad():
+        nn.init.trunc_normal_(weight, 0.0, std, -2 * std, 2 * std, generator=generator)
 
 
 def batch_norm2d(channels: int) -> BatchNorm2d:
     return BatchNorm2d(channels, eps=BN_EPS)
 
 
-def init_conv_(conv: nn.Conv2d, generator: torch.Generator) -> None:
-    """Kaiming normal, fan_out, ReLU gain (agrl_tpu's `conv_kaiming`)."""
-    out_ch, _, kh, kw = conv.weight.shape
-    std = math.sqrt(2.0 / (out_ch * kh * kw))
+def init_conv_(conv: nn.Module, generator: torch.Generator) -> None:
+    """Kaiming normal, fan_out, ReLU gain (agrl_tpu's `conv_kaiming`), for a
+    2-D or 3-D convolution."""
+    out_ch, _, *kernel = conv.weight.shape
+    std = math.sqrt(2.0 / (out_ch * math.prod(kernel)))
     with torch.no_grad():
         conv.weight.normal_(0.0, std, generator=generator)
 
@@ -276,11 +314,11 @@ class ResNetTrunk(PartPooling, nn.Module):
 
 
 def init_backbone_(module: nn.Module, generator: torch.Generator) -> None:
-    """Reference _init_params for convolutions and BatchNorms: every 2-D
-    conv in `module` kaiming (fan_out) with a zero bias, every BN scale 1 /
-    shift 0."""
+    """Reference _init_params for convolutions and BatchNorms: every 2-D and
+    3-D conv in `module` kaiming (fan_out) with a zero bias, every BN scale
+    1 / shift 0."""
     for m in module.modules():
-        if isinstance(m, nn.Conv2d):
+        if isinstance(m, (nn.Conv2d, nn.Conv3d)):
             init_conv_(m, generator)
             if m.bias is not None:
                 nn.init.zeros_(m.bias)
@@ -299,6 +337,22 @@ class MultiScaleTrunk(ResNetTrunk):
     def __init__(self, layers=(3, 4, 6, 3)):
         super().__init__(layers)
         self.layer4 = ResLayer(1024, 512, layers[3], stride=2)
+
+
+def resnet_base(layers=(3, 4, 6, 3), last_stride: int = 2) -> nn.Sequential:
+    """The reference's `base` of the legacy video and image archs,
+    nn.Sequential(conv1, bn1, relu, maxpool, layer1..4) of a torchvision
+    ResNet (its children but the pool and the fc), with layer4 at
+    `last_stride`: state-dict names `base.{0,1,4..7}`
+    (agrl_tpu/models/weight_convert.py:convert_temporal_state_dict)."""
+    return nn.Sequential(*ResNetTrunk(layers).children(),
+                         ResLayer(1024, 512, layers[3], stride=last_stride))
+
+
+#: where an ImageNet ResNet's stages go in a model holding `resnet_base`
+#: as `base` (weight_convert.init_pretrained_weights)
+BASE_IMAGENET_STAGES = {"conv1": "base.0", "bn1": "base.1", "layer1": "base.4",
+                        "layer2": "base.5", "layer3": "base.6", "layer4": "base.7"}
 
 
 def levels(stages, x: torch.Tensor):

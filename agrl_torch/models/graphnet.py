@@ -42,6 +42,7 @@ import torch
 from torch import nn
 
 from agrl_torch.models.backbone import (
+    BASE_IMAGENET_STAGES,
     BN_EPS,
     BatchNorm1d,
     Linear,
@@ -49,7 +50,9 @@ from agrl_torch.models.backbone import (
     PartPooling,
     adaptive_max_pool_rows,
     init_backbone_,
+    init_linear_default_,
     levels,
+    resnet_base,
 )
 from agrl_torch.models.gsta import check_loss
 from agrl_torch.models.layers import GraphBlock
@@ -63,15 +66,6 @@ NUM_SCALES = 3
 def _xavier_normal_(weight: torch.Tensor, fan_in: int, fan_out: int, generator) -> None:
     with torch.no_grad():
         weight.normal_(0.0, math.sqrt(2.0 / (fan_in + fan_out)), generator=generator)
-
-
-def _torch_default_linear_(lin: nn.Linear, generator) -> None:
-    """nn.Linear's own init, U(-1/sqrt(fan_in), 1/sqrt(fan_in)) for the
-    weight and the bias, from `generator`."""
-    bound = 1.0 / math.sqrt(lin.in_features)
-    with torch.no_grad():
-        lin.weight.uniform_(-bound, bound, generator=generator)
-        lin.bias.uniform_(-bound, bound, generator=generator)
 
 
 @functools.lru_cache(maxsize=64)
@@ -158,7 +152,7 @@ class _GraphNetBase(PartPooling, nn.Module):
                 bn.bias.zero_()
         _xavier_normal_(self.fusion_conv.weight, self.num_vertices, 1, generator)
         for head in self.head_layers:
-            _torch_default_linear_(head, generator)
+            init_linear_default_(head, generator)
 
     def _vertices(self, stages, x: torch.Tensor, frame_mask):
         """(B, S, H, W, 3) -> (B, 3 * total_split * S, 512) split-major
@@ -247,14 +241,13 @@ class MSPyraPartGraphNet(_GraphNetBase):
     # msppgn's heads are `classifiers`: nothing is left out
     count_exclude_heads = ()
     # where an ImageNet ResNet-50's stages go (init_pretrained_weights)
-    imagenet_stages = {"conv1": "base.0", "bn1": "base.1", "layer1": "base.4",
-                       "layer2": "base.5", "layer3": "base.6", "layer4": "base.7"}
+    imagenet_stages = BASE_IMAGENET_STAGES
 
     def __init__(self, num_classes: int, loss=frozenset({"xent", "htri"}), num_split: int = 3,
                  num_gb: int = 3, use_pose: bool = True, learn_graph: bool = True,
                  layers=(3, 4, 6, 3)):
         super().__init__()
-        self.base = nn.Sequential(*MultiScaleTrunk(layers).children())
+        self.base = resnet_base(layers, last_stride=2)
         self.num_gb = num_gb
         self.use_pose = use_pose
         self.learn_graph = learn_graph

@@ -43,9 +43,9 @@ def drop_one_frame_per_sample(f: torch.Tensor, drop: torch.Tensor) -> torch.Tens
     return torch.gather(f, 1, idx[:, :, None, None].expand(B, S - 1, *f.shape[2:]))
 
 
-def check_loss(loss) -> frozenset:
+def check_loss(loss, allowed=(frozenset({"xent"}), frozenset({"xent", "htri"}))) -> frozenset:
     loss = frozenset(loss)
-    if loss not in (frozenset({"xent"}), frozenset({"xent", "htri"})):
+    if loss not in allowed:
         raise KeyError(f"Unsupported loss: {set(loss)}")
     return loss
 

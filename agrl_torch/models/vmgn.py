@@ -200,11 +200,14 @@ def check_dtype(dtype) -> None:
                          f"None), got dtype={dtype}")
 
 
-def check_factory_kwargs(num_scale=1, dtype=None, num_parts=None, bnneck=False, **unknown):
+def check_factory_kwargs(num_scale=1, dtype=None, num_parts=None, bnneck=False, height=None,
+                         width=None, **unknown):
     """The registry keywords the training CLI passes (agrl_tpu's
     `init_model` call) that do not shape this model. `num_parts` sizes the
     pose graph's part sets on the data side; `bnneck` is accepted and
-    unused, as in agrl_tpu (its VMGN always has BNNecks); `dtype` is
+    unused, as in agrl_tpu (its VMGN always has BNNecks); `height` and
+    `width`, the frame size, size res50ta's attention conv and nothing
+    here (VMGN's pooling takes any frame size); `dtype` is
     checked here and taken by the factory that uses it. A value that would
     change the model raises instead of being ignored."""
     if unknown:

@@ -8,12 +8,14 @@ counts a convolution's multiply-adds over the taps that fall inside the
 input only, not over its zero padding; FlopCounterMode's stock formula
 counts every tap, which at small frames (ResNet's 3x3 convolutions over a
 few rows) overcounts by ~14% of the convolutions. The port counts XLA's
-way (`_conv_flops_unpadded`), so the two lines differ only by the
-elementwise work XLA also counts (tests/test_torch_host_utils.py states
-the bar). The graph layer's registered op (`agrl_torch::graph_propagate`,
-K1) carries a formula for its products (ops/graph_conv.py; the Gram only
-in the graph modes that build it), so the count is the same whether the
-kernel or the plain layer ran.
+way (`_conv_flops_unpadded`, 1-, 2- and 3-D: resnet3d's Conv3d too), so
+the two lines differ only by the elementwise work XLA also counts
+(tests/test_torch_host_utils.py states the bar). res50rnn's LSTM is torch
+products (models/resnet_temporal.py), counted as such. The graph layer's
+registered op (`agrl_torch::graph_propagate`, K1) carries a formula for
+its products (ops/graph_conv.py; the Gram only in the graph modes that
+build it), so the count is the same whether the kernel or the plain layer
+ran.
 """
 
 from __future__ import annotations
@@ -55,17 +57,19 @@ def _valid_taps(size_in: int, size_out: int, k: int, stride: int, pad: int, dil:
 
 def _conv_flops_unpadded(x_shape, w_shape, _bias, stride, padding, dilation, transposed,
                          *args, out_shape=None, **kwargs) -> int:
-    """2 x the multiply-adds of a 2-D convolution over its in-bounds taps
-    (XLA's HloCostAnalysis convention); other convolutions as the stock
-    formula counts them."""
+    """2 x the multiply-adds of a 1-, 2- or 3-D convolution over its
+    in-bounds taps (XLA's HloCostAnalysis convention); a transposed one as
+    the stock formula counts it."""
     from torch.utils.flop_counter import conv_flop_count
 
-    if transposed or len(x_shape) != 4:
+    if transposed:
         return conv_flop_count(x_shape, w_shape, out_shape, transposed=transposed)
-    n, c_in, h, w = x_shape
-    c_out, c_per_group, kh, kw = w_shape
-    taps = (_valid_taps(h, out_shape[2], kh, stride[0], padding[0], dilation[0])
-            * _valid_taps(w, out_shape[3], kw, stride[1], padding[1], dilation[1]))
+    n = x_shape[0]
+    c_out, c_per_group = w_shape[:2]
+    taps = 1
+    for d in range(len(x_shape) - 2):
+        taps *= _valid_taps(x_shape[2 + d], out_shape[2 + d], w_shape[2 + d], stride[d],
+                            padding[d], dilation[d])
     return 2 * n * c_out * c_per_group * taps
 
 

@@ -215,10 +215,27 @@ Phases (any failure exits non-zero before the result lines):
      launch takes; one CLI epoch of -a msppgn
      --num-scale 3 on phase 16's layout, then --evaluate under evenly and
      all (all pads the adjacency through msppgn's pad_eval_adjacency; K1 0);
+ 26. (run after phase 25; its kernel check after phase 8) the legacy video
+     archs at the paper's widths (ResNet-50 (3,4,6,3) with layer4 at
+     stride 2, or the 3-D ResNet-50; 256x128, seq_len 8, fp32, 625
+     classes, the CLI's loss {xent, htri}): for res50tp_legacy, res50ta,
+     res50rnn, resnet3d50 and resnet3dt, a 16-clip request (median of
+     10), the eval forward's CUDA-event ms, K1 0 launches a forward, the
+     bf16 request at the FeatureExtractor's default (finite, vs fp32);
+     for the first four (resnet3dt is resnet3d50's module) 6 train steps
+     at 4x4 with flips and the soft margin: median ms of steps 3-6, peak
+     GB, finite losses, K3 1 + 1 launches a step; card vs CPU at depth
+     (1,1,1,1) (resnet3d at depth 10), 64x32 (1e-3); K3 vs its twin at
+     (H=1, D=512) and (1, 2048); one CLI epoch each of -a res50rnn and -a
+     resnet3d50 on phase 16's layout, then --evaluate under evenly and all
+     (whole tracklets, unpadded); for each image arch (resnet50,
+     resnet101, resnet50m, resnet50b) a batch of 32 images at 256x128: the
+     eval forward's CUDA-event ms, and the train forward card vs CPU at
+     depth (1,1,1,1), 64x32 (1e-3);
 then one {"serving": ...} line (with "bf16" and "artifact"), one {"training": ...} line (with "bf16"),
 one {"reranking": ...} line, one {"cli": ...} line (with "bf16"), one {"evaluation": ...}
 line, one {"input": ...} line, one {"train_surface": ...} line, one {"archs": ...} line, one
-{"graphnets": ...} line, one {"kernels": [...]} line (each kernel's `slower_than_plain`
+{"graphnets": ...} line, one {"legacy": ...} line, one {"kernels": [...]} line (each kernel's `slower_than_plain`
 lists the shapes where this run timed it above its plain version), the
 card's name and power limit, and
 {"ok": true, "device": {...}} as the last line.
@@ -3206,7 +3223,10 @@ GRAPH_ARCHS = ("gsta", "ganet")  # the archs with graph layers (K1) and a consis
 ARCH_HEADS = {"gsta": (2, 2048), "ganet": (2, 6144), "res50tp": (1, 2048),
               "resnet50_s1": (1, 2048), "sta": (1, 1024), "simple_sta": (1, 1024),
               # phase 25: 21 vertices and the fused head; msppgn at --num-gb 2
-              "msppn": (22, 512), "msppgn": (22, 1536)}
+              "msppn": (22, 512), "msppgn": (22, 1536),
+              # phase 26: one head; res50rnn's LSTM output is 512 wide
+              "res50tp_legacy": (1, 2048), "res50ta": (1, 2048), "res50rnn": (1, 512),
+              "resnet3d50": (1, 2048), "resnet3dt": (1, 2048)}
 ARCH_STEPS = 6  # train steps per arch; the median takes steps 3-6
 K1_FLAG_SHAPES = ((16, 56, False), (64, 56, True), (1, 2128, True))
 
@@ -3388,10 +3408,19 @@ def arch_card_vs_cpu(torch, arch, device):
     from agrl_torch.models.sta import STA
     from agrl_torch.optim import init_optim
 
+    from agrl_torch.models.resnet3d import ResNet3D
+    from agrl_torch.models.resnet_temporal import ResNet50RNN, ResNet50TA, ResNet50TPLegacy
+
+    xh = {"xent", "htri"}
     ctor = {"gsta": GSTA, "ganet": GANet, "res50tp": ResNet50TP, "resnet50_s1": ResNet50S1,
             "sta": STA, "simple_sta": lambda **kw: STA(simple=True, **kw),
             "msppn": lambda **kw: MSPyraPartNet(num_split=4, **kw),
-            "msppgn": lambda **kw: MSPyraPartGraphNet(num_split=4, num_gb=2, **kw)}[arch]
+            "msppgn": lambda **kw: MSPyraPartGraphNet(num_split=4, num_gb=2, **kw),
+            "res50tp_legacy": lambda **kw: ResNet50TPLegacy(loss=xh, **kw),
+            "res50ta": lambda **kw: ResNet50TA(loss=xh, height=64, width=32, **kw),
+            "res50rnn": lambda **kw: ResNet50RNN(loss=xh, **kw),
+            "resnet3d50": lambda num_classes, layers: ResNet3D(num_classes, loss=xh,
+                                                               depth=10)}[arch]
     kw = dict(consistent_loss=True) if arch in GRAPH_ARCHS else {}
     cpu = ctor(num_classes=4, layers=(1, 1, 1, 1), **kw)
     cpu.init_weights(torch.Generator().manual_seed(25))
@@ -3415,7 +3444,7 @@ def arch_card_vs_cpu(torch, arch, device):
         losses[name] = [float(metrics[k]) for k in ("loss", "xent_loss", "htri_loss")]
     feat_err = rel_err(feats["card"], feats["cpu"])
     loss_err = max(abs(a - b) / abs(b) for a, b in zip(losses["card"], losses["cpu"]))
-    tag = "graphnets" if arch in GRAPHNETS else "archs"
+    tag = arch_tag(arch)
     log(f"[{tag}] {arch} (1,1,1,1) 64x32, card vs CPU: eval feature {feat_err:.3e} of max (tol "
         f"1e-3), train step losses rel {loss_err:.3e} (tol 1e-3)")
     if not (feat_err <= 1e-3 and loss_err <= 1e-3):
@@ -3519,9 +3548,10 @@ def phase_cli_archs(torch, tri, gc, runs=(("gsta", ()), ("ganet", ()), ("sta", (
     """One CLI epoch of each (arch, extra flags) of `runs` with the paper
     preset on phase 16's MARS layout (in process, wrappers counted), each
     evaluated at evenly; then --evaluate --resume best_model under evenly
-    and all for gsta and ganet (phase 24) and msppgn (phase 25, whose `all`
-    pads its adjacency through pad_eval_adjacency). K1: 2 per eval batch
-    for gsta and ganet, 0 for the others."""
+    and all for gsta and ganet (phase 24), msppgn (phase 25, whose `all`
+    pads its adjacency through pad_eval_adjacency) and the legacy archs
+    (phase 26: `all` runs each tracklet whole, one batch a tracklet). K1:
+    2 per eval batch for gsta and ganet, 0 for the others."""
     from agrl_torch.cli import train_vidreid_xent_htri as cli
     from agrl_torch.data.datasets import init_vidreid_dataset
     from agrl_torch.data.datasets.synthetic_mars import materialize_mars_layout
@@ -3537,7 +3567,7 @@ def phase_cli_archs(torch, tri, gc, runs=(("gsta", ()), ("ganet", ()), ("sta", (
         test_batch = int(preset[preset.index("--test-batch") + 1])
         evenly_batches = -(-len(ds.query) // test_batch) + -(-len(ds.gallery) // test_batch)
         for arch, extra in runs:
-            tag = "graphnets" if arch in GRAPHNETS else "archs"
+            tag = arch_tag(arch)
             argv = ["-d", "mars", *without_flag(preset, "-a"), "-a", arch, "--root", root,
                     "--max-epoch", "1", "--print-freq", "1", "--save-dir", f"{tmp}/{arch}",
                     *extra]
@@ -3561,7 +3591,7 @@ def phase_cli_archs(torch, tri, gc, runs=(("gsta", ()), ("ganet", ()), ("sta", (
                 f"{rec['step_ms_median']} "
                 f"ms; hard_mine {fwd}+{bwd}, K1 {k1} for {evenly_batches} eval batches; CMC "
                 f"(rank-1, mAP) {rec['evals']}; {secs:.1f} s")
-            if arch in GRAPH_ARCHS + GRAPHNETS:
+            if arch in GRAPH_ARCHS + GRAPHNETS + LEGACY:
                 best = f"{tmp}/{arch}/best_model.pth.tar"
                 for sample in ("evenly", "all"):
                     eval_argv = (without_flag(argv, "--test-sample")
@@ -3570,6 +3600,7 @@ def phase_cli_archs(torch, tri, gc, runs=(("gsta", ()), ("ganet", ()), ("sta", (
                     t0 = time.perf_counter()
                     result, text = run_cli_in_process(cli, eval_argv)
                     batches = (evenly_batches if sample == "evenly"
+                               else len(ds.query) + len(ds.gallery) if arch in LEGACY
                                else expected_eval_batches(ds, "all"))
                     rec[f"evaluate_{sample}"] = dict(
                         rank1_mAP=[float(v) for v in result], k1=gc.launches,
@@ -3637,7 +3668,7 @@ def graphnet_batches(n, seed):
             for i in range(n)]
 
 
-def graphnet_bf16_serving(torch, arch, model, device):
+def bf16_request(torch, arch, model, device, tag="graphnets"):
     """A 16-clip request through the FeatureExtractor's bf16 default
     (weights, pixels and adjacency rounded; the trunk follows the bf16
     input): finite features, their difference from the fp32 request's
@@ -3657,7 +3688,7 @@ def graphnet_bf16_serving(torch, arch, model, device):
         times.append((time.perf_counter() - t0) * 1e3)
     rec = dict(request16_ms=float(np.median(times)), vs_fp32_rel=rel_err(feats, f32),
                finite=bool(np.isfinite(feats).all()))
-    log(f"[graphnets] {arch} bf16 serving: request {rec['request16_ms']:.2f} ms; features vs "
+    log(f"[{tag}] {arch} bf16 serving: request {rec['request16_ms']:.2f} ms; features vs "
         f"fp32 {rec['vs_fp32_rel']:.3e} of max")
     if not (rec["finite"] and feats.shape == f32.shape):
         raise AssertionError(f"{arch} bf16 serving: {rec}")
@@ -3677,7 +3708,7 @@ def phase_graphnets(torch, tri, gc, layers_mod, device):
         rec = dict(params_m=sum(p.numel() for p in model.parameters()) / 1e6,
                    vertices=NUM_SCALES_GRAPHNET * 7 * SEQ_LEN)
         rec["serving"] = arch_serving(torch, gc, layers_mod, arch, model, device, "graphnets")
-        rec["bf16_serving"] = graphnet_bf16_serving(torch, arch, model, device)
+        rec["bf16_serving"] = bf16_request(torch, arch, model, device)
         rec["training"] = arch_train(torch, tri, arch, model, batches, "graphnets")
         del model
         torch.cuda.empty_cache()
@@ -3687,6 +3718,119 @@ def phase_graphnets(torch, tri, gc, layers_mod, device):
     t0 = time.perf_counter()
     out["cli"] = phase_cli_archs(torch, tri, gc, runs=(("msppgn", ("--num-scale", "3")),))
     out["cli_seconds"] = time.perf_counter() - t0
+    out["phase_seconds"] = time.perf_counter() - t_phase
+    return out
+
+
+# ---- phase 26: the legacy video archs and the image registry ---------------
+
+LEGACY = ("res50tp_legacy", "res50ta", "res50rnn", "resnet3d50", "resnet3dt")
+# K3 at res50rnn's (and resnet3d at depth <= 34's) train step, and at the
+# 2048-d single head of the others
+LEGACY_K3_SHAPES = ((1, 512), (1, 2048))
+IMAGE_BATCH = 32
+
+
+def arch_tag(arch):
+    return "graphnets" if arch in GRAPHNETS else "legacy" if arch in LEGACY else "archs"
+
+
+def build_legacy(torch, arch, device, seed=0):
+    """The legacy arch as the CLI builds it at the paper's widths: the loss
+    {xent, htri}, --height/--width (res50ta's attention conv: 8x4), fp32
+    (the factories drop the dtype)."""
+    from agrl_torch.models import init_model
+
+    return init_model(arch, num_classes=NUM_CLASSES, device=device, seed=seed,
+                      loss={"xent", "htri"}, height=HEIGHT, width=WIDTH, dtype=torch.float32)
+
+
+def image_archs(torch, device):
+    """Each image arch of the registry: a batch of IMAGE_BATCH colour images at
+    256x128 (eval forward, CUDA events, median of 5), then its train forward
+    (logits and feature) at depth (1,1,1,1), 64x32, card vs CPU from one
+    seed (resnet50b's dropout: the same seeded generator on both)."""
+    import copy
+
+    from agrl_torch.data.transforms import preprocess_clips
+    from agrl_torch.models import get_image_names, init_image_model
+    from agrl_torch.models.resnet_image import ResNet50B, ResNet50M, ResNetImage
+
+    xh = {"xent", "htri"}
+    imgs = colour_clips(IMAGE_BATCH, 260)[:, 0]  # (32, 256, 128, 3) uint8
+    small = banded_clips(4, 26, 64, 32)[:, 0].astype(np.float32) / 255.0
+    out = {}
+    for name in get_image_names():
+        model = init_image_model(name, NUM_CLASSES, device=device, loss=xh)
+        x = preprocess_clips(torch.from_numpy(imgs[:, None]).to(device))[:, 0]
+        fwd = []
+        with torch.inference_mode():
+            feats = model(x)
+            for _ in range(5):
+                start, end = (torch.cuda.Event(enable_timing=True),
+                              torch.cuda.Event(enable_timing=True))
+                start.record()
+                model(x)
+                end.record()
+                end.synchronize()
+                fwd.append(start.elapsed_time(end))
+        dim = int(feats.shape[1])
+        finite = bool(torch.isfinite(feats).all())
+        del model, feats
+        torch.cuda.empty_cache()
+        cls = {"resnet50m": ResNet50M, "resnet50b": ResNet50B}.get(name, ResNetImage)
+        cpu = cls(4, loss=xh, layers=(1, 1, 1, 1))
+        cpu.init_weights(torch.Generator().manual_seed(26))
+        card = copy.deepcopy(cpu).to(device)
+        heads = {}
+        for tag, m, dev in (("cpu", cpu, "cpu"), ("card", card, device)):
+            if hasattr(m, "dropout"):
+                m.dropout.generator = torch.Generator().manual_seed(27)
+            with torch.no_grad():
+                y, f = m.train()(torch.from_numpy(small).to(dev))
+            heads[tag] = (y.cpu().numpy(), f.cpu().numpy())
+        errs = [rel_err(a, b) for a, b in zip(heads["card"], heads["cpu"])]
+        rec = dict(forward32_ms=float(np.median(fwd)), feature_dim=dim, finite=finite,
+                   train_forward_card_vs_cpu=dict(logits_rel_err=errs[0],
+                                                  feature_rel_err=errs[1]))
+        log(f"[legacy] image {name}: eval forward of {IMAGE_BATCH} images at {HEIGHT}x{WIDTH} "
+            f"{rec['forward32_ms']:.2f} ms (CUDA events, median of 5), {dim}-d; train forward "
+            f"(1,1,1,1) 64x32 card vs CPU: logits {errs[0]:.3e}, feature {errs[1]:.3e} of max "
+            "(tol 1e-3)")
+        want_dim = 3072 if name == "resnet50m" else 2048
+        if not (finite and dim == want_dim and max(errs) <= 1e-3):
+            raise AssertionError(f"image arch {name}: {rec}")
+        out[name] = rec
+    return out
+
+
+def phase_legacy(torch, tri, gc, layers_mod, device):
+    """Phase 26: the legacy video archs served and trained at the paper's
+    widths (K1 0 a forward, K3 1 + 1 a step over one head), card vs CPU at
+    a tiny depth; the CLI's res50rnn and resnet3d50 epochs with their
+    evenly and `all` evaluations; the image registry. (K3's new shapes run
+    early, beside phase 8.)"""
+    t_phase = time.perf_counter()
+    out = {"archs": {}}
+    for arch in LEGACY:
+        model = build_legacy(torch, arch, device)
+        rec = dict(params_m=sum(p.numel() for p in model.parameters()) / 1e6)
+        rec["serving"] = arch_serving(torch, gc, layers_mod, arch, model, device, "legacy")
+        rec["bf16_serving"] = bf16_request(torch, arch, model, device, "legacy")
+        if arch != "resnet3dt":  # resnet3d50's module: served, not trained again
+            rec["training"] = arch_train(torch, tri, arch, model, tag="legacy")
+        del model
+        torch.cuda.empty_cache()
+        if arch != "resnet3dt":
+            rec["card_vs_cpu"] = arch_card_vs_cpu(torch, arch, device)
+        out["archs"][arch] = rec
+    out["archs_seconds"] = time.perf_counter() - t_phase
+    t0 = time.perf_counter()
+    out["cli"] = phase_cli_archs(torch, tri, gc, runs=(("res50rnn", ()), ("resnet3d50", ())))
+    out["cli_seconds"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    out["image"] = image_archs(torch, device)
+    out["image_seconds"] = time.perf_counter() - t0
     out["phase_seconds"] = time.perf_counter() - t_phase
     return out
 
@@ -3762,6 +3906,11 @@ def main() -> int:
     graphnet_kernels = dict(k3_shapes=phase_k3_arch_shapes(
         torch, tri, losses_mod, device, flush, GRAPHNET_K3_SHAPES, "graphnets"))
     graphnet_kernels["kernels_seconds"] = time.perf_counter() - t0
+    # 26, kernels: K3 at the legacy archs' one head (beside phase 8)
+    t0 = time.perf_counter()
+    legacy_kernels = dict(k3_shapes=phase_k3_arch_shapes(
+        torch, tri, losses_mod, device, flush, LEGACY_K3_SHAPES, "legacy"))
+    legacy_kernels["kernels_seconds"] = time.perf_counter() - t0
     # 12. K4 vs plain at the JAX package's test shapes
     phase_minsum_shapes(torch, ms, device)
 
@@ -3869,6 +4018,10 @@ def main() -> int:
     # CLI's msppgn epoch and its evenly and all evaluations
     graphnets = phase_graphnets(torch, tri, gc, layers_mod, device)
     graphnets.update(graphnet_kernels)
+    # 26. the legacy video archs: serving, training over one head, card vs
+    # CPU, the CLI's res50rnn and resnet3d50 epochs; the image registry
+    legacy = phase_legacy(torch, tri, gc, layers_mod, device)
+    legacy.update(legacy_kernels)
 
     print(json.dumps({"serving": serving}))
     print(json.dumps({"training": training}))
@@ -3881,6 +4034,7 @@ def main() -> int:
     print(json.dumps({"train_surface": surface}))
     print(json.dumps({"archs": archs}))
     print(json.dumps({"graphnets": graphnets}))
+    print(json.dumps({"legacy": legacy}))
     kernel = {
         "name": "graph_propagate",
         "route": "cuda",
@@ -3934,6 +4088,11 @@ def main() -> int:
         "graphnet_cli_launches": {a: [r["k1_per_eval_batch"]] + [
             r[f"evaluate_{s}"]["k1"] for s in ("evenly", "all")]
             for a, r in graphnets["cli"].items()},
+        "legacy_launches_per_forward": {a: r["serving"]["k1_launches_per_forward"]
+                                        for a, r in legacy["archs"].items()},
+        "legacy_cli_launches": {a: [r["k1_per_eval_batch"]] + [
+            r[f"evaluate_{s}"]["k1"] for s in ("evenly", "all")]
+            for a, r in legacy["cli"].items()},
         "graphnet_note": "phase 25: msppn has no graph; msppgn's GraphBlocks are torch ops "
                          "(agrl_tpu runs them as XLA ops, outside any Pallas kernel), so "
                          "K1 launches 0 times on both",
@@ -3991,6 +4150,10 @@ def main() -> int:
         "graphnet_cli_launches_per_step": {a: r["k3_per_step"]
                                            for a, r in graphnets["cli"].items()},
         "graphnet_shapes": graphnets["k3_shapes"],
+        "legacy_launches_per_step": {a: r["training"]["k3_per_step"]
+                                     for a, r in legacy["archs"].items() if "training" in r},
+        "legacy_cli_launches_per_step": {a: r["k3_per_step"] for a, r in legacy["cli"].items()},
+        "legacy_shapes": legacy["k3_shapes"],
         "arch_shapes_note": "phase 24: device time per call (torch.profiler), or CUDA events "
                             "around one call where `timing` says so",
         "max_abs_err": trec["max_abs_err"],
@@ -4036,7 +4199,7 @@ def main() -> int:
             ("forward", trec["ms"], trec["plain_ms"]),
             ("backward", trec["backward_ms"], trec["plain_backward_ms"]),
             *((f"{n} H={r['H']} D={r['D']}", r[k], r[f"plain_{k}"])
-              for r in archs["k3_shapes"] + graphnets["k3_shapes"]
+              for r in archs["k3_shapes"] + graphnets["k3_shapes"] + legacy["k3_shapes"]
               for n, k in (("forward", "ms"), ("backward", "backward_ms")))),
     }
     min_sum = {

@@ -48,13 +48,14 @@ def test_parser_flag_matches_agrl_tpu(dest):
 
 # the refusals: extra argv -> (flag the message names, value it names)
 REFUSALS = {
-    # gsta, ganet, sta, simple_sta, res50tp, resnet50_s1, msppn and msppgn
-    # are ported (test_cli_trains_and_evaluates_each_arch); the legacy and 3D
-    # families are refused, each naming its ROADMAP item
-    "arch": (["-a", "res50tp_legacy"], "--arch", "res50tp_legacy"),
-    "arch_res50ta": (["-a", "res50ta"], "--arch", "ROADMAP A7e"),
-    "arch_legacy": (["-a", "res50rnn"], "--arch", "ROADMAP A7e"),
-    "arch_3d": (["-a", "resnet3d50"], "--arch", "ROADMAP A7e"),
+    # every arch of agrl_tpu's registry is ported: the legacy and 3D video
+    # archs pass the arch check and are refused by A8's flags, as every arch
+    "arch": (["-a", "res50tp_legacy", "--mesh-dp", "2"], "--mesh-dp", "ROADMAP A8"),
+    "arch_res50ta": (["-a", "res50ta", "--dist-num-processes", "2"], "--dist-num-processes",
+                     "ROADMAP A8"),
+    "arch_legacy": (["-a", "res50rnn", "--mesh-mp", "2"], "--mesh-mp", "ROADMAP A8"),
+    "arch_3d": (["-a", "resnet3d50", "--dist-process-id", "1"], "--dist-process-id",
+                "ROADMAP A8"),
     "mesh_dp": (["--mesh-dp", "2"], "--mesh-dp", "2"),
     "mesh_mp": (["--mesh-mp", "2"], "--mesh-mp", "2"),
     "dist_coordinator": (["--dist-coordinator", "localhost:1234"], "--dist-coordinator",
@@ -92,14 +93,29 @@ def test_preflight_refuses_before_reading_data(case, tmp_path, monkeypatch):
 
 def test_every_arch_choice_is_ported_or_refused_by_item():
     """-a's choices (agrl_tpu's registry) split into the port's registry and
-    the refused names, each refusal naming A7e: the legacy and 3D video
-    families (msppn and msppgn are ported)."""
+    the refused names; every one is ported now (the legacy and 3D video
+    families last), so none is refused."""
     from agrl_torch.models import get_names
 
     ported, refused = set(get_names()), set(tcli.UNPORTED_ARCHS)
     assert ported | refused == set(tcli.ARCH_NAMES) and not ported & refused
-    assert {"msppn", "msppgn"} <= ported
-    assert set(tcli.UNPORTED_ARCHS.values()) == {"A7e"}
+    assert {"msppn", "msppgn", "res50tp_legacy", "res50ta", "res50rnn", "resnet3d50",
+            "resnet3dt"} <= ported
+    assert not refused
+
+
+def test_an_unported_arch_is_refused_by_its_item(tmp_path, monkeypatch):
+    """The mechanism stays for an arch agrl_tpu's registry may gain: a name
+    of -a's choices outside the port's registry is refused before any data
+    is read, naming its ROADMAP item."""
+    import agrl_torch.models as models
+
+    names = [n for n in models.get_names() if n != "res50rnn"]
+    monkeypatch.setattr(models, "get_names", lambda: names)
+    monkeypatch.setattr(tcli, "UNPORTED_ARCHS", {"res50rnn": "A9"})
+    with pytest.raises(SystemExit, match=r"-a/--arch 'res50rnn' is not ported .*ROADMAP A9"):
+        tcli.main(["--use-cpu", "--root", str(tmp_path / "absent"), "--save-dir",
+                   str(tmp_path / "log"), "-a", "res50rnn"])
 
 
 # graph layout flags -> the pre-flight's refusal, agrl_tpu's message

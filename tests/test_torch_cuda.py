@@ -855,3 +855,52 @@ def test_multi_scale_arch_on_the_card(cuda, arch):
               for _ in range(2)]
     assert (triplet.launches - before[0], triplet.backward_launches - before[1]) == (2, 2)
     assert all(np.isfinite(losses))
+
+
+@pytest.mark.parametrize("H,B,D", [(1, 16, 512), (1, 16, 2048)])
+def test_hard_mine_heads_at_the_legacy_archs_shapes(cuda, H, B, D):
+    """K3 at the train steps of res50rnn (H=1, D=512; resnet3d at depth
+    <= 34 too) and of res50tp_legacy, res50ta and resnet3d50 (1, 2048)."""
+    test_hard_mine_heads_kernels_match_plain(cuda, H, B, D)
+
+
+@pytest.mark.parametrize("arch", ["res50tp_legacy", "res50ta", "res50rnn", "resnet3d50"])
+def test_legacy_arch_on_the_card(cuda, arch):
+    """Each legacy video arch at depth (1,1,1,1) (resnet3d at depth 10),
+    128x64, S=8: the eval forward launches K1 never and equals the same
+    model's on the CPU (1e-4 of max); two train steps launch K3 once each
+    way per step with finite losses."""
+    import copy
+
+    from agrl_torch.engine.trainer import make_train_step
+    from agrl_torch.models.resnet3d import ResNet3D
+    from agrl_torch.models.resnet_temporal import ResNet50RNN, ResNet50TA, ResNet50TPLegacy
+    from agrl_torch.optim import init_optim
+
+    xh, tiny = {"xent", "htri"}, (1, 1, 1, 1)
+    model = {"res50tp_legacy": lambda: ResNet50TPLegacy(4, loss=xh, layers=tiny),
+             "res50ta": lambda: ResNet50TA(4, loss=xh, layers=tiny, height=128, width=64),
+             "res50rnn": lambda: ResNet50RNN(4, loss=xh, layers=tiny),
+             "resnet3d50": lambda: ResNet3D(4, loss=xh, depth=10)}[arch]()
+    model.init_weights(torch.Generator().manual_seed(0))
+    cpu = copy.deepcopy(model).eval()
+    model = model.to(cuda).eval()
+    rng = np.random.RandomState(0)
+    imgs = rng.randint(0, 256, (16, 8, 128, 64, 3)).astype(np.uint8)
+    x = torch.from_numpy(imgs).float() / 255.0
+    with torch.no_grad():
+        before = graph_conv.launches
+        got = model(x.to(cuda))
+        torch.cuda.synchronize()
+        assert graph_conv.launches == before
+        want = cpu(x)
+    assert float((got.cpu() - want).abs().max()) <= 1e-4 * float(want.abs().max())
+    opt = init_optim("adam", model.parameters(), 1e-4, weight_decay=5e-4)
+    step = make_train_step(model, opt, lambda s: 1e-4, aug={"flip_aug": True})
+    gen = torch.Generator().manual_seed(1)
+    adjs = np.ones((16, 8, 8), np.float32)
+    before = (triplet.launches, triplet.backward_launches)
+    losses = [float(step(imgs, np.repeat(np.arange(4), 4), adjs, generator=gen)["loss"])
+              for _ in range(2)]
+    assert (triplet.launches - before[0], triplet.backward_launches - before[1]) == (2, 2)
+    assert all(np.isfinite(losses))
