@@ -13,7 +13,9 @@ Entry points run on the card (`device="cuda"`) unless the caller passes
 `engine.trainer`); serving: `engine.export.FeatureExtractor` and the
 `torch.export` artifact (`engine.export.export_eval_forward`,
 `python -m agrl_torch.cli.export_model`); the CLI over both:
-`python -m agrl_torch.cli.train_vidreid_xent_htri`.
+`python -m agrl_torch.cli.train_vidreid_xent_htri`. Data parallelism,
+one process per card: `agrl_torch.parallel` (the train step's, the
+Evaluator's and FeatureExtractor's `mesh=`; the CLI's `--dist-*` flags).
 """
 
 from __future__ import annotations

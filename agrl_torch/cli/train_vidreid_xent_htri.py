@@ -22,6 +22,22 @@ are built and copied to the card behind the step (`prefetch_to_device`).
 Every train step goes through the batch-hard mining kernels (K3), every
 eval batch through the graph kernel (K1), and `--re-rank` through
 `min_sum_sparse` (K4).
+
+Data parallelism (agrl_tpu's --mesh-dp and --dist-* flags, its CLI
+:209-245): W processes, one card each, started by torchrun
+
+    torchrun --nproc-per-node W -m agrl_torch.cli.train_vidreid_xent_htri ...
+
+or each with --dist-coordinator HOST:PORT --dist-num-processes W
+--dist-process-id I (gloo under --use-cpu). They form one process group
+(parallel.initialize_distributed) whose mesh is the dp axis: each rank
+loads its slice of every train batch (ClipLoader's process_shard), the
+step is agrl_tpu's on the global batch (engine/trainer.py), and every
+rank evaluates the whole query and gallery with the batches split over
+the ranks, so every rank prints the same results. Each process logs to
+its own file (`-proc{r}` for r > 0); args.json, the scalars and the
+checkpoints come from rank 0 alone. With no --dist-* flag and no
+torchrun variables no process group is made.
 """
 
 from __future__ import annotations
@@ -42,7 +58,7 @@ import torch
 # agrl_tpu's model registry (agrl_tpu/models/__init__.py), the choices of
 # -a; the port builds all of it (models/__init__.py). An arch of the
 # registry not yet ported would be refused by its ROADMAP item through
-# UNPORTED_ARCHS, as the flags of multi-device runs (A8) are through _refuse
+# UNPORTED_ARCHS, as --mesh-mp > 1 (A8b) is through _refuse
 ARCH_NAMES = (
     "vmgn", "gsta", "ganet", "msppn", "msppgn", "sta", "simple_sta", "res50tp",
     "resnet50_s1", "vmgn_tiny", "res50tp_legacy", "res50ta", "res50rnn", "resnet3d50",
@@ -148,18 +164,18 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--evaluate", action="store_true")
     p.add_argument("--eval-step", type=int, default=-1)
     p.add_argument("--start-eval", type=int, default=0)
-    # Devices: one card; agrl_tpu's mesh and multi-host flags are refused
-    # above 1 process and 1 device
+    # Devices: one card a process; the dp axis is the process group
     p.add_argument("--mesh-dp", type=int, default=0,
-                   help="data-parallel devices (0 or 1: one card; more is not ported)")
+                   help="data-parallel devices: one process per card, so 0 (the world "
+                        "size) or the world size")
     p.add_argument("--mesh-mp", type=int, default=1,
-                   help="model-parallel devices (1; more is not ported)")
+                   help="model-parallel devices (1; more is not ported, ROADMAP A8b)")
     p.add_argument("--dist-coordinator", type=str, default="",
-                   help="multi-process launch: not ported (refused)")
+                   help="HOST:PORT of process 0 of a multi-process run")
     p.add_argument("--dist-num-processes", type=int, default=0,
-                   help="multi-process launch: not ported (refused)")
+                   help="processes of a multi-process run (one card each)")
     p.add_argument("--dist-process-id", type=int, default=-1,
-                   help="multi-process launch: not ported (refused)")
+                   help="this process's index in a multi-process run")
     p.add_argument("--bf16-eval", action="store_true",
                    help="evaluate with bf16-rounded weights, pixels and adjacency "
                         "(agrl_tpu's bf16 eval; the model computes at its own dtype)")
@@ -208,12 +224,37 @@ def _refuse(flag: str, value, item: str, hint: str = "") -> None:
     )
 
 
+def process_count(args) -> int:
+    """The processes of this run: --dist-num-processes, torchrun's
+    WORLD_SIZE, or 1 (no process group)."""
+    import os
+
+    from agrl_torch.parallel import torchrun_environment
+
+    if args.dist_num_processes:
+        return args.dist_num_processes
+    if torchrun_environment():
+        return int(os.environ["WORLD_SIZE"])
+    return 1
+
+
+def distributed_run(args) -> bool:
+    """Whether this run makes a process group: a --dist-* flag or torchrun."""
+    from agrl_torch.parallel import torchrun_environment
+
+    return args.dist_num_processes > 0 or torchrun_environment()
+
+
 def preflight(args) -> None:
     """Refuses, before any data is read or weight made, what the port does
     not take: each SystemExit names the flag, its value and the ROADMAP
     item that will port it, or an unknown optimizer, which agrl_tpu
-    refuses only after reading the data. Then agrl_tpu's graph layout
-    check (its CLI :367-394), on the model built on the meta device: a
+    refuses only after reading the data. A multi-process run needs the
+    three --dist-* flags together (or torchrun's environment), a --mesh-dp
+    of 0 or the process count and a --train-batch that divides over the
+    processes (agrl_tpu's multi-host branch, its CLI :499-505). Then
+    agrl_tpu's graph layout check (its CLI :367-394), on the model built
+    on the meta device: a
     model that reads a multi-scale adjacency (`expected_adj_scales`, msppgn
     with --use-pose or without --learn-graph) needs that --num-scale and
     the data side's parts per frame. Without --use-cpu it also refuses what
@@ -229,15 +270,32 @@ def preflight(args) -> None:
     if args.optim not in OPTIMIZER_NAMES:
         raise SystemExit(f"--optim {args.optim!r}: unsupported optimizer; choices "
                          f"{OPTIMIZER_NAMES}")
-    if args.mesh_dp > 1:
-        _refuse("--mesh-dp", args.mesh_dp, "A8", "one card: 0 or 1")
     if args.mesh_mp > 1:
-        _refuse("--mesh-mp", args.mesh_mp, "A8", "one card: 1")
-    for flag, value, unset in (("--dist-coordinator", args.dist_coordinator, ""),
-                               ("--dist-num-processes", args.dist_num_processes, 0),
-                               ("--dist-process-id", args.dist_process_id, -1)):
-        if value != unset:
-            _refuse(flag, value, "A8")
+        _refuse("--mesh-mp", args.mesh_mp, "A8b",
+                "the port's mesh is data-parallel only (--mesh-dp)")
+    dist_flags = (("--dist-coordinator", args.dist_coordinator, ""),
+                  ("--dist-num-processes", args.dist_num_processes, 0),
+                  ("--dist-process-id", args.dist_process_id, -1))
+    given = [(flag, value) for flag, value, unset in dist_flags if value != unset]
+    if given and len(given) < len(dist_flags):
+        missing = [flag for flag, value, unset in dist_flags if value == unset]
+        raise SystemExit(f"{given[0][0]} {given[0][1]!r}: a multi-process run takes "
+                         "--dist-coordinator HOST:PORT, --dist-num-processes N and "
+                         f"--dist-process-id I together (missing {', '.join(missing)}), "
+                         "or torchrun's environment and none of them")
+    if given and not 0 <= args.dist_process_id < args.dist_num_processes:
+        raise SystemExit(f"--dist-process-id {args.dist_process_id!r} is not in "
+                         f"[0, {args.dist_num_processes})")
+    world = process_count(args)
+    if args.mesh_dp and args.mesh_dp != world:
+        raise SystemExit(
+            f"--mesh-dp {args.mesh_dp!r}: the data-parallel axis is one process per card and "
+            f"this run has {world} process(es) (ROADMAP A8a); launch {args.mesh_dp} "
+            f"(torchrun --nproc-per-node {args.mesh_dp}, or the --dist-* flags) or pass "
+            "--mesh-dp 0")
+    if args.train_batch % world:
+        raise SystemExit(f"--train-batch {args.train_batch!r} does not divide over the {world} "
+                         "processes of this run: each takes an equal slice of every batch")
     if not args.use_cpu and args.train_batch > MAX_BATCH:
         raise SystemExit(
             f"--train-batch {args.train_batch}: the card's batch-hard mining kernel (K3) "
@@ -311,28 +369,54 @@ def run(args):
     from agrl_torch.utils.logger import Logger, ScalarWriter
 
     preflight(args)
-    device = resolve_device("cpu" if args.use_cpu else "cuda")
+    mesh = None
+    if distributed_run(args):
+        import torch.distributed as dist
+
+        from agrl_torch.parallel import initialize_distributed, make_mesh
+
+        kind = "cpu" if args.use_cpu else "cuda"
+        if args.dist_num_processes:
+            initialize_distributed(args.dist_coordinator, args.dist_num_processes,
+                                   args.dist_process_id, device=kind)
+        else:
+            initialize_distributed(device=kind)
+        try:
+            mesh = make_mesh(dp=args.mesh_dp or None)
+        except BaseException:
+            dist.destroy_process_group()
+            raise
+    device = mesh.device if mesh is not None else resolve_device(
+        "cpu" if args.use_cpu else "cuda")
     np.random.seed(args.seed)
     torch.manual_seed(args.seed)
 
     mode = "test" if args.evaluate else "train"
     stamp = time.strftime("-%Y-%m-%d-%H-%M-%S")
+    # each process its own log; the scalars from process 0 alone
+    proc_tag = "" if mesh is None or mesh.rank == 0 else f"-proc{mesh.rank}"
     stdout = sys.stdout
-    logger = Logger(osp.join(args.save_dir, f"log_{mode}{stamp}.txt"))
+    logger = Logger(osp.join(args.save_dir, f"log_{mode}{stamp}{proc_tag}.txt"))
     sys.stdout = logger
-    writer = ScalarWriter(args.save_dir)
+    writer = ScalarWriter(args.save_dir) if not proc_tag else None
     stores = []  # the run's FrameDiskCache, closed here (it holds the store's lock)
     try:
-        return _run(args, device, writer, stores)
+        result = _run(args, device, writer, stores, mesh)
+        if mesh is not None:
+            torch.distributed.barrier()  # every rank done before the group goes
+        return result
     finally:
         for store in stores:
             store.close()
         sys.stdout = stdout
         logger.close()
-        writer.close()
+        if writer is not None:
+            writer.close()
+        if mesh is not None:
+            torch.distributed.destroy_process_group()
 
 
-def _run(args, device, writer, stores):
+def _run(args, device, writer, stores, mesh):
     from agrl_torch import models
     from agrl_torch.core import (
         AsyncCheckpointer,
@@ -358,10 +442,15 @@ def _run(args, device, writer, stores):
     from agrl_torch.utils.profiling import trace
     from agrl_torch.utils.reidtools import visualize_ranked_results
 
+    is_main = mesh is None or mesh.rank == 0
     print(f"==========\nArgs:{args}\n==========")
-    write_json(vars(args), osp.join(args.save_dir, "args.json"))
+    if is_main:
+        write_json(vars(args), osp.join(args.save_dir, "args.json"))
     name = torch.cuda.get_device_name(device) if device.type == "cuda" else "CPU"
     print(f"Torch device: {device} ({name}), torch {torch.__version__}")
+    if mesh is not None:
+        print(f"Mesh: dp={mesh.dp} mp=1 (process {mesh.rank} of {mesh.dp}, "
+              f"{torch.distributed.get_backend()})")
     # the flips and the consistent-loss subclips (agrl_tpu: PRNGKey(seed + 1))
     generator = torch.Generator().manual_seed(args.seed + 1)
 
@@ -389,9 +478,11 @@ def _run(args, device, writer, stores):
     sampler = init_sampler(
         args.train_sampler, dataset.train, args.train_batch, args.num_instances, seed=args.seed
     )
+    # every rank runs the identically seeded sampler and loads its slice
     trainloader = ClipLoader(train_ds, batch_size=args.train_batch, sampler=sampler,
                              drop_last=True, num_workers=args.workers, seed=args.seed,
-                             malloc_tuning=True)
+                             malloc_tuning=True,
+                             process_shard=None if mesh is None else (mesh.rank, mesh.dp))
     # dense/skipdense/all items vary in length: one tracklet a loader batch
     test_batch = 1 if args.test_sample in ("dense", "skipdense", "all") else args.test_batch
     queryloader = ClipLoader(query_ds, batch_size=test_batch, num_workers=args.workers,
@@ -407,7 +498,8 @@ def _run(args, device, writer, stores):
         seed=args.seed,
         **model_kwargs(args, torch.bfloat16 if args.bf16_train else torch.float32),
     )
-    _copy_model_source(model, args.save_dir)
+    if is_main:
+        _copy_model_source(model, args.save_dir)
     # the startup params/FLOPs line (reference train_vidreid_xent_htri.py:256-263
     # runs the same single-clip probe)
     n_params, gflops = compute_model_complexity(
@@ -444,6 +536,10 @@ def _run(args, device, writer, stores):
         print(f"- start_epoch: {start_epoch}")
         print(f"- rank1: {best_rank1}")
         print(f"- mAP: {best_mAP}")
+    if mesh is not None:
+        from agrl_torch.parallel import replicated
+
+        replicated(mesh, model, optimizer)  # every rank from rank 0's values
 
     evaluator = Evaluator(model, test_sample=args.test_sample, pool=args.pool,
                           bf16=args.bf16_eval, clip_batch=args.clip_batch, device=device)
@@ -451,9 +547,9 @@ def _run(args, device, writer, stores):
         print("Evaluate only")
         result = evaluator.evaluate(
             queryloader, galleryloader, dist_metric=args.dist_metric, re_rank=args.re_rank,
-            metric_protocol=PROTOCOL, return_distmat=args.visualize_ranks,
+            metric_protocol=PROTOCOL, return_distmat=args.visualize_ranks, mesh=mesh,
         )
-        if args.visualize_ranks:
+        if args.visualize_ranks and is_main:
             visualize_ranked_results(
                 result, dataset.query, dataset.gallery,
                 save_dir=osp.join(args.save_dir, "ranked_results"), topk=20,
@@ -473,14 +569,14 @@ def _run(args, device, writer, stores):
         model, optimizer, per_step(lr_epoch, steps_per_epoch),
         lambda_xent=args.lambda_xent, lambda_htri=args.lambda_htri,
         label_smooth=args.label_smooth, margin=args.margin, soft_margin=args.soft_margin,
-        aug=aug, start_step=start_step, remat=args.remat,
+        aug=aug, start_step=start_step, remat=args.remat, mesh=mesh,
     )
 
     print("==> Start training")
     start_time = time.time()
     train_time = 0
     best_epoch = start_epoch
-    async_ckpt = AsyncCheckpointer() if args.async_ckpt else None
+    async_ckpt = AsyncCheckpointer() if args.async_ckpt and is_main else None
     save = save_checkpoint if async_ckpt is None else async_ckpt.save
     try:
         for epoch in range(start_epoch, args.max_epoch):
@@ -490,10 +586,11 @@ def _run(args, device, writer, stores):
             if args.profile_dir and epoch == start_epoch:
                 with trace(args.profile_dir):
                     train_one_epoch(args, epoch, train_step, trainloader, generator, writer,
-                                    device)
+                                    device, mesh)
                 print(f"Profile of epoch {epoch + 1} written to '{args.profile_dir}'")
             else:
-                train_one_epoch(args, epoch, train_step, trainloader, generator, writer, device)
+                train_one_epoch(args, epoch, train_step, trainloader, generator, writer,
+                                device, mesh)
             train_time += round(time.time() - t0)
 
             do_eval = (
@@ -505,16 +602,17 @@ def _run(args, device, writer, stores):
                 print("==> Test")
                 rank1, mAP = evaluator.evaluate(
                     queryloader, galleryloader, dist_metric=args.dist_metric,
-                    re_rank=args.re_rank, metric_protocol=PROTOCOL,
+                    re_rank=args.re_rank, metric_protocol=PROTOCOL, mesh=mesh,
                 )
                 is_best = rank1 > best_rank1
                 if is_best:
                     best_rank1, best_mAP, best_epoch = rank1, mAP, epoch + 1
-                save(model, optimizer,
-                     osp.join(args.save_dir, f"checkpoint_ep{epoch + 1}.pth.tar"),
-                     epoch, rank1=rank1, mAP=mAP, is_best=is_best)
-                writer.add_scalar("acc/rank1", rank1, epoch + 1)
-                writer.add_scalar("acc/mAP", mAP, epoch + 1)
+                if is_main:  # one checkpoint and scalar writer a job
+                    save(model, optimizer,
+                         osp.join(args.save_dir, f"checkpoint_ep{epoch + 1}.pth.tar"),
+                         epoch, rank1=rank1, mAP=mAP, is_best=is_best)
+                    writer.add_scalar("acc/rank1", rank1, epoch + 1)
+                    writer.add_scalar("acc/mAP", mAP, epoch + 1)
     finally:
         if async_ckpt is not None:
             async_ckpt.close()  # the last save lands before the run reports done
@@ -612,14 +710,17 @@ def _copy_model_source(model, save_dir: str) -> None:
         print(f"(model source copy skipped: {e})")
 
 
-def train_one_epoch(args, epoch, train_step, trainloader, generator, writer, device):
+def train_one_epoch(args, epoch, train_step, trainloader, generator, writer, device,
+                    mesh=None):
     """One epoch of train steps with agrl_tpu's meter block. The batches
     come through prefetch_to_device: built (and on the card, copied) up to
     two ahead on a thread while the step runs, so the Data meter is the
     wait for a batch the thread has not finished. The meters hold each
     step's 0-d device tensors and sync with the card only when a line
     prints; the step's time is the window's wall clock over its steps,
-    measured after that sync."""
+    measured after that sync. Under a mesh each rank holds its slice of
+    the batch, the metrics are the global batch's and Speed counts the
+    global batch; `writer` is None on the ranks that write no scalars."""
     from agrl_torch.data.loader import prefetch_to_device
     from agrl_torch.utils.avgmeter import AverageMeter
     from agrl_torch.utils.logger import cur_time
@@ -641,7 +742,7 @@ def train_one_epoch(args, epoch, train_step, trainloader, generator, writer, dev
             metrics = train_step(imgs, pids, adjs, generator=generator)
             window_batches += 1
 
-            bsz = imgs.shape[0]
+            bsz = imgs.shape[0] * (1 if mesh is None else mesh.dp)  # the global batch
             xent_losses.update(metrics["xent_loss"], bsz)
             htri_losses.update(metrics["htri_loss"], bsz)
             precisions.update(metrics["top1"])
@@ -670,8 +771,9 @@ def train_one_epoch(args, epoch, train_step, trainloader, generator, writer, dev
                 )
             end = time.time()
 
-    writer.add_scalar("loss/xent_loss", float(xent_losses.avg), epoch + 1)
-    writer.add_scalar("loss/htri_loss", float(htri_losses.avg), epoch + 1)
+    if writer is not None:
+        writer.add_scalar("loss/xent_loss", float(xent_losses.avg), epoch + 1)
+        writer.add_scalar("loss/htri_loss", float(htri_losses.avg), epoch + 1)
 
 
 if __name__ == "__main__":

@@ -200,7 +200,16 @@ class ClipLoader:
 
     `malloc_tuning=True` applies utils.hostmem.tune_malloc_for_streaming, a
     process-wide glibc policy (batch buffers reuse warm heap pages); the
-    CLI opts in."""
+    CLI opts in.
+
+    `process_shard=(rank, world)`: data-parallel loading (agrl_tpu/data/
+    loader.py:221-310). Every rank runs the identically seeded sampler and
+    draws the per-item seeds of the GLOBAL batch before slicing, so an item
+    gets the seed a one-process run gives it; each rank builds only its
+    contiguous batch_size / world slice of every batch. A ragged tail keeps
+    len // world items a rank, and a tail shorter than world yields
+    nothing (agrl_tpu's `__len__`). The eval loaders are not sharded: every
+    rank reads the whole query and gallery."""
 
     def __init__(
         self,
@@ -211,6 +220,7 @@ class ClipLoader:
         num_workers: int = 1,
         seed: int | None = None,
         malloc_tuning: bool = False,
+        process_shard: tuple[int, int] | None = None,
     ):
         if malloc_tuning:
             from agrl_torch.utils.hostmem import tune_malloc_for_streaming
@@ -224,11 +234,21 @@ class ClipLoader:
         if getattr(dataset, "decode_threads", 1) is None:
             dataset.decode_threads = 0 if self.num_workers == 1 else 1
         self.rng = np.random.RandomState(seed)
+        if process_shard is not None:
+            rank, world = process_shard
+            if not 0 <= rank < world:
+                raise ValueError(f"process_shard rank {rank} is not in [0, {world})")
+            if batch_size % world:
+                raise ValueError(f"batch {batch_size} does not divide over {world} processes")
+        self.process_shard = process_shard
 
     def __len__(self):
         n = len(self.sampler) if self.sampler is not None else len(self.dataset)
         if self.drop_last:
             return n // self.batch_size
+        rem = n % self.batch_size
+        if rem and self.process_shard is not None and rem < self.process_shard[1]:
+            return n // self.batch_size  # a tail shorter than the world yields nothing
         return -(-n // self.batch_size)
 
     @property
@@ -244,6 +264,10 @@ class ClipLoader:
         stop = len(indices) - len(indices) % self.batch_size if self.drop_last else len(indices)
         batches = [indices[i:i + self.batch_size] for i in range(0, stop, self.batch_size)]
         seeded = [(b, self.rng.randint(0, 2**31 - 1, size=len(b))) for b in batches]
+        if self.process_shard is not None:  # this rank's slice of each global batch
+            rank, world = self.process_shard
+            seeded = [(b[rank * k:(rank + 1) * k], s[rank * k:(rank + 1) * k])
+                      for b, s in seeded for k in [len(b) // world] if k]
         cacheable = self.batch_cacheable
         cache = self.dataset.cache if cacheable else None
 
@@ -291,7 +315,8 @@ def prefetch_to_device(iterator, size: int = 2, device="cuda"):
     """Yields the batches (tuples of numpy arrays) of `iterator`, built up
     to `size` ahead on a background thread (agrl_tpu/data/loader.py:383-413
     overlaps them with JAX's asynchronous dispatch; a torch step holds the
-    host, so the batches are built beside it instead).
+    host, so the batches are built beside it instead). A data-parallel rank
+    passes its own card: each rank's slice goes to its device.
 
     On a CUDA `device` each batch is copied into pinned buffers of its own
     (never the iterator's arrays, which may be a cache's) and to the card

@@ -37,8 +37,23 @@ The ranking stage takes agrl_tpu's branches and console lines:
     and re-ranked on the host by the host algorithm, as in agrl_tpu.
 
 msppn and msppgn pad their `all` adjacency through their own
-`pad_eval_adjacency` hook, as agrl_tpu's Evaluator calls it. Not ported
-yet: the mesh Evaluator (ROADMAP A8).
+`pad_eval_adjacency` hook, as agrl_tpu's Evaluator calls it.
+
+The mesh Evaluator (`extract(..., mesh=)`, `evaluate(..., mesh=)`, the
+process-group form of parallel.make_mesh; agrl_tpu/engine/evaluator.py
+`_make_fwd_runner`, `_mesh_put`): every rank reads the whole query and
+gallery (the eval loaders are not process-sharded), each device batch is
+split into dp equal contiguous parts, one a rank, and the features are
+gathered back in order, so every rank holds the whole (N, D) features.
+A batch that does not divide by dp pads, as agrl_tpu's does: zero frames
+with an all-ones adjacency (evenly, dense/skipdense), or, under `all`,
+zero frames, a zero adjacency and a frame mask keeping frame 0; the
+padding rows are dropped. Under `all` a bucket's batch is rounded up to a
+multiple of dp. The ranking then runs on every rank on the whole
+features, so every rank prints the same CMC and mAP; the host-scored path
+builds its (Q, G) matrix from the ranks' gallery stripes
+(ops/distmat.py `sharded_distmat`). Model parallelism (`--mesh-mp`) is
+ROADMAP A8b.
 """
 
 from __future__ import annotations
@@ -51,7 +66,7 @@ import torch
 from agrl_torch import resolve_device
 from agrl_torch.data.transforms import preprocess_clips
 from agrl_torch.metrics import evaluate_rank, re_ranking
-from agrl_torch.ops.distmat import compute_distmat
+from agrl_torch.ops.distmat import compute_distmat, sharded_distmat
 from agrl_torch.ops.rank import (
     cuhk03_cmc_map,
     dukev_cmc_map,
@@ -154,21 +169,58 @@ class Evaluator:
         if self.device.type == "cuda":
             torch.cuda.synchronize(self.device)
 
-    def extract(self, loader, name: str = "query"):
+    def _runner(self, mesh, adj_pad: float = 1.0):
+        """The forward of one device batch: `self._fwd`, or under a
+        process-group mesh this rank's part of the batch (padded to a
+        multiple of dp: zero frames, adjacency `adj_pad`, a frame mask
+        keeping frame 0) with every rank's features gathered back in order."""
+        if mesh is None:
+            return self._fwd
+        if not mesh.distributed:
+            raise ValueError("the Evaluator takes the process-group form of the mesh")
+        if not mesh.holds(self.device):
+            raise ValueError(f"the Evaluator is on {self.device}, this rank's device is "
+                             f"{mesh.device}")
+        from agrl_torch.parallel import gather_rows
+
+        def run(imgs, adjs, frame_mask=None):
+            imgs, adjs = np.asarray(imgs), np.asarray(adjs)
+            n = imgs.shape[0]
+            pad = (-n) % mesh.dp
+            if pad:
+                imgs = np.concatenate([imgs, np.zeros((pad, *imgs.shape[1:]), imgs.dtype)])
+                adjs = np.concatenate([adjs, np.full((pad, *adjs.shape[1:]), adj_pad,
+                                                     adjs.dtype)])
+                if frame_mask is not None:
+                    fpad = np.zeros((pad, frame_mask.shape[1]), np.float32)
+                    fpad[:, 0] = 1.0  # the masked mean never divides by zero
+                    frame_mask = np.concatenate([frame_mask, fpad])
+            k = (n + pad) // mesh.dp
+            part = slice(mesh.rank * k, (mesh.rank + 1) * k)
+            f = self._fwd(imgs[part], adjs[part],
+                          None if frame_mask is None else frame_mask[part])
+            with torch.inference_mode():
+                return gather_rows(f, mesh)[:n]
+
+        return run
+
+    def extract(self, loader, name: str = "query", mesh=None):
         """Returns (features (N, D) on the device, pids, camids, batch_time
         meter). Batch times are host time around each forward, synchronized
         with the card. The model goes to eval mode first: a trainer between
-        two evaluations leaves it in train mode."""
+        two evaluations leaves it in train mode. `mesh`: the process-group
+        mesh whose ranks split each batch (module docstring)."""
         self.model.eval()
         if self.test_sample in ("dense", "skipdense"):
-            return self._extract_dense_packed(loader, name)
+            return self._extract_dense_packed(loader, name, mesh)
         if self.test_sample == "all" and getattr(self.model, "supports_frame_mask", False):
-            return self._extract_all_bucketed(loader, name)
+            return self._extract_all_bucketed(loader, name, mesh)
+        run = self._runner(mesh)
         feats, pids, camids = [], [], []
         batch_time = AverageMeter()
         for imgs, bpids, bcamids, adjs in loader:
             t0 = time.time()
-            feats.append(self._fwd(imgs, adjs))
+            feats.append(run(imgs, adjs))
             self._sync()
             batch_time.update(time.time() - t0)
             pids.extend(np.asarray(bpids).tolist())
@@ -190,7 +242,7 @@ class Evaluator:
             b = -(-5 * b // 32) * 8  # ceil(b * 1.25 / 8) * 8
         return b
 
-    def _extract_all_bucketed(self, loader, name: str):
+    def _extract_all_bucketed(self, loader, name: str, mesh=None):
         """`all` extraction: each tracklet pads to `_bucket_len` frames with a
         frame mask (masked global mean, masked graph rows, masked attention:
         models/vmgn.py), so its feature equals the unpadded forward's, and
@@ -200,8 +252,11 @@ class Evaluator:
         msppgn: split-major vertices over three scales, whose entries
         scatter to their padded positions, models/graphnet.py). A bucket's
         last batch runs at its own size. Loader batches
-        hold whole tracklets: imgs (b, num, H, W, 3), adjs (b, V, V)."""
+        hold whole tracklets: imgs (b, num, H, W, 3), adjs (b, V, V).
+        Under a mesh a bucket's batch rounds up to a multiple of dp."""
         frame_budget = max(self.clip_batch, 1) * 8
+        dp = 1 if mesh is None else mesh.dp
+        run = self._runner(mesh, adj_pad=0.0)
         batch_time = AverageMeter()
         pend: dict[int, list] = {}  # bucket -> [(idx, imgs, adj, fmask)]
         out: dict[int, torch.Tensor] = {}  # idx -> feature row
@@ -209,7 +264,7 @@ class Evaluator:
         n_items = 0
 
         def ab_for(Sp: int) -> int:
-            return max(1, frame_budget // Sp)
+            return -(-max(1, frame_budget // Sp) // dp) * dp
 
         def flush(Sp: int, final: bool = False):
             q = pend[Sp]
@@ -221,7 +276,7 @@ class Evaluator:
                 imgs = np.stack([c[1] for c in chunk])
                 adjs = np.stack([c[2] for c in chunk])
                 fmasks = np.stack([c[3] for c in chunk])
-                f = self._fwd(imgs, adjs, fmasks)
+                f = run(imgs, adjs, fmasks)
                 self._sync()
                 batch_time.update(time.time() - t0)
                 for (idx, *_), row in zip(chunk, f):
@@ -266,7 +321,7 @@ class Evaluator:
         _print_extracted(name, features)
         return features, np.asarray(pids), np.asarray(camids), batch_time
 
-    def _extract_dense_packed(self, loader, name: str):
+    def _extract_dense_packed(self, loader, name: str, mesh=None):
         """dense/skipdense extraction with cross-tracklet clip packing: the
         clip streams of consecutive tracklets fill (clip_batch, ...) device
         batches (the last one runs at its own size), a tracklet's clips may straddle
@@ -275,6 +330,7 @@ class Evaluator:
         Loader batches hold whole tracklets: imgs (b, n, S, H, W, 3), adjs
         (b, n, V, V)."""
         CB = self.clip_batch
+        run = self._runner(mesh)
         batch_time = AverageMeter()
         pend_imgs, pend_adjs, pend_seg = [], [], []  # the flat clip stream
         pids, camids = [], []
@@ -300,7 +356,7 @@ class Evaluator:
                 adjs = np.stack(pend_adjs[:take])
                 segs = pend_seg[:take]
                 del pend_imgs[:take], pend_adjs[:take], pend_seg[:take]
-                f = self._fwd(imgs, adjs).cpu().numpy()  # syncs with the card
+                f = run(imgs, adjs).cpu().numpy()  # syncs with the card
                 batch_time.update(time.time() - t0)
                 accumulate(f, segs)
 
@@ -338,14 +394,18 @@ class Evaluator:
         metric_protocol: str = "mars",
         return_distmat: bool = False,
         device_rank: bool = True,
+        mesh=None,
     ):
         """Returns (rank-1, mAP), or the (Q, G) numpy distance matrix
         (re-ranked if asked) with `return_distmat`, and prints agrl_tpu's
-        result block."""
+        result block. `mesh`: the process-group mesh whose ranks split the
+        extraction; every rank ranks the whole features and returns the same
+        result (module docstring)."""
         if metric_protocol not in PROTOCOLS:
             raise ValueError(f"metric_protocol must be one of {PROTOCOLS}, got {metric_protocol!r}")
-        qf, q_pids, q_camids, bt_q = self.extract(queryloader, "query")
-        gf, g_pids, g_camids, bt_g = self.extract(galleryloader, "gallery")
+        kw = {} if mesh is None else {"mesh": mesh}  # without one, today's call
+        qf, q_pids, q_camids, bt_q = self.extract(queryloader, "query", **kw)
+        gf, g_pids, g_camids, bt_g = self.extract(galleryloader, "gallery", **kw)
         avg_bt = (bt_q.sum + bt_g.sum) / max(bt_q.count + bt_g.count, 1)
         print(f"==> BatchTime(s)/Batch: {avg_bt:.3f}")
         ids = (q_pids, g_pids, q_camids, g_camids)
@@ -379,7 +439,10 @@ class Evaluator:
             distmat = re_ranking_from_features(qf, gf, dist_metric).cpu().numpy()
         else:
             print(f"Computing distance matrix with metric={dist_metric} ...")
-            distmat = compute_distmat(qf, gf, dist_metric).cpu().numpy()
+            if mesh is None:
+                distmat = compute_distmat(qf, gf, dist_metric).cpu().numpy()
+            else:
+                distmat = sharded_distmat(mesh, qf, gf, dist_metric).cpu().numpy()
             if re_rank:
                 print("Applying person re-ranking ...")
                 qq = compute_distmat(qf, qf, dist_metric).cpu().numpy()

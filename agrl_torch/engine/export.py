@@ -40,7 +40,15 @@ all-ones one, which they ignore. The all-ones adjacency has
 
 `bf16=True` is the default of both, as in agrl_tpu (export.py:57, :132).
 The program an artifact holds runs on the device it was exported on.
-Serving over several cards (agrl_tpu's `mesh=`) is not ported (ROADMAP A8).
+
+Serving over several devices of one process (agrl_tpu's `mesh=`,
+export.py:116-165): `FeatureExtractor(model, mesh=make_mesh(devices=...))`,
+the local-devices form of parallel.make_mesh. The weights are copied once
+to each of the mesh's devices, `batch_size` must divide by their count,
+and each request chunk (padded as above) splits into equal contiguous
+parts, one a device, whose features come back concatenated in order.
+`from_exported` refuses a mesh of more than one device, as agrl_tpu's
+does: scale artifact serving by process.
 """
 
 from __future__ import annotations
@@ -148,10 +156,14 @@ class FeatureExtractor:
         bf16: bool = True,
         num_vertices: int | None = None,
         device="cuda",
+        mesh=None,
         _call=None,
         _hw=None,
     ):
-        self.device = resolve_device(device)
+        if mesh is not None and mesh.distributed:
+            raise ValueError("serving takes the local-devices form of the mesh "
+                             "(parallel.make_mesh(devices=...)); scale serving by process")
+        self.device = resolve_device(device if mesh is None else mesh.device)
         self.batch_size = batch_size
         self.seq_len = seq_len
         self._hw = _hw  # frame H/W: fixed by an artifact, or locked in by the first request
@@ -169,16 +181,33 @@ class FeatureExtractor:
             num_vertices if num_vertices is not None else default_num_vertices(model, seq_len)
         )
         self._fwd = make_eval_forward(self.model, self.device, bf16)
+        if mesh is not None and mesh.dp > 1:
+            if batch_size % mesh.dp:
+                raise ValueError(f"batch_size {batch_size} must divide over the mesh's "
+                                 f"{mesh.dp} devices")
+            import copy
+
+            # the weights, copied once to each further device
+            replicas = [self._fwd] + [
+                make_eval_forward(copy.deepcopy(self.model).to(resolve_device(d)),
+                                  resolve_device(d), bf16)
+                for d in mesh.devices[1:]]
+            self._fwd = _split_over(replicas, batch_size // mesh.dp)
 
     @classmethod
-    def from_exported(cls, path_or_program, state_dict, *, batch_size=None):
+    def from_exported(cls, path_or_program, state_dict, *, batch_size=None, mesh=None):
         """Serve an artifact of `export_eval_forward` (a path or a loaded
         program) with the weights `state_dict` (e.g. core.checkpoint.
         load_variables): the batch, seq_len, frame size and vertex count
         come from the artifact's input signature, the device from where it
         was exported. Entries of `state_dict` the program does not take
         (num_batches_tracked) are left out; a missing one raises. Sets both
-        TF32 switches off, process-wide, as make_eval_forward does."""
+        TF32 switches off, process-wide, as make_eval_forward does. A mesh
+        of more than one device is refused: an artifact is a one-device
+        program (agrl_tpu/engine/export.py:147-152)."""
+        if mesh is not None and mesh.dp > 1:
+            raise ValueError("mesh serving needs a live model: an exported artifact is a "
+                             "one-device program (scale artifact serving by process)")
         exported = (load_exported(path_or_program) if isinstance(path_or_program, str)
                     else path_or_program)
         names, img_shape, adj_shape, dev = _signature(exported)
@@ -242,3 +271,17 @@ class FeatureExtractor:
                     ad = np.concatenate([ad, ones[: bs - take]])
             out.append(self._fwd(im, ad)[:take])  # async on the card
         return torch.cat(out).cpu().numpy()
+
+
+def _split_over(forwards, part: int):
+    """One forward of a batch over several devices: rows [i * part,
+    (i + 1) * part) go to forwards[i] (each launched before any result is
+    read), and the features come back concatenated in order on the first
+    one's device."""
+
+    def fwd(imgs, adjs):
+        outs = [f(imgs[i * part:(i + 1) * part], adjs[i * part:(i + 1) * part])
+                for i, f in enumerate(forwards)]
+        return torch.cat([o.to(outs[0].device) for o in outs])
+
+    return fwd

@@ -32,6 +32,28 @@ recompute leaves the BN running statistics alone (they are updated once,
 by the first forward) and takes the consistent-loss draw made before the
 forward (the model's `draw_subclips`: VMGN's subclips, gsta's and
 ganet's dropped frames), so it computes the first forward's values.
+
+`mesh` (the process-group form of parallel.make_mesh) makes the step
+data-parallel: each of the dp processes passes its slice of the global
+batch, and the step computes agrl_tpu's single-device step on the global
+batch (agrl_tpu/engine/trainer.py, GSPMD over the 'dp' axis):
+  * every rank draws the augmentations and the consistent-loss draw for
+    the GLOBAL batch from its identically seeded generator (injected
+    `flip` and `subclip_indices` are the global batch's) and keeps its
+    slice, so a run of dp ranks sees the flips, erasures, crops and
+    subclips of a one-rank run of the same seed;
+  * train-mode BatchNorms take the global batch's statistics
+    (models/backbone.py `global_batch_stats`, also in the recompute);
+  * the batch-hard mining gathers the global batch
+    (losses.batch_hard_triplet_heads); cross-entropy is the rank's slice
+    mean, whose average over the ranks is the global mean because the
+    slices are equal;
+  * the gradients are averaged over the ranks (parallel.average_gradients,
+    in buckets) before the optimizer step, so every rank takes the same
+    update and the parameters stay equal;
+  * the metrics are averaged over the ranks: every rank returns the global
+    batch's loss, xent_loss, htri_loss and top1.
+Without a mesh nothing of this runs: no collective, no global draw.
 """
 
 from __future__ import annotations
@@ -39,6 +61,7 @@ from __future__ import annotations
 from contextlib import contextmanager, nullcontext
 from functools import partial
 
+import numpy as np
 import torch
 from torch.utils.checkpoint import (
     CheckpointPolicy,
@@ -69,8 +92,10 @@ def _both(first, second):
         yield
 
 
-def _remat_contexts(remat: str):
-    """checkpoint's context_fn: (forward context, recompute context)."""
+def _remat_contexts(remat: str, bn_context):
+    """checkpoint's context_fn: (forward context, recompute context). The
+    recompute runs in the backward, outside the step's `bn_context`, so it
+    enters it again."""
     # imported here: a serving host imports this package and no model code
     from agrl_torch.models.backbone import frozen_running_stats
 
@@ -79,9 +104,38 @@ def _remat_contexts(remat: str):
             forward, recompute = create_selective_checkpoint_contexts(_save_products)
         else:
             forward, recompute = nullcontext(), nullcontext()
-        return forward, _both(recompute, frozen_running_stats())
+        return forward, _both(_both(recompute, bn_context()), frozen_running_stats())
 
     return contexts
+
+
+def _global_draws(aug: dict, shape, generator, flip, world: int, rank: int) -> dict:
+    """The augmentation draws of preprocess_clips, in its order (misalign,
+    translate, flip, erase), for the global batch of `world` slices of
+    shape (b, S, H, W, 3); this rank's slice of each, as its injected
+    draws. An injected `flip` is the global batch's."""
+    from agrl_torch.data import transforms as tt
+
+    b, S, H, W = shape[:4]
+    B = b * world
+    needed = [aug.get("misalign_aug", False), aug.get("rand_translate", False),
+              aug.get("flip_aug", True) and flip is None, aug.get("rand_erase", False)]
+    if generator is None and any(needed):
+        raise ValueError("train augmentations need a torch.Generator or their injected draws")
+    draws = {}
+    if aug.get("misalign_aug", False):
+        draws["misalign_draws"] = tt.draw_misalign(B, generator)
+    if aug.get("rand_translate", False):
+        draws["translate_draws"] = tt.draw_translate(B, H, W, generator)
+    if aug.get("flip_aug", True):
+        draws["flip"] = (torch.as_tensor(np.asarray(flip), dtype=torch.bool) if flip is not None
+                         else torch.rand(B, generator=generator) < 0.5)
+        if draws["flip"].shape != (B,):
+            raise ValueError(f"flip must be the global batch's ({B},) bool, "
+                             f"got {tuple(draws['flip'].shape)}")
+    if aug.get("rand_erase", False):
+        draws["erase_draws"] = tt.draw_erase(B, S, H, W, generator)
+    return {k: v[rank * b:(rank + 1) * b] for k, v in draws.items()}
 
 
 def make_train_step(
@@ -96,6 +150,7 @@ def make_train_step(
     aug: dict | None = None,
     start_step: int = 0,
     remat: str = "none",
+    mesh=None,
 ):
     """Returns train_step(imgs, pids, adj, *, generator, flip=None,
     subclip_indices=None) -> metrics.
@@ -114,7 +169,9 @@ def make_train_step(
     before the optimizer step, as optax reads lr(count) before counting.
     `start_step` is the count already taken: a run resumed after epoch e
     passes (e + 1) * steps_per_epoch, as agrl_tpu's CLI sets its state's
-    step, so the schedule goes on where it stopped.
+    step, so the schedule goes on where it stopped. `mesh`: a process
+    group's mesh, for a data-parallel step on this rank's slice of the
+    batch (module docstring).
 
     The metrics `loss`, `xent_loss`, `htri_loss` and `top1` (argmax
     accuracy averaged over heads) are 0-d device tensors: nothing syncs
@@ -134,6 +191,19 @@ def make_train_step(
     xent_fn = partial(cross_entropy_label_smooth, epsilon=0.1 if label_smooth else 0.0)
     device = next(model.parameters()).device
     step = start_step
+    if mesh is not None and not mesh.distributed:
+        raise ValueError("the train step takes the process-group form of the mesh (one "
+                         "process per card: parallel.initialize_distributed, make_mesh)")
+    if mesh is not None and not mesh.holds(device):
+        raise ValueError(f"the model is on {device}, this rank's device is {mesh.device}")
+    if mesh is not None:
+        from agrl_torch.models.backbone import global_batch_stats
+        from agrl_torch.parallel import all_reduce_mean, average_gradients
+
+        bn_context = partial(global_batch_stats, mesh)
+    else:
+        bn_context = nullcontext
+    mesh_kw = {} if mesh is None else {"mesh": mesh}  # without one, today's calls
 
     def forward(x, adj, subclips):
         if subclips is None:
@@ -145,27 +215,34 @@ def make_train_step(
         imgs = torch.as_tensor(imgs).to(device, non_blocking=True)
         pids = torch.as_tensor(pids).to(device, torch.int64, non_blocking=True)
         adj = torch.as_tensor(adj).to(device, torch.float32, non_blocking=True)
-        x = imgs if aug is None else preprocess_clips(
-            imgs, train=True, generator=generator, flip=flip, **aug
-        )
-        # drawn before the forward, so a recompute takes the same frames
-        subclips = (model.draw_subclips(x.shape[0], x.shape[1], generator, subclip_indices)
-                    if getattr(model, "consistent_loss", False) else None)
+        if mesh is None:
+            x = imgs if aug is None else preprocess_clips(
+                imgs, train=True, generator=generator, flip=flip, **aug
+            )
+            # drawn before the forward, so a recompute takes the same frames
+            subclips = (model.draw_subclips(x.shape[0], x.shape[1], generator, subclip_indices)
+                        if getattr(model, "consistent_loss", False) else None)
+        else:
+            x, subclips = global_inputs(imgs, generator, flip, subclip_indices)
 
         model.train()
-        if remat == "none":
-            outputs, features = forward(x, adj, subclips)
-        else:
-            outputs, features = checkpoint(forward, x, adj, subclips, use_reentrant=False,
-                                           context_fn=_remat_contexts(remat))
+        with bn_context():
+            if remat == "none":
+                outputs, features = forward(x, adj, subclips)
+            else:
+                outputs, features = checkpoint(forward, x, adj, subclips, use_reentrant=False,
+                                               context_fn=_remat_contexts(remat, bn_context))
         if not isinstance(outputs, (list, tuple)):  # a single-head arch
             outputs, features = [outputs], [features]
         xent = deep_supervision(xent_fn, outputs, pids)
-        htri = batch_hard_triplet_heads(features, pids, margin=margin, soft=soft_margin)
+        htri = batch_hard_triplet_heads(features, pids, margin=margin, soft=soft_margin,
+                                        **mesh_kw)
         loss = lambda_xent * xent + lambda_htri * htri
 
         optimizer.zero_grad(set_to_none=True)
         loss.backward()
+        if mesh is not None:
+            average_gradients(model.parameters(), mesh)
         lr = lr_fn(step)
         for group in optimizer.param_groups:
             group["lr"] = lr
@@ -176,11 +253,32 @@ def make_train_step(
             top1 = torch.stack(
                 [(o.argmax(dim=1) == pids).float().mean() for o in outputs]
             ).mean()
-        return {
+        metrics = {
             "loss": loss.detach(),
             "xent_loss": xent.detach(),
             "htri_loss": htri.detach(),
             "top1": top1,
         }
+        if mesh is not None:  # the global batch's: one all_reduce for the four
+            values = all_reduce_mean(torch.stack([v.float() for v in metrics.values()]), mesh)
+            metrics = dict(zip(metrics, values.unbind()))
+        return metrics
+
+    def global_inputs(imgs, generator, flip, subclip_indices):
+        """The data-parallel step's input: this rank's slice of the global
+        batch's augmentation and consistent-loss draws."""
+        world, rank = mesh.dp, mesh.rank
+        if aug is None:
+            x = imgs
+        else:
+            x = preprocess_clips(imgs, train=True, **aug,
+                                 **_global_draws(aug, imgs.shape, generator, flip, world, rank))
+        if not getattr(model, "consistent_loss", False):
+            return x, None
+        b = x.shape[0]
+        subclips = model.draw_subclips(b * world, x.shape[1], generator, subclip_indices)
+        if torch.is_tensor(subclips):  # one draw per clip (gsta, ganet): the slice
+            subclips = subclips[rank * b:(rank + 1) * b]
+        return x, subclips
 
     return train_step

@@ -71,15 +71,30 @@ def triplet_from_distances(d_ap, d_an, margin: float = 0.3, soft: bool = True):
     return torch.clamp(margin + d_ap - d_an, min=0.0)
 
 
-def batch_hard_triplet_heads(features, labels, margin: float = 0.3, soft: bool = True):
+def batch_hard_triplet_heads(features, labels, margin: float = 0.3, soft: bool = True,
+                             mesh=None):
     """deep_supervision(batch_hard_triplet, features, labels): the mean of
     the batch-hard triplet loss over a list of (B, D) heads. CPU tensors
     take exactly that call. CUDA tensors: one forward kernel launch mines
     every head (and one backward launch gives their gradient), then each
     head's mean over B, summed over heads in deep_supervision's order and
-    divided by H."""
+    divided by H.
+
+    With a process-group `mesh` (parallel.make_mesh), each rank holds its
+    slice of the batch: every head's features (one all_gather for all
+    heads) and the labels are gathered, and the loss is the global batch's,
+    equal on every rank, as agrl_tpu's loss sees the global array. The
+    gather's backward sums the ranks' gradients of that one loss, so each
+    rank's features get dp times their slice of the global gradient; the
+    train step's average of the parameter gradients over the ranks divides
+    by dp once. K3's limits (B <= 256, H <= 64) hold for the global B."""
     if not isinstance(features, (list, tuple)):
         features = [features]
+    if mesh is not None:
+        from agrl_torch.parallel import gather_rows
+
+        features = list(gather_rows(torch.stack(list(features), dim=1), mesh).unbind(dim=1))
+        labels = gather_rows(labels, mesh)
     if features[0].device.type == "cpu":
         return deep_supervision(batch_hard_triplet, features, labels, margin=margin, soft=soft)
     # the kernels read dense rows: a head that is a view (msppn's and

@@ -42,6 +42,114 @@ def frozen_running_stats():
         _stats.frozen = before
 
 
+@contextmanager
+def global_batch_stats(mesh):
+    """Train-mode BatchNorms in this thread normalize with the mean and the
+    biased variance of the GLOBAL batch of `mesh`'s process group, and
+    update their running statistics with them (agrl_tpu gets this from
+    GSPMD: under jit the batch axis is global, agrl_tpu/models/backbone.py:
+    11-13). The train step enters it around the forward of a data-parallel
+    step (and its `--remat` recompute); outside it nothing changes."""
+    before = getattr(_stats, "mesh", None)
+    _stats.mesh = mesh
+    try:
+        yield
+    finally:
+        _stats.mesh = before
+
+
+def _bn_layout(t: torch.Tensor) -> torch.Tensor:
+    """t as it is where torch's native BatchNorm kernels take its layout
+    (contiguous, or channels-last, which cuDNN's convolutions hand over on
+    the card), else a contiguous copy; SyncBatchNorm's rule."""
+    if (t.is_contiguous() or (t.dim() == 4 and t.is_contiguous(memory_format=torch.channels_last))
+            or (t.dim() == 5 and t.is_contiguous(memory_format=torch.channels_last_3d))):
+        return t
+    return t.contiguous()
+
+
+class _GlobalBatchNorm(torch.autograd.Function):
+    """Train-mode BatchNorm over the global batch of a process group.
+
+    Forward: each rank's (count, mean, biased variance) per channel, in
+    float32 (Welford's on the card, a two-pass one on the CPU), go to every
+    rank in one all_gather
+    and combine by Chan's rule, mean = sum n_r m_r / N and
+    N var = sum (n_r var_r + n_r (m_r - mean)^2), whose terms are all
+    non-negative; the input normalizes with them in float32. Returns the
+    output and the global (mean, var), which update the running statistics.
+
+    Backward: the global sums of dy and dy * (x - mean) per channel, one
+    all_reduce, give the input gradient of the global normalization
+    (SyncBatchNorm's rule); the weight and bias gradients are this rank's
+    sums, which the train step averages over the ranks with the rest. On
+    the card the sums and the input gradient are torch's fused
+    batch_norm_backward_reduce / batch_norm_backward_elemt passes (those
+    SyncBatchNorm runs), as are the forward's statistics and normalization;
+    on the CPU the same arithmetic in torch ops."""
+
+    @staticmethod
+    def forward(ctx, x, weight, bias, eps, mesh):
+        import torch.distributed as dist
+
+        C = x.shape[1]
+        xf = x.float()
+        n = xf.numel() // C
+        if xf.is_cuda:  # one fused pass (SyncBatchNorm's); eps 0: invstd = var^-1/2, or 0
+            xf = _bn_layout(xf)
+            mean_r, invstd_r = torch.batch_norm_stats(xf, 0.0)
+            var_r = torch.where(invstd_r > 0, invstd_r.pow(-2), 0.0)
+        else:
+            var_r, mean_r = torch.var_mean(xf, dim=[0, *range(2, x.dim())], correction=0)
+        row = torch.cat([xf.new_full((1,), float(n)), mean_r, var_r])
+        rows = [torch.empty_like(row) for _ in range(mesh.dp)]
+        dist.all_gather(rows, row, group=mesh.group)
+        rows = torch.stack(rows)
+        counts, means, variances = rows[:, :1], rows[:, 1:C + 1], rows[:, C + 1:]
+        total = counts.sum()
+        mean = (counts * means).sum(0) / total
+        var = (counts * (variances + (means - mean) ** 2)).sum(0) / total
+        invstd = torch.rsqrt(var + eps)
+        if xf.is_cuda:  # keeps the input's layout (cuDNN's inference BN goes through NHWC)
+            out = torch.batch_norm_elemt(xf, weight, bias, mean, invstd, eps)
+        else:
+            out = F.batch_norm(xf, mean, var, weight, bias, False, 0.0, eps)
+        ctx.save_for_backward(xf, weight, mean, invstd)
+        ctx.mesh, ctx.in_dtype = mesh, x.dtype
+        ctx.total, ctx.counts = total, counts[:, 0].to(torch.int32)
+        ctx.mark_non_differentiable(mean, var)
+        return out, mean, var
+
+    @staticmethod
+    def backward(ctx, dout, _dmean, _dvar):
+        import torch.distributed as dist
+
+        x, weight, mean, invstd = ctx.saved_tensors
+        C = x.shape[1]
+        dy = dout.float()
+        if x.is_cuda:
+            dy = _bn_layout(dy)
+            sum_dy, sum_dy_xmu, dw, db = torch.batch_norm_backward_reduce(
+                dy, x, mean, invstd, weight, True, True, True)
+            both = torch.cat([sum_dy, sum_dy_xmu])
+            dist.all_reduce(both, group=ctx.mesh.group)
+            g_dy, g_dy_xmu = both.split(C)
+            dx = torch.batch_norm_backward_elemt(dy, x, mean, invstd, weight, g_dy, g_dy_xmu,
+                                                 ctx.counts)
+            return dx.to(ctx.in_dtype), dw, db, None, None
+        dims = [0, *range(2, x.dim())]
+        shape = (1, C) + (1,) * (x.dim() - 2)
+        xmu = x - mean.reshape(shape)
+        local = torch.cat([dy.sum(dims), (dy * xmu).sum(dims)])
+        both = local.clone()
+        dist.all_reduce(both, group=ctx.mesh.group)
+        sum_dy, sum_dy_xmu = (both / ctx.total).split(C)
+        dx = (dy - sum_dy.reshape(shape) - xmu * (invstd * invstd * sum_dy_xmu).reshape(shape)) \
+            * (invstd * weight).reshape(shape)
+        local_dy, local_dy_xmu = local.split(C)
+        return dx.to(ctx.in_dtype), local_dy_xmu * invstd, local_dy, None, None
+
+
 class _FlaxRunningStats:
     """Train mode normalizes with the batch mean and the biased batch
     variance, as both frameworks do, but updates `running_var` with the
@@ -49,7 +157,9 @@ class _FlaxRunningStats:
     (agrl_tpu/models/backbone.py:56-59). torch's own BatchNorm, and the
     original torch AGRL, use the unbiased one: a factor n / (n - 1) in the
     update, 16/15 at the BNNecks of a 16-clip batch. agrl_tpu is the
-    oracle, so the port keeps flax's rule.
+    oracle, so the port keeps flax's rule. Under `global_batch_stats` the
+    batch is the process group's global one (_GlobalBatchNorm), with the
+    same rule: torch.nn.SyncBatchNorm would take the unbiased variance.
 
     `compute_dtype` is flax's BatchNorm `dtype`: the output's dtype (None:
     the promotion of the input's and the scale's). Training: batch
@@ -85,6 +195,9 @@ class _FlaxRunningStats:
         dt = self.compute_dtype or torch.promote_types(x.dtype, self.weight.dtype)
         if not self.training:
             return self._eval(x).to(dt)
+        mesh = getattr(_stats, "mesh", None)
+        if mesh is not None:
+            return self._forward_global(x, dt, mesh)
         # a bf16 input normalizes to bf16 in one mixed-type call (fp32 math);
         # any other mix normalizes in fp32 and casts
         xin = x if x.dtype == dt else x.float()
@@ -98,6 +211,18 @@ class _FlaxRunningStats:
             self.running_mean.mul_(1.0 - m).add_(mean, alpha=m)
             self.running_var.mul_(1.0 - m).add_(var, alpha=m)
             self.num_batches_tracked.add_(1)
+        return out.to(dt)
+
+    def _forward_global(self, x: torch.Tensor, dt, mesh) -> torch.Tensor:
+        """Train mode under `global_batch_stats`: _GlobalBatchNorm, then
+        flax's running-stat rule with the global mean and biased variance."""
+        out, mean, var = _GlobalBatchNorm.apply(x, self.weight, self.bias, self.eps, mesh)
+        if not getattr(_stats, "frozen", False):
+            with torch.no_grad():
+                m = self.momentum
+                self.running_mean.mul_(1.0 - m).add_(mean, alpha=m)
+                self.running_var.mul_(1.0 - m).add_(var, alpha=m)
+                self.num_batches_tracked.add_(1)
         return out.to(dt)
 
 

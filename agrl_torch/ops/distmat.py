@@ -5,7 +5,8 @@ Conventions match agrl_tpu.metrics.distance:
   * cosine    -> 1 - <q_hat, g_hat>
 Both are one plain matrix product (torch.matmul). On the card, fp32
 products run in full fp32 only with TF32 off, which the eval entry points
-set (engine/evaluator.py).
+set (engine/evaluator.py). `sharded_distmat` splits the gallery axis over
+a process group's ranks (agrl_tpu/ops/distmat.py:55-77).
 """
 
 from __future__ import annotations
@@ -33,3 +34,20 @@ def compute_distmat(qf, gf, metric: str = "euclidean") -> torch.Tensor:
     if metric == "cosine":
         return cosine_distmat(qf, gf)
     raise ValueError(f"Unknown distance metric: {metric}")
+
+
+def sharded_distmat(mesh, qf, gf, metric: str = "euclidean") -> torch.Tensor:
+    """compute_distmat with the gallery axis split over the ranks of a
+    process-group mesh (parallel.make_mesh): each rank computes the
+    (Q, G / dp) stripe of its contiguous gallery rows (the gallery padded
+    with zero rows to a multiple of dp, dropped after), and the stripes are
+    gathered in order on every rank."""
+    from agrl_torch.parallel import gather_rows
+
+    G = gf.shape[0]
+    pad = (-G) % mesh.dp
+    if pad:
+        gf = torch.cat([gf, gf.new_zeros((pad, gf.shape[1]))])
+    k = gf.shape[0] // mesh.dp
+    stripe = compute_distmat(qf, gf[mesh.rank * k:(mesh.rank + 1) * k], metric)
+    return gather_rows(stripe.t(), mesh).t()[:, :G]

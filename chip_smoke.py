@@ -155,11 +155,11 @@ Phases (any failure exits non-zero before the result lines):
      (phase 13's features): ms and CMC/mAP within 1e-6;
  23. (run after phase 22) the rest of VMGN's training surface at the paper
      config (VMGN ResNet-50, 4x4 batches of 8-frame 256x128 colour clips,
-     consistent loss, soft-margin), from one seeded state: (a) 12 steps
+     consistent loss, soft-margin), from one seeded state: (a) 6 steps
      under each optimizer name (adam, amsgrad, sgd, nesterov, rmsprop,
-     adabound, radam; flips; a warmup epoch of 6 steps, then lr 1e-4):
-     step ms (median of steps 4-12), finite losses, one K3 forward and one
-     backward launch a step, and update 13, across the milestone's lr
+     adabound, radam; flips; a warmup epoch of 3 steps, then lr 1e-4):
+     step ms (median of steps 3-6), finite losses, one K3 forward and one
+     backward launch a step, and update 7, across the milestone's lr
      change, card vs CPU from the same state and gradients (1e-6 of max
      per parameter); (b) misalign, random crop (--rand-crop), random
      erasing, flips and all together with injected draws, card vs CPU
@@ -232,10 +232,35 @@ Phases (any failure exits non-zero before the result lines):
      resnet101, resnet50m, resnet50b) a batch of 32 images at 256x128: the
      eval forward's CUDA-event ms, and the train forward card vs CPU at
      depth (1,1,1,1), 64x32 (1e-3);
+ 27. (run after phase 26) data parallelism on the one card, phase 9's and
+     phase 16's configs: (a) an NCCL process group of world 1 in this
+     process (every collective runs: the BatchNorms' moments, the gathered
+     batch-hard mining, the gradient average, the metrics), 8 train steps
+     of phase 9's recipe on phase 9's first 8 batches through the
+     data-parallel step and 8 without a group, from one seed, batches and
+     generator: step-1 gradients (worst leaf, Frobenius, tol 5e-2, phase
+     11's bar: the BN arithmetic differs, and a BN weight's gradient
+     cancels to ~3e-2 of fp32 noise at this size), per-step losses (step 1
+     rtol 1e-5, all rtol 2e-2: Adam's sign steps amplify that noise) and
+     the final parameters (worst leaf's distance over its update,
+     Frobenius, tol 2: Adam moves an entry whose gradient is noise by a
+     whole step either way; max|d| / max|p| reported); the step's host
+     time both ways (median of steps 3-8, device
+     synced), peak GB, K3 1 + 1 launches a grouped step, and in one
+     profiled grouped step the NCCL kernels' count and device ms and the
+     BatchNorm calls; (b) one CLI epoch of the preset plus its evenly
+     evaluation on phase 16's layout with --dist-coordinator
+     127.0.0.1:<port> --dist-num-processes 1 --dist-process-id 0, and
+     without: the Time meter both ways, the step-1 losses to the printed
+     digit, every step's |d xent| + |d htri| within 2e-2 of its xent + htri
+     (as (a)), Rank-1 and mAP printed equal; (c)
+     FeatureExtractor(mesh=<the one card>) answers phase 4's requests
+     (K1 2 a 16-clip chunk), its features within 1e-5 of max of phase 4's;
 then one {"serving": ...} line (with "bf16" and "artifact"), one {"training": ...} line (with "bf16"),
 one {"reranking": ...} line, one {"cli": ...} line (with "bf16"), one {"evaluation": ...}
 line, one {"input": ...} line, one {"train_surface": ...} line, one {"archs": ...} line, one
-{"graphnets": ...} line, one {"legacy": ...} line, one {"kernels": [...]} line (each kernel's `slower_than_plain`
+{"graphnets": ...} line, one {"legacy": ...} line, one {"parallel": ...} line, one
+{"kernels": [...]} line (each kernel's `slower_than_plain`
 lists the shapes where this run timed it above its plain version), the
 card's name and power limit, and
 {"ok": true, "device": {...}} as the last line.
@@ -577,13 +602,19 @@ def rel_err(a, b) -> float:
     return float(np.abs(a - b).max() / max(np.abs(b).max(), 1e-30))
 
 
-def phase_serving(torch, gc, fx):
-    """Main path: FeatureExtractor requests of 1, 16 and 21 clips."""
-    requests = {
+def serving_requests_of_phase4():
+    """Phase 4's requests: {clips: (imgs, adjs or None)}."""
+    return {
         1: (random_clips(1, 10), None),
         16: (random_clips(16, 11), None),
         21: (random_clips(21, 12), pose_adjacency(21, 12)),
     }
+
+
+def phase_serving(torch, gc, fx):
+    """Main path: FeatureExtractor requests of 1, 16 and 21 clips. Returns
+    (launches, record, {clips: features})."""
+    requests = serving_requests_of_phase4()
     outs = {}
     gc.launches = 0  # main path starts here
     expected = 0
@@ -629,7 +660,7 @@ def phase_serving(torch, gc, fx):
     return launches, dict(
         request16_ms=ms, request16_q1_ms=q1, request16_q3_ms=q3,
         clips_per_s=BATCH / ms * 1e3, request16_all_ms=times,
-    )
+    ), outs
 
 
 def phase_model_paths(torch, layers_mod, gc, model, device):
@@ -2706,8 +2737,9 @@ def phase_input(torch, tri, gc):
 
 # ---- phase 23: the rest of VMGN's training surface ------------------------
 
-SURFACE_STEPS = 12  # per optimizer; the step-13 update lies across an lr change
-SURFACE_SPE = 6  # steps an "epoch" of phase 23's schedule
+SURFACE_STEPS = 6  # per optimizer; the step-7 update lies across an lr change
+SURFACE_SPE = 3  # steps an "epoch" of phase 23's schedule
+SURFACE_BATCHES = 12  # (b)'s 10 augmented steps and (c)'s 7 steps take up to 12
 SURFACE_MODES = (("both", True, True), ("pose", True, False), ("learned", False, True))
 
 
@@ -2719,8 +2751,8 @@ def surface_batches(n, seed):
 
 
 def surface_lr_fn():
-    """A warmup epoch at 1% of 1e-4 (steps 0-5), 1e-4 (steps 6-11), then
-    the milestone at epoch 2: step 12 takes 1e-5."""
+    """A warmup epoch at 1% of 1e-4 (steps 0-2), 1e-4 (steps 3-5), then
+    the milestone at epoch 2: step 6 takes 1e-5."""
     from agrl_torch.optim import per_step, warmup_multistep_lr
 
     return per_step(warmup_multistep_lr(1e-4, [2], warmup_factor=0.01, warmup_iters=1),
@@ -2778,7 +2810,7 @@ def held_update(torch, name, opt, lr_fn, step_index):
 def phase_optimizers(torch, tri, model, init, batches, device):
     """(a) SURFACE_STEPS steps of the paper recipe under each optimizer name
     from one seeded state; K3 launches per step, step ms (median of steps
-    4-12), finite losses; then the held update across the lr change, card
+    3-6), finite losses; then the held update across the lr change, card
     vs CPU."""
     from agrl_torch.engine.trainer import make_train_step
     from agrl_torch.optim import OPTIMIZER_NAMES, init_optim
@@ -2802,12 +2834,12 @@ def phase_optimizers(torch, tri, model, init, batches, device):
             losses.append(float(metrics["loss"]))
         fwd, bwd = tri.launches, tri.backward_launches  # and ends here
         err, old = held_update(torch, name, opt, lr_fn, SURFACE_STEPS)
-        med = float(np.median(times[3:]))
+        med = float(np.median(times[2:]))
         rec = dict(step_ms=med, step_all_ms=times, losses=losses,
                    k3_per_step=[fwd / SURFACE_STEPS, bwd / SURFACE_STEPS],
                    held_update_card_vs_cpu=err, held_update_vs_old_lr=old,
                    lr_change=[lr_fn(SURFACE_STEPS - 1), lr_fn(SURFACE_STEPS)])
-        log(f"[surface] optim {name:8s}: step {med:.2f} ms (median of steps 4-{SURFACE_STEPS}), "
+        log(f"[surface] optim {name:8s}: step {med:.2f} ms (median of steps 3-{SURFACE_STEPS}), "
             f"losses {losses[0]:.4f} -> {losses[-1]:.4f}, hard_mine {fwd}+{bwd} launches in "
             f"{SURFACE_STEPS} steps; update {SURFACE_STEPS + 1} (lr {rec['lr_change'][0]:g} -> "
             f"{rec['lr_change'][1]:g}) card vs CPU {err:.3e} of max per leaf (tol 1e-6; at the "
@@ -3188,7 +3220,7 @@ def phase_train_surface(torch, tri, gc, layers_mod, device, flush):
     from agrl_torch.models import init_model
 
     t_phase = time.perf_counter()
-    batches = surface_batches(SURFACE_STEPS, 100)
+    batches = surface_batches(SURFACE_BATCHES, 100)
     model = build_train_model(init_model, device, seed=4)
     init = {k: v.detach().clone() for k, v in model.state_dict().items()}
     out = {}
@@ -3835,6 +3867,288 @@ def phase_legacy(torch, tri, gc, layers_mod, device):
     return out
 
 
+# ---- phase 27: data parallelism on the one card -----------------------------
+
+PARALLEL_STEPS = 8
+COLLECTIVES = ("all_gather", "all_reduce", "broadcast")
+
+
+def free_port() -> int:
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def profile_parallel_step(torch, step, model, batch, generator):
+    """One train step under torch.profiler: the NCCL kernels (count, device
+    ms), the top kernels, the operations that hold the host longest and
+    launch the most device time, the collectives called on the host by
+    name, the BatchNorm calls of the forward, the card's busy ms and the
+    event-timed window."""
+    import torch.distributed as dist
+    from torch.profiler import ProfilerActivity, profile
+
+    from agrl_torch.models.backbone import _FlaxRunningStats
+
+    calls = {name: 0 for name in COLLECTIVES}
+    real = {name: getattr(dist, name) for name in COLLECTIVES}
+
+    def counted(name):
+        def call(*a, **k):
+            calls[name] += 1
+            return real[name](*a, **k)
+        return call
+
+    bn_calls = [0]
+    hooks = [m.register_forward_hook(lambda *a: bn_calls.__setitem__(0, bn_calls[0] + 1))
+             for m in model.modules() if isinstance(m, _FlaxRunningStats)]
+    imgs, pids, _, adjs = batch
+    for name in COLLECTIVES:
+        setattr(dist, name, counted(name))
+    try:
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            step(imgs, pids, adjs, generator=generator)
+            end.record()
+            end.synchronize()
+    finally:
+        for name in COLLECTIVES:
+            setattr(dist, name, real[name])
+        for h in hooks:
+            h.remove()
+    rows = device_rows(prof, 1)
+    nccl = [r for r in rows if "nccl" in r[0].lower()]
+    # the torch operations that launched the device time, and the host's
+    # time in them: where a step's time goes beyond its kernels
+    ops = [(e.key, (getattr(e, "self_device_time_total", 0) or 0) / 1e3,
+            e.self_cpu_time_total / 1e3, e.count)
+           for e in prof.key_averages() if not str(e.device_type).endswith("CUDA")]
+    by_host = sorted(ops, key=lambda r: -r[2])[:10]
+    by_device = [r for r in sorted(ops, key=lambda r: -r[1])[:10] if r not in by_host]
+    return dict(nccl_launches=sum(r[2] for r in nccl), nccl_ms=sum(r[1] for r in nccl),
+                nccl_kernels=nccl, top=rows[:12], host_ops=by_host + by_device,
+                collective_calls=calls, bn_calls=bn_calls[0],
+                bn_modules=len(hooks), device_busy_ms=sum(r[1] for r in rows),
+                window_ms=start.elapsed_time(end))
+
+
+def parallel_steps(torch, tri, batches, mesh, device):
+    """PARALLEL_STEPS steps of phase 9's recipe (its seed, Adam lr 1e-4 wd
+    5e-4, flips, soft margin, 5 heads) on `batches` from one generator
+    seed, through the data-parallel step when `mesh` is given."""
+    from agrl_torch.engine.trainer import make_train_step
+    from agrl_torch.models import init_model
+    from agrl_torch.optim import init_optim
+    from agrl_torch.parallel import replicated
+
+    model = build_train_model(init_model, device)
+    init = {n: p.detach().cpu().clone() for n, p in model.named_parameters()}
+    opt = init_optim("adam", model.parameters(), 1e-4, weight_decay=5e-4)
+    if mesh is not None:
+        replicated(mesh, model, opt)  # rank 0's weights, as the CLI starts a run
+    step = make_train_step(model, opt, lambda s: 1e-4, label_smooth=False, margin=0.3,
+                           soft_margin=True, aug={"flip_aug": True}, mesh=mesh)
+    gen = torch.Generator().manual_seed(0)
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    history, times, grads = [], [], None
+    tri.launches = tri.backward_launches = 0  # this path starts here
+    for i, (imgs, pids, _, adjs) in enumerate(batches):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        metrics = step(imgs, pids, adjs, generator=gen)
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+        history.append({k: float(v) for k, v in metrics.items()})
+        if i == 0:
+            grads = grads_of(model)  # step 1's, before any update moved the runs apart
+    launches = [tri.launches, tri.backward_launches]  # and ends here
+    rec = dict(history=history, step_all_ms=times, step_ms=float(np.median(times[2:])),
+               peak_mem_gb=torch.cuda.max_memory_allocated() / 1e9, k3_launches=launches)
+    params = {n: (p.detach().cpu().clone(), init[n]) for n, p in model.named_parameters()}
+    rec["profile"] = profile_parallel_step(torch, step, model, batches[0], gen)
+    del model, opt, step
+    torch.cuda.empty_cache()
+    return rec, grads, params
+
+
+def parallel_train(torch, tri, device, batches):
+    """(a) PARALLEL_STEPS steps without a group, then through the
+    data-parallel step in an NCCL group of world 1, from one seed."""
+    import torch.distributed as dist
+
+    from agrl_torch.parallel import initialize_distributed, make_mesh
+
+    plain, plain_grads, plain_params = parallel_steps(torch, tri, batches, None, device)
+    initialize_distributed(f"127.0.0.1:{free_port()}", 1, 0)
+    try:
+        mesh = make_mesh()
+        grouped, grads, params = parallel_steps(torch, tri, batches, mesh, device)
+        backend = dist.get_backend()
+    finally:
+        dist.destroy_process_group()
+    grad_errs = {n: float((grads[n] - g).norm() / max(float(g.norm()), 1e-30))
+                 for n, g in plain_grads.items()}
+    grad_leaf = max(grad_errs, key=grad_errs.get)
+    grad_err = grad_errs[grad_leaf]
+    # the final parameters: the worst leaf's distance over the size of its
+    # update (Frobenius), and max|d| over max|p| (a leaf that starts at 0,
+    # such as a BN bias, has max|p| of a few updates)
+    param_errs = {n: float((params[n][0] - p).norm() / max(float((p - p0).norm()), 1e-30))
+                  for n, (p, p0) in plain_params.items()}
+    param_leaf = max(param_errs, key=param_errs.get)
+    param_err = param_errs[param_leaf]
+    param_max_err = max(float((params[n][0] - p).abs().max() / max(float(p.abs().max()), 1e-30))
+                        for n, (p, _) in plain_params.items())
+    losses = [[r["loss"] for r in run["history"]] for run in (grouped, plain)]
+    loss_err = [abs(a - b) / abs(b) for a, b in zip(*losses)]
+    prof = grouped["profile"]
+    out = dict(backend=backend, world=mesh.dp, grouped=grouped, plain=plain,
+               step1_grad_fro_rel_err=grad_err, step1_grad_worst_leaf=grad_leaf,
+               final_param_update_rel_err=param_err, final_param_worst_leaf=param_leaf,
+               final_param_max_rel_err=param_max_err,
+               loss_rel_err=loss_err, step_overhead_ms=grouped["step_ms"] - plain["step_ms"])
+    log(f"[parallel] {backend} group of world {mesh.dp}: step median {grouped['step_ms']:.2f} ms "
+        f"vs {plain['step_ms']:.2f} ms without a group (steps 3-{PARALLEL_STEPS}); peak "
+        f"{grouped['peak_mem_gb']:.2f} vs {plain['peak_mem_gb']:.2f} GB; hard_mine "
+        f"{grouped['k3_launches']} launches")
+    log(f"[parallel] grouped vs plain: step-1 gradients {grad_err:.3e} (worst leaf {grad_leaf}, "
+        f"Frobenius, tol 5e-2); losses {max(loss_err):.3e} (step 1 {loss_err[0]:.3e}, tol 1e-5; "
+        f"all tol 2e-2); final parameters {param_err:.3e} of the update (worst leaf "
+        f"{param_leaf}, Frobenius, tol 2), max|d| {param_max_err:.3e} of max|p|")
+    log(f"[parallel] one profiled grouped step: {prof['nccl_launches']} NCCL kernels, "
+        f"{prof['nccl_ms']:.3f} ms of {prof['device_busy_ms']:.2f} ms device busy "
+        f"({prof['window_ms']:.2f} ms window); collectives called {prof['collective_calls']}; "
+        f"{prof['bn_calls']} BatchNorm calls over {prof['bn_modules']} BatchNorms; without a "
+        f"group {plain['profile']['device_busy_ms']:.2f} ms busy "
+        f"({plain['profile']['window_ms']:.2f} ms window)")
+    for name, ms, count in plain["profile"]["top"]:
+        log(f"[parallel]   plain {ms:8.4f} ms x{count:<4d} {name[:84]}")
+    for label, run in (("grouped", grouped), ("plain", plain)):
+        for name, dev_ms, cpu_ms, count in run["profile"]["host_ops"]:
+            log(f"[parallel]   {label} op {name[:48]:48s} host {cpu_ms:8.3f} ms device "
+                f"{dev_ms:8.3f} ms x{count}")
+    for name, ms, count in prof["nccl_kernels"][:4] + prof["top"]:
+        log(f"[parallel]   {ms:8.4f} ms x{count:<4d} {name[:90]}")
+    finite = all(math.isfinite(v) for run in (grouped, plain) for r in run["history"]
+                 for v in r.values())
+    if not (finite and backend == "nccl" and grouped["k3_launches"] == [PARALLEL_STEPS] * 2
+            and grad_err <= 5e-2 and loss_err[0] <= 1e-5 and max(loss_err) <= 2e-2
+            and param_err <= 2.0 and not dist.is_initialized()):
+        raise AssertionError(f"world-1 data-parallel step: {out}")
+    return out
+
+
+def parallel_cli(torch, tri, gc):
+    """(b) One CLI epoch of the preset plus its evenly evaluation on phase
+    16's layout, with --dist-* (an NCCL group of world 1) and without, in
+    this process, the wrappers counted."""
+    import torch.distributed as dist
+
+    from agrl_torch.cli import train_vidreid_xent_htri as cli
+    from agrl_torch.data.datasets.synthetic_mars import materialize_mars_layout
+
+    build_dir = REPO / "agrl_torch" / "_build"
+    build_dir.mkdir(parents=True, exist_ok=True)
+    preset = vmgn_args()
+    out = {}
+    with tempfile.TemporaryDirectory(dir=build_dir) as tmp:
+        root = f"{tmp}/data"
+        materialize_mars_layout(root, **CLI_DATA)
+        runs = {"grouped": ["--dist-coordinator", f"127.0.0.1:{free_port()}",
+                            "--dist-num-processes", "1", "--dist-process-id", "0"],
+                "plain": []}
+        for label, extra in runs.items():
+            argv = ["-d", "mars", *preset, "--root", root, "--max-epoch", "1", "--print-freq",
+                    "1", "--save-dir", f"{tmp}/{label}", *extra]
+            tri.launches = tri.backward_launches = gc.launches = 0  # this run starts here
+            t0 = time.perf_counter()
+            _, text = run_cli_in_process(cli, argv)
+            secs = time.perf_counter() - t0
+            fwd, bwd, k1 = tri.launches, tri.backward_launches, gc.launches  # and ends here
+            meters = [m.groups() for m in METER.finditer(text)]
+            n = len(meters)
+            step_ms = [float(m[3]) * 1e3 for m in meters]
+            out[label] = dict(
+                steps=n, step_ms_median=float(np.median(step_ms[1:])) if n > 1 else None,
+                step_ms_all=step_ms, losses=[[m[5], m[6]] for m in meters],
+                evals=cmc_blocks(text), k3_per_step=[fwd / max(n, 1), bwd / max(n, 1)],
+                k1_launches=k1, mesh_line="Mesh: dp=1 mp=1 (process 0 of 1, nccl)" in text,
+                seconds=secs)
+            if dist.is_initialized():
+                raise AssertionError(f"the CLI's {label} run left a process group")
+    g, p = out["grouped"], out["plain"]
+    # per step |d xent| + |d htri| over the plain run's xent + htri: htri
+    # alone (~0.05) makes a relative bar of its own meaningless
+    diffs = [sum(abs(float(a) - float(b)) for a, b in zip(ga, pa))
+             / max(sum(float(b) for b in pa), 1e-30)
+             for ga, pa in zip(g["losses"], p["losses"])]
+    out["loss_max_rel_diff"] = max(diffs) if diffs else None
+    log(f"[parallel] CLI epoch with --dist-* (world 1): {g['steps']} steps, Time meter median "
+        f"{g['step_ms_median']} ms vs {p['step_ms_median']} ms without; step-1 (xent, htri) "
+        f"{g['losses'][:1]} vs {p['losses'][:1]}; worst step rel diff {out['loss_max_rel_diff']} "
+        f"(tol 2e-2, as (a)); (rank-1, mAP) {g['evals']} vs {p['evals']}; hard_mine "
+        f"{g['k3_per_step']} "
+        f"a step; K1 {g['k1_launches']} vs {p['k1_launches']}; {g['seconds']:.1f} s vs "
+        f"{p['seconds']:.1f} s")
+    if not (g["steps"] == p["steps"] > 0 and g["mesh_line"] and not p["mesh_line"]
+            and g["losses"][0] == p["losses"][0] and out["loss_max_rel_diff"] <= 2e-2
+            and len(g["evals"]) == 1 and g["evals"] == p["evals"]
+            and g["k3_per_step"] == p["k3_per_step"] == [1.0, 1.0]
+            and g["k1_launches"] == p["k1_launches"] > 0):
+        raise AssertionError(f"the CLI with --dist-*: {out}")
+    return out
+
+
+def parallel_serving(torch, gc, device, serving_outs):
+    """(c) FeatureExtractor over a mesh of the one card answers phase 4's
+    requests; features against phase 4's."""
+    from agrl_torch.engine.export import FeatureExtractor
+    from agrl_torch.models import init_model
+    from agrl_torch.parallel import make_mesh
+
+    model = init_model("vmgn", num_classes=NUM_CLASSES, device=device, seed=0, num_split=4,
+                       pyramid_part=True, num_gb=2, use_pose=True, learn_graph=True)
+    mesh = make_mesh(devices=[device])
+    fx = FeatureExtractor(model, batch_size=BATCH, seq_len=SEQ_LEN, bf16=False, mesh=mesh)
+    errs = {}
+    gc.launches = 0  # this path starts here
+    for n, (imgs, adjs) in serving_requests_of_phase4().items():
+        errs[n] = rel_err(fx(imgs, adjs), serving_outs[n])
+    launches = gc.launches  # and ends here
+    want = 2 * sum(math.ceil(n / BATCH) for n in errs)
+    log(f"[parallel] mesh serving on {mesh.dp} card ({mesh.device}): phase 4's requests, "
+        f"features vs phase 4's max|diff|/max {max(errs.values()):.3e} (tol 1e-5); K1 "
+        f"{launches} launches (want {want})")
+    del fx, model
+    torch.cuda.empty_cache()
+    if not (max(errs.values()) <= 1e-5 and launches == want):
+        raise AssertionError(f"mesh serving: errors {errs}, K1 launches {launches}")
+    return dict(devices=mesh.dp, rel_err=errs, k1_launches=launches)
+
+
+def phase_parallel(torch, tri, gc, device, batches, serving_outs):
+    """Phase 27: (a) the world-1 NCCL train step, (b) the CLI with --dist-*,
+    (c) mesh serving."""
+    t_phase = time.perf_counter()
+    out = {}
+    t0 = time.perf_counter()
+    out["train"] = parallel_train(torch, tri, device, batches)
+    out["train_seconds"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    out["cli"] = parallel_cli(torch, tri, gc)
+    out["cli_seconds"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    out["serving"] = parallel_serving(torch, gc, device, serving_outs)
+    out["serving_seconds"] = time.perf_counter() - t0
+    out["phase_seconds"] = time.perf_counter() - t_phase
+    return out
+
+
 def main() -> int:
     if not all((REPO / "agrl_torch" / "csrc" / f"{n}.cu").exists() for n in LIBS):
         print("chip_smoke.py: the agrl_torch package is not beside this script", file=sys.stderr)
@@ -3927,7 +4241,7 @@ def main() -> int:
         f"V={V}, num_gb 2, {sum(p.numel() for p in model.parameters()) / 1e6:.1f}M params")
     fx = FeatureExtractor(model, batch_size=BATCH, seq_len=SEQ_LEN, bf16=False, device=device)
     torch.cuda.reset_peak_memory_stats()
-    launches, serving = phase_serving(torch, gc, fx)
+    launches, serving, serving_outs = phase_serving(torch, gc, fx)
     serving["peak_mem_gb"] = torch.cuda.max_memory_allocated() / 1e9
 
     # 5. kernel path vs plain path, whole model
@@ -3981,6 +4295,7 @@ def main() -> int:
     (bf16_tri, bf16_tri_backward), training["bf16"] = phase_train_bf16(
         torch, tri, device, train_batches, training["history"])
     training["bf16"]["phase_seconds"] = time.perf_counter() - t0
+    parallel_batches = train_batches[:PARALLEL_STEPS]  # phase 27's
     del train_batches
 
     # 13. re-ranking at MARS scale (K4's main path), kernel path vs plain path
@@ -4022,6 +4337,10 @@ def main() -> int:
     # CPU, the CLI's res50rnn and resnet3d50 epochs; the image registry
     legacy = phase_legacy(torch, tri, gc, layers_mod, device)
     legacy.update(legacy_kernels)
+    # 27. data parallelism on the one card: the world-1 NCCL step against the
+    # step without a group, the CLI with and without --dist-*, mesh serving
+    parallel = phase_parallel(torch, tri, gc, device, parallel_batches, serving_outs)
+    del parallel_batches, serving_outs
 
     print(json.dumps({"serving": serving}))
     print(json.dumps({"training": training}))
@@ -4035,6 +4354,7 @@ def main() -> int:
     print(json.dumps({"archs": archs}))
     print(json.dumps({"graphnets": graphnets}))
     print(json.dumps({"legacy": legacy}))
+    print(json.dumps({"parallel": parallel}))
     kernel = {
         "name": "graph_propagate",
         "route": "cuda",
@@ -4090,6 +4410,9 @@ def main() -> int:
             for a, r in graphnets["cli"].items()},
         "legacy_launches_per_forward": {a: r["serving"]["k1_launches_per_forward"]
                                         for a, r in legacy["archs"].items()},
+        "parallel_serving_launches": parallel["serving"]["k1_launches"],
+        "parallel_cli_launches": {k: parallel["cli"][k]["k1_launches"]
+                                  for k in ("grouped", "plain")},
         "legacy_cli_launches": {a: [r["k1_per_eval_batch"]] + [
             r[f"evaluate_{s}"]["k1"] for s in ("evenly", "all")]
             for a, r in legacy["cli"].items()},
@@ -4153,6 +4476,12 @@ def main() -> int:
         "legacy_launches_per_step": {a: r["training"]["k3_per_step"]
                                      for a, r in legacy["archs"].items() if "training" in r},
         "legacy_cli_launches_per_step": {a: r["k3_per_step"] for a, r in legacy["cli"].items()},
+        "parallel_launches": parallel["train"]["grouped"]["k3_launches"],
+        "parallel_cli_launches_per_step": {k: parallel["cli"][k]["k3_per_step"]
+                                           for k in ("grouped", "plain")},
+        "parallel_note": "phase 27: the data-parallel step in an NCCL group of world 1 mines "
+                         "the gathered global batch, one forward and one backward launch a "
+                         "step",
         "legacy_shapes": legacy["k3_shapes"],
         "arch_shapes_note": "phase 24: device time per call (torch.profiler), or CUDA events "
                             "around one call where `timing` says so",

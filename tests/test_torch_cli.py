@@ -46,38 +46,46 @@ def test_parser_flag_matches_agrl_tpu(dest):
         None if want.choices is None else list(want.choices))
 
 
-# the refusals: extra argv -> (flag the message names, value it names)
+# the refusals: extra argv -> (flag the message names, value it names, what
+# else it names)
 REFUSALS = {
     # every arch of agrl_tpu's registry is ported: the legacy and 3D video
-    # archs pass the arch check and are refused by A8's flags, as every arch
-    "arch": (["-a", "res50tp_legacy", "--mesh-dp", "2"], "--mesh-dp", "ROADMAP A8"),
+    # archs pass the arch check and are refused by the multi-process flags'
+    # pre-flight, as every arch
+    "arch": (["-a", "res50tp_legacy", "--mesh-dp", "2"], "--mesh-dp", "2", "ROADMAP A8a"),
     "arch_res50ta": (["-a", "res50ta", "--dist-num-processes", "2"], "--dist-num-processes",
-                     "ROADMAP A8"),
-    "arch_legacy": (["-a", "res50rnn", "--mesh-mp", "2"], "--mesh-mp", "ROADMAP A8"),
-    "arch_3d": (["-a", "resnet3d50", "--dist-process-id", "1"], "--dist-process-id",
-                "ROADMAP A8"),
-    "mesh_dp": (["--mesh-dp", "2"], "--mesh-dp", "2"),
-    "mesh_mp": (["--mesh-mp", "2"], "--mesh-mp", "2"),
+                     "2", "together"),
+    "arch_legacy": (["-a", "res50rnn", "--mesh-mp", "2"], "--mesh-mp", "2", "ROADMAP A8b"),
+    "arch_3d": (["-a", "resnet3d50", "--dist-process-id", "1"], "--dist-process-id", "1",
+                "together"),
+    # one process per card: --mesh-dp is the process count (1 here)
+    "mesh_dp": (["--mesh-dp", "2"], "--mesh-dp", "2", "1 process(es)"),
+    "mesh_mp": (["--mesh-mp", "2"], "--mesh-mp", "2", "ROADMAP A8b"),
+    # a multi-process run takes the three --dist-* flags together
     "dist_coordinator": (["--dist-coordinator", "localhost:1234"], "--dist-coordinator",
-                         "localhost:1234"),
-    "dist_num_processes": (["--dist-num-processes", "2"], "--dist-num-processes", "2"),
-    "dist_process_id": (["--dist-process-id", "0"], "--dist-process-id", "0"),
+                         "localhost:1234", "missing --dist-num-processes, --dist-process-id"),
+    "dist_num_processes": (["--dist-num-processes", "2"], "--dist-num-processes", "2",
+                           "missing --dist-coordinator, --dist-process-id"),
+    "dist_process_id": (["--dist-process-id", "0"], "--dist-process-id", "0",
+                        "missing --dist-coordinator, --dist-num-processes"),
     # the card's kernel limits, checked without --use-cpu before the device
-    "card_train_batch": (["--train-batch", "257"], "--train-batch", "257"),
+    "card_train_batch": (["--train-batch", "257"], "--train-batch", "257", "ROADMAP C"),
     # 3 x 31 + 1 = 94 heads, above the 64 K3 mines in one launch
     "card_heads": (["-a", "msppgn", "--num-split", "16", "--learn-graph"], "--num-split",
-                   "94 heads"),
+                   "94 heads", "ROADMAP C"),
 }
 
 
 @pytest.mark.parametrize("case", sorted(REFUSALS))
 def test_preflight_refuses_before_reading_data(case, tmp_path, monkeypatch):
-    extra, flag, value = REFUSALS[case]
+    extra, flag, value, named = REFUSALS[case]
 
     def no_data(*args, **kwargs):
         raise AssertionError("the catalog was read before the refusal")
 
     monkeypatch.setattr("agrl_torch.data.datasets.init_vidreid_dataset", no_data)
+    for var in ("MASTER_ADDR", "MASTER_PORT", "WORLD_SIZE", "RANK"):  # not under torchrun
+        monkeypatch.delenv(var, raising=False)
     base = ["--root", str(tmp_path / "absent"), "--save-dir", str(tmp_path / "log"),
             "-a", "vmgn_tiny"]
     if not case.startswith("card_"):
@@ -87,7 +95,7 @@ def test_preflight_refuses_before_reading_data(case, tmp_path, monkeypatch):
         tcli.main(base + extra)
     assert sys.stdout is stdout
     msg = str(exc.value)
-    assert flag in msg and value in msg and "ROADMAP" in msg, msg
+    assert flag in msg and value in msg and named in msg, msg
     assert not (tmp_path / "log").exists()
 
 

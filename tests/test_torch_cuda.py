@@ -904,3 +904,59 @@ def test_legacy_arch_on_the_card(cuda, arch):
               for _ in range(2)]
     assert (triplet.launches - before[0], triplet.backward_launches - before[1]) == (2, 2)
     assert all(np.isfinite(losses))
+
+
+def test_world_one_nccl_step_equals_the_step_without_a_group(cuda):
+    """A data-parallel step in an NCCL group of world 1 (every collective
+    still runs: BN moments, the gathered mining, the gradient average)
+    against the step without a group, two steps each from one state at
+    VMGN (1,1,1,1), 128x64, S=8, 16 clips with the consistent loss and
+    flips, SGD lr 1e-3: losses within rtol 1e-5, each parameter within 2e-2
+    of its update (Frobenius; the BN moments combine in another order), one
+    K3 forward and one backward launch a step on the grouped path."""
+    import copy
+    import socket
+
+    import torch.distributed as dist
+
+    from agrl_torch.engine.trainer import make_train_step
+    from agrl_torch.models.vmgn import VMGN
+    from agrl_torch.optim import init_optim
+    from agrl_torch.parallel import initialize_distributed, make_mesh
+
+    model = VMGN(num_classes=4, layers=(1, 1, 1, 1), consistent_loss=True)
+    model.init_weights(torch.Generator().manual_seed(0))
+    init = {k: v.clone() for k, v in model.state_dict().items()}
+    rng = np.random.RandomState(0)
+    imgs = rng.randint(0, 256, (16, 8, 128, 64, 3)).astype(np.uint8)
+    adjs = (rng.rand(16, 56, 56) > 0.5).astype(np.float32)
+    pids = np.repeat(np.arange(4), 4)
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        port = s.getsockname()[1]
+
+    def run(mesh):
+        m = copy.deepcopy(model).to(cuda)
+        m.load_state_dict(init)
+        opt = init_optim("sgd", m.parameters(), 1e-3, weight_decay=5e-4)
+        step = make_train_step(m, opt, lambda s: 1e-3, aug={"flip_aug": True}, mesh=mesh)
+        gen = torch.Generator().manual_seed(1)
+        before = (triplet.launches, triplet.backward_launches)
+        losses = [float(step(imgs, pids, adjs, generator=gen)["loss"]) for _ in range(2)]
+        launches = (triplet.launches - before[0], triplet.backward_launches - before[1])
+        return losses, launches, {n: p.detach().cpu() for n, p in m.named_parameters()}
+
+    plain = run(None)
+    initialize_distributed(f"127.0.0.1:{port}", 1, 0)
+    try:
+        mesh = make_mesh()
+        assert mesh.dp == 1 and mesh.device.type == "cuda"
+        grouped = run(mesh)
+    finally:
+        dist.destroy_process_group()
+    np.testing.assert_allclose(grouped[0], plain[0], rtol=1e-5)
+    assert grouped[1] == plain[1] == (2, 2)
+    for name, p in plain[2].items():
+        update = (p - init[name]).norm()
+        if update > 0:
+            assert float((grouped[2][name] - p).norm() / update) <= 2e-2, name

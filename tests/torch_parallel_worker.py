@@ -1,0 +1,196 @@
+"""One rank of a data-parallel agrl_torch job on the CPU (gloo), for the
+tests/test_torch_parallel*.py files, which start `world` of these and
+hold what they write against agrl_tpu's single-device functions on the
+global batch. It imports no JAX: torch, numpy and agrl_torch only.
+
+    python tests/torch_parallel_worker.py MODE RANK WORLD PORT IN OUT
+
+IN is a torch.save'd dict of the global inputs (made by the test from a
+numpy seed); OUT receives this rank's results. Modes:
+  * ops: global-batch BatchNorm of each kind (with and without
+    frozen_running_stats) and the gathered batch-hard mining;
+  * train: two data-parallel train steps of vmgn_tiny;
+  * eval: the mesh Evaluator under evenly, dense and all on in-memory
+    loaders, and the host-scored distance matrix.
+"""
+
+from __future__ import annotations
+
+import os
+import sys
+
+import numpy as np
+import torch
+
+sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
+
+from agrl_torch.parallel import initialize_distributed, make_mesh  # noqa: E402
+
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+
+BN_KINDS = {  # class name -> input shape of the global batch
+    "BatchNorm1d": (8, 6),
+    "BatchNorm1d_rows": (8, 6, 5),
+    "BatchNorm2d": (8, 6, 5, 3),
+    "BatchNorm3d": (8, 6, 2, 5, 3),
+}
+
+
+def _slice(a, mesh):
+    k = a.shape[0] // mesh.dp
+    return a[mesh.rank * k:(mesh.rank + 1) * k]
+
+
+def run_ops(inp, mesh):
+    from agrl_torch.losses import batch_hard_triplet_heads
+    from agrl_torch.models import backbone
+    from agrl_torch.parallel import average_gradients
+
+    out = {}
+    for kind in BN_KINDS:
+        for frozen in (False, True):
+            bn = getattr(backbone, kind.split("_")[0])(6, eps=1e-5)
+            bn.load_state_dict(inp["bn_state"])
+            bn.train()
+            x = _slice(inp[f"x_{kind}"], mesh).clone().requires_grad_(True)
+            g = _slice(inp[f"g_{kind}"], mesh)
+            ctx = backbone.frozen_running_stats() if frozen else torch.enable_grad()
+            with backbone.global_batch_stats(mesh), ctx:
+                y = bn(x)
+            (y * g).sum().backward()
+            out[f"{kind}/{frozen}"] = dict(
+                y=y.detach(), dx=x.grad, dw=bn.weight.grad, db=bn.bias.grad,
+                running_mean=bn.running_mean.clone(), running_var=bn.running_var.clone(),
+                tracked=int(bn.num_batches_tracked))
+
+    # the mining: each rank's heads (H, b, D) from its rows through a shared
+    # projection P, the loss on the gathered batch, P's gradient averaged
+    feats, labels = _slice(inp["feats"].transpose(0, 1), mesh).transpose(0, 1), _slice(
+        inp["labels"], mesh)
+    heads = [f.clone().requires_grad_(True) for f in feats]
+    loss = batch_hard_triplet_heads(heads, labels, mesh=mesh)
+    loss.backward()
+    proj = torch.nn.Linear(inp["rows"].shape[1], feats.shape[2], bias=False)
+    proj.weight.data.copy_(inp["proj"])
+    rows = _slice(inp["rows"], mesh)
+    H = feats.shape[0]
+    batch_hard_triplet_heads([proj(rows) * (h + 1) for h in range(H)], labels,
+                             mesh=mesh).backward()
+    average_gradients(proj.parameters(), mesh)
+    out["mining"] = dict(loss=loss.detach(), grads=torch.stack([h.grad for h in heads]),
+                         proj_grad=proj.weight.grad)
+    return out
+
+
+def run_train(inp, mesh):
+    from agrl_torch.engine.trainer import make_train_step
+    from agrl_torch.models import build_model
+    from agrl_torch.optim import init_optim
+    from agrl_torch.parallel import replicated
+
+    model = build_model("vmgn_tiny", num_classes=inp["num_classes"], consistent_loss=True)
+    if mesh.rank == 0:  # the other ranks take rank 0's weights from `replicated`
+        model.load_state_dict(inp["state"])
+    opt = init_optim(inp["optim"], model.parameters(), inp["lr"], weight_decay=5e-4)
+    replicated(mesh, model, opt)
+    step = make_train_step(model, opt, lambda s: inp["lr"], label_smooth=False,
+                           aug={"flip_aug": True}, mesh=mesh)
+    history = []
+    for imgs, pids, adj, flip, subclips in inp["steps"]:
+        metrics = step(_slice(imgs, mesh), _slice(pids, mesh), _slice(adj, mesh), flip=flip,
+                       subclip_indices=subclips)
+        history.append({k: float(v) for k, v in metrics.items()})
+    # and with the generator: the draws of the global batch, this rank's slice
+    gen_model = build_model("vmgn_tiny", num_classes=inp["num_classes"], consistent_loss=True)
+    gen_model.load_state_dict(inp["state"])
+    gen_opt = init_optim(inp["optim"], gen_model.parameters(), inp["lr"], weight_decay=5e-4)
+    gen_step = make_train_step(gen_model, gen_opt, lambda s: inp["lr"], label_smooth=False,
+                               aug={"flip_aug": True, "rand_erase": True}, mesh=mesh)
+    imgs, pids, adj = inp["steps"][0][:3]
+    gen_metrics = gen_step(_slice(imgs, mesh), _slice(pids, mesh), _slice(adj, mesh),
+                           generator=torch.Generator().manual_seed(inp["seed"]))
+    return dict(history=history, state={k: v.clone() for k, v in model.state_dict().items()},
+                generator_metrics={k: float(v) for k, v in gen_metrics.items()},
+                generator_state={k: v.clone() for k, v in gen_model.state_dict().items()})
+
+
+def run_eval(inp, mesh):
+    import contextlib
+    import io
+
+    from agrl_torch.engine.evaluator import Evaluator
+    from agrl_torch.models import build_model
+
+    model = build_model("vmgn_tiny", num_classes=inp["num_classes"])
+    model.load_state_dict(inp["state"])
+    out = {}
+    for sample, (query, gallery) in inp["loaders"].items():
+        ev = Evaluator(model, test_sample=sample, clip_batch=inp["clip_batch"], device="cpu")
+        console = io.StringIO()
+        with contextlib.redirect_stdout(console):
+            qf = ev.extract(query, "query", mesh=mesh)[0]
+            gf = ev.extract(gallery, "gallery", mesh=mesh)[0]
+            r1, mAP = ev.evaluate(query, gallery, dist_metric="euclidean", mesh=mesh)
+            distmat = ev.evaluate(query, gallery, dist_metric="euclidean", return_distmat=True,
+                                  mesh=mesh)
+        out[sample] = dict(qf=torch.as_tensor(qf).cpu(), gf=torch.as_tensor(gf).cpu(),
+                           rank1=r1, mAP=mAP, distmat=distmat, console=console.getvalue())
+    return out
+
+
+def free_port() -> int:
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def spawn(mode: str, inputs: dict, tmp_path, world: int = 2, timeout: float = 240.0):
+    """Runs `world` ranks of this script in `mode` on `inputs` (in the
+    calling test's process); returns each rank's results, rank order."""
+    import subprocess
+
+    inp = str(tmp_path / f"{mode}_in.pt")
+    torch.save(inputs, inp)
+    port = free_port()
+    env = dict(os.environ, PYTHONPATH=REPO, OMP_NUM_THREADS="1")
+    outs = [str(tmp_path / f"{mode}_rank{r}.pt") for r in range(world)]
+    logs = [open(tmp_path / f"{mode}_rank{r}.log", "w") for r in range(world)]
+    procs = [subprocess.Popen([sys.executable, os.path.abspath(__file__), mode, str(r),
+                               str(world), str(port), inp, outs[r]],
+                              env=env, stdout=logs[r], stderr=subprocess.STDOUT)
+             for r in range(world)]
+    try:
+        codes = [p.wait(timeout=timeout) for p in procs]
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+        for f in logs:
+            f.close()
+    if any(codes):
+        text = "\n".join((tmp_path / f"{mode}_rank{r}.log").read_text()[-3000:]
+                         for r in range(world))
+        raise AssertionError(f"ranks of {mode} exited {codes}:\n{text}")
+    return [torch.load(o, weights_only=False) for o in outs]
+
+
+def main():
+    torch.set_num_threads(1)
+    mode, rank, world, port, inp_path, out_path = sys.argv[1:7]
+    initialize_distributed(f"127.0.0.1:{port}", int(world), int(rank), device="cpu")
+    try:
+        mesh = make_mesh()
+        inp = torch.load(inp_path, weights_only=False)
+        result = {"ops": run_ops, "train": run_train, "eval": run_eval}[mode](inp, mesh)
+        torch.save(result, out_path)
+    finally:
+        import torch.distributed as dist
+
+        dist.destroy_process_group()
+
+
+if __name__ == "__main__":
+    main()
