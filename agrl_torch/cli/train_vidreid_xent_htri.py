@@ -23,21 +23,30 @@ Every train step goes through the batch-hard mining kernels (K3), every
 eval batch through the graph kernel (K1), and `--re-rank` through
 `min_sum_sparse` (K4).
 
-Data parallelism (agrl_tpu's --mesh-dp and --dist-* flags, its CLI
-:209-245): W processes, one card each, started by torchrun
+Data and tensor parallelism (agrl_tpu's --mesh-dp, --mesh-mp and --dist-*
+flags, its CLI :209-245, :486-524): W processes, one card each, started
+by torchrun
 
-    torchrun --nproc-per-node W -m agrl_torch.cli.train_vidreid_xent_htri ...
+    torchrun --nproc-per-node W -m agrl_torch.cli.train_vidreid_xent_htri \
+        [--mesh-mp MP] ...
 
 or each with --dist-coordinator HOST:PORT --dist-num-processes W
---dist-process-id I (gloo under --use-cpu). They form one process group
-(parallel.initialize_distributed) whose mesh is the dp axis: each rank
-loads its slice of every train batch (ClipLoader's process_shard), the
-step is agrl_tpu's on the global batch (engine/trainer.py), and every
-rank evaluates the whole query and gallery with the batches split over
-the ranks, so every rank prints the same results. Each process logs to
-its own file (`-proc{r}` for r > 0); args.json, the scalars and the
-checkpoints come from rank 0 alone. With no --dist-* flag and no
-torchrun variables no process group is made.
+--dist-process-id I (gloo under --use-cpu; NCCL on cards, one card a
+process, never gloo). They form one process group
+(parallel.initialize_distributed) whose mesh is dp x mp, dp = W / MP
+(parallel.make_mesh; MP must divide W): each dp index loads its slice of
+every train batch (ClipLoader's process_shard), the mp ranks of one dp
+index the same slice; the step is agrl_tpu's on the global batch
+(engine/trainer.py); at MP > 1 the wide Linears and their optimizer
+state are sharded over mp (parallel.place_state, agrl_tpu's placement)
+once the run's state is whole (fresh, or resumed). Every rank evaluates
+the whole query and gallery with the weights gathered whole and the
+batches split over dp, so every rank prints the same results; before
+each checkpoint every rank joins the gather of the shards
+(core.fetch_global_state), and rank 0 writes the file a run without mp
+writes. Each process logs to its own file (`-proc{r}` for r > 0);
+args.json, the scalars and the checkpoints come from rank 0 alone. With
+no --dist-* flag and no torchrun variables no process group is made.
 """
 
 from __future__ import annotations
@@ -58,7 +67,7 @@ import torch
 # agrl_tpu's model registry (agrl_tpu/models/__init__.py), the choices of
 # -a; the port builds all of it (models/__init__.py). An arch of the
 # registry not yet ported would be refused by its ROADMAP item through
-# UNPORTED_ARCHS, as --mesh-mp > 1 (A8b) is through _refuse
+# UNPORTED_ARCHS and _refuse
 ARCH_NAMES = (
     "vmgn", "gsta", "ganet", "msppn", "msppgn", "sta", "simple_sta", "res50tp",
     "resnet50_s1", "vmgn_tiny", "res50tp_legacy", "res50ta", "res50rnn", "resnet3d50",
@@ -169,7 +178,8 @@ def build_parser() -> argparse.ArgumentParser:
                    help="data-parallel devices: one process per card, so 0 (the world "
                         "size) or the world size")
     p.add_argument("--mesh-mp", type=int, default=1,
-                   help="model-parallel devices (1; more is not ported, ROADMAP A8b)")
+                   help="model-parallel devices: processes sharing a dp index, over "
+                        "which the wide Linears shard; must divide the process count")
     p.add_argument("--dist-coordinator", type=str, default="",
                    help="HOST:PORT of process 0 of a multi-process run")
     p.add_argument("--dist-num-processes", type=int, default=0,
@@ -250,9 +260,10 @@ def preflight(args) -> None:
     not take: each SystemExit names the flag, its value and the ROADMAP
     item that will port it, or an unknown optimizer, which agrl_tpu
     refuses only after reading the data. A multi-process run needs the
-    three --dist-* flags together (or torchrun's environment), a --mesh-dp
-    of 0 or the process count and a --train-batch that divides over the
-    processes (agrl_tpu's multi-host branch, its CLI :499-505). Then
+    three --dist-* flags together (or torchrun's environment), a --mesh-mp
+    that divides the process count W, a --mesh-dp of 0 or W / mp and a
+    --train-batch that divides over the dp ranks (agrl_tpu's multi-host
+    branch, its CLI :499-505). Then
     agrl_tpu's graph layout check (its CLI :367-394), on the model built
     on the meta device: a
     model that reads a multi-scale adjacency (`expected_adj_scales`, msppgn
@@ -270,9 +281,6 @@ def preflight(args) -> None:
     if args.optim not in OPTIMIZER_NAMES:
         raise SystemExit(f"--optim {args.optim!r}: unsupported optimizer; choices "
                          f"{OPTIMIZER_NAMES}")
-    if args.mesh_mp > 1:
-        _refuse("--mesh-mp", args.mesh_mp, "A8b",
-                "the port's mesh is data-parallel only (--mesh-dp)")
     dist_flags = (("--dist-coordinator", args.dist_coordinator, ""),
                   ("--dist-num-processes", args.dist_num_processes, 0),
                   ("--dist-process-id", args.dist_process_id, -1))
@@ -286,16 +294,23 @@ def preflight(args) -> None:
     if given and not 0 <= args.dist_process_id < args.dist_num_processes:
         raise SystemExit(f"--dist-process-id {args.dist_process_id!r} is not in "
                          f"[0, {args.dist_num_processes})")
-    world = process_count(args)
-    if args.mesh_dp and args.mesh_dp != world:
+    world, mp = process_count(args), args.mesh_mp
+    if mp < 1 or world % mp:
+        raise SystemExit(
+            f"--mesh-mp {mp!r}: the mesh is dp x mp processes, one card each, and mp={mp} does "
+            f"not divide this run's {world} process(es); launch a multiple of {mp} (torchrun "
+            "--nproc-per-node, or the --dist-* flags)")
+    dp = world // mp
+    if args.mesh_dp and args.mesh_dp != dp:
         raise SystemExit(
             f"--mesh-dp {args.mesh_dp!r}: the data-parallel axis is one process per card and "
-            f"this run has {world} process(es) (ROADMAP A8a); launch {args.mesh_dp} "
-            f"(torchrun --nproc-per-node {args.mesh_dp}, or the --dist-* flags) or pass "
-            "--mesh-dp 0")
-    if args.train_batch % world:
-        raise SystemExit(f"--train-batch {args.train_batch!r} does not divide over the {world} "
-                         "processes of this run: each takes an equal slice of every batch")
+            f"this run has {world} process(es) (ROADMAP A8a) over --mesh-mp {mp}, dp={dp}; "
+            f"launch {args.mesh_dp * mp} (torchrun --nproc-per-node {args.mesh_dp * mp}, or the "
+            "--dist-* flags) or pass --mesh-dp 0")
+    if args.train_batch % dp:
+        raise SystemExit(f"--train-batch {args.train_batch!r} does not divide over the {dp} "
+                         f"data-parallel ranks of this run ({world} processes over --mesh-mp "
+                         f"{mp}): each takes an equal slice of every batch")
     if not args.use_cpu and args.train_batch > MAX_BATCH:
         raise SystemExit(
             f"--train-batch {args.train_batch}: the card's batch-hard mining kernel (K3) "
@@ -382,7 +397,7 @@ def run(args):
         else:
             initialize_distributed(device=kind)
         try:
-            mesh = make_mesh(dp=args.mesh_dp or None)
+            mesh = make_mesh(dp=args.mesh_dp or None, mp=args.mesh_mp)
         except BaseException:
             dist.destroy_process_group()
             raise
@@ -420,6 +435,7 @@ def _run(args, device, writer, stores, mesh):
     from agrl_torch import models
     from agrl_torch.core import (
         AsyncCheckpointer,
+        fetch_global_state,
         load_any_checkpoint,
         load_checkpoint,
         save_checkpoint,
@@ -449,7 +465,7 @@ def _run(args, device, writer, stores, mesh):
     name = torch.cuda.get_device_name(device) if device.type == "cuda" else "CPU"
     print(f"Torch device: {device} ({name}), torch {torch.__version__}")
     if mesh is not None:
-        print(f"Mesh: dp={mesh.dp} mp=1 (process {mesh.rank} of {mesh.dp}, "
+        print(f"Mesh: dp={mesh.dp} mp={mesh.mp} (process {mesh.rank} of {mesh.world}, "
               f"{torch.distributed.get_backend()})")
     # the flips and the consistent-loss subclips (agrl_tpu: PRNGKey(seed + 1))
     generator = torch.Generator().manual_seed(args.seed + 1)
@@ -478,11 +494,11 @@ def _run(args, device, writer, stores, mesh):
     sampler = init_sampler(
         args.train_sampler, dataset.train, args.train_batch, args.num_instances, seed=args.seed
     )
-    # every rank runs the identically seeded sampler and loads its slice
+    # every rank runs the identically seeded sampler and loads its dp slice
     trainloader = ClipLoader(train_ds, batch_size=args.train_batch, sampler=sampler,
                              drop_last=True, num_workers=args.workers, seed=args.seed,
                              malloc_tuning=True,
-                             process_shard=None if mesh is None else (mesh.rank, mesh.dp))
+                             process_shard=None if mesh is None else (mesh.dp_index, mesh.dp))
     # dense/skipdense/all items vary in length: one tracklet a loader batch
     test_batch = 1 if args.test_sample in ("dense", "skipdense", "all") else args.test_batch
     queryloader = ClipLoader(query_ds, batch_size=test_batch, num_workers=args.workers,
@@ -561,6 +577,13 @@ def _run(args, device, writer, stores, mesh):
                                        warmup_factor=0.01, warmup_iters=10)
     else:
         lr_epoch = multistep_lr(args.lr, args.stepsize, gamma=args.gamma)
+    if mesh is not None and mesh.mp > 1:
+        from agrl_torch.parallel import place_state
+
+        # the whole state (fresh, or resumed) to this rank's blocks
+        plan = place_state(mesh, model, optimizer)
+        print(f"Sharded over mp={mesh.mp}: {len(plan)} weight(s) "
+              f"({', '.join(list(plan)[:4])}{', ...' if len(plan) > 4 else ''})")
     wd_epoch = zero_wd_schedule(args.weight_decay, args.zero_wd)
     # agrl_tpu's aug dict (its CLI :551-556): --rand-crop is rand_translate
     aug = dict(flip_aug=args.flip_aug, rand_erase=args.rand_erase,
@@ -607,10 +630,15 @@ def _run(args, device, writer, stores, mesh):
                 is_best = rank1 > best_rank1
                 if is_best:
                     best_rank1, best_mAP, best_epoch = rank1, mAP, epoch + 1
+                state = None
+                if mesh is not None and mesh.mp > 1:
+                    # COLLECTIVE: every rank joins the gather of the mp shards
+                    # before the rank-0 gate (agrl_tpu's CLI :610-617)
+                    state = fetch_global_state(model, optimizer, fetch_local=is_main)
                 if is_main:  # one checkpoint and scalar writer a job
                     save(model, optimizer,
                          osp.join(args.save_dir, f"checkpoint_ep{epoch + 1}.pth.tar"),
-                         epoch, rank1=rank1, mAP=mAP, is_best=is_best)
+                         epoch, rank1=rank1, mAP=mAP, is_best=is_best, state=state)
                     writer.add_scalar("acc/rank1", rank1, epoch + 1)
                     writer.add_scalar("acc/mAP", mAP, epoch + 1)
     finally:

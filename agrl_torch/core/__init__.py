@@ -3,6 +3,7 @@ checkpoints and the reader for agrl_tpu's msgpack ones."""
 
 from agrl_torch.core.checkpoint import (
     AsyncCheckpointer,
+    fetch_global_state,
     load_any_checkpoint,
     load_checkpoint,
     load_variables,
@@ -10,5 +11,5 @@ from agrl_torch.core.checkpoint import (
     save_checkpoint,
 )
 
-__all__ = ["AsyncCheckpointer", "load_any_checkpoint", "load_checkpoint", "load_variables",
-           "load_weights_partial", "save_checkpoint"]
+__all__ = ["AsyncCheckpointer", "fetch_global_state", "load_any_checkpoint", "load_checkpoint",
+           "load_variables", "load_weights_partial", "save_checkpoint"]

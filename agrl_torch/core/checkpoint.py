@@ -9,6 +9,11 @@ agrl_tpu/core/checkpoint.py).
     `--load-weights` (models.load_any_checkpoint) reads it unchanged.
   * AsyncCheckpointer — `--async-ckpt` (agrl_tpu/core/checkpoint.py:85-140):
     the same file, written by a background thread from a device snapshot.
+  * fetch_global_state — `--mesh-mp` (agrl_tpu/core/checkpoint.py:54-88
+    `fetch_global_tree`): the model's and the optimizer's state with every
+    mp shard gathered whole, as a host copy, which both writers take
+    (`state=`), so a tensor-parallel run writes the file a run without mp
+    writes. A collective: every rank calls it before the rank-0 gate.
   * load_checkpoint — --resume (train_vidreid_xent_htri.py:289-315):
     model, optimizer and the metadata.
   * load_weights_partial — --load-weights (:279-287): a
@@ -43,9 +48,33 @@ TORCH_CKPT_EXTS = (".pth", ".pth.tar", ".npz", ".npy")
 
 
 def save_checkpoint(model, optimizer, fpath: str, epoch: int, rank1: float = 0.0,
-                    mAP: float = 0.0, is_best: bool = False) -> None:
-    _write_checkpoint(_payload(model.state_dict(), optimizer.state_dict(), epoch, rank1, mAP),
+                    mAP: float = 0.0, is_best: bool = False, state: dict | None = None) -> None:
+    """Writes `model`'s and `optimizer`'s state, or `state` (the
+    {"state_dict", "optimizer"} of fetch_global_state) in their place."""
+    if state is None:
+        state = {"state_dict": model.state_dict(), "optimizer": optimizer.state_dict()}
+    _write_checkpoint(_payload(state["state_dict"], state["optimizer"], epoch, rank1, mAP),
                       fpath, is_best)
+
+
+def fetch_global_state(model, optimizer, fetch_local: bool = True) -> dict | None:
+    """{"state_dict", "optimizer"} of a model whose wide weights may be mp
+    shards (parallel.place_state), each shard and its optimizer state
+    gathered whole (parallel.gather_state): reference names and full
+    shapes, the dicts a run without mp saves. A COLLECTIVE whenever the
+    model holds shards: every rank calls it, in the same order, BEFORE any
+    rank-0 gate, or the job deadlocks (agrl_tpu/core/checkpoint.py:54-88).
+    Returns a host (CPU) copy that the next step cannot touch, for
+    save_checkpoint or AsyncCheckpointer.save (`state=`), so the gather
+    never runs on the writer's thread; with `fetch_local=False` (a rank
+    that writes nothing) the gathers are joined and None returned."""
+    from agrl_torch.parallel import gather_state
+
+    state_dict, optim = gather_state(model, optimizer)
+    if not fetch_local:
+        return None
+    return _map_tensors({"state_dict": state_dict, "optimizer": optim},
+                        lambda t: t.detach().to("cpu", copy=True))
 
 
 def _payload(state_dict, optim_state, epoch, rank1, mAP) -> dict:
@@ -97,7 +126,9 @@ class AsyncCheckpointer:
     has landed. One save is in flight at a time: a new `save` waits for
     the previous one, which bounds the extra device memory at one copy of
     the state and keeps the files in order. A failed write raises at the
-    next `save` or `wait`."""
+    next `save` or `wait`. `save(..., state=)` takes fetch_global_state's
+    host copy (a tensor-parallel run's, gathered by the caller): no
+    snapshot, the write alone on the thread."""
 
     def __init__(self):
         from concurrent.futures import ThreadPoolExecutor
@@ -133,11 +164,15 @@ class AsyncCheckpointer:
         return _map_tensors(tree, lambda _: next(it))
 
     def save(self, model, optimizer, fpath: str, epoch: int, rank1: float = 0.0,
-             mAP: float = 0.0, is_best: bool = False) -> None:
+             mAP: float = 0.0, is_best: bool = False, state: dict | None = None) -> None:
         self.wait()
+        event = None
+        if state is not None:  # already a host copy
+            self._future = self._pool.submit(self._write, state, None, fpath,
+                                             epoch, rank1, mAP, is_best)
+            return
         snap = self._snapshot({"state_dict": model.state_dict(),
                                "optimizer": optimizer.state_dict()})
-        event = None
         devices = {b.device for b in self._buffers if b.device.type == "cuda"}
         if devices:
             event = torch.cuda.Event()

@@ -43,17 +43,22 @@ The mesh Evaluator (`extract(..., mesh=)`, `evaluate(..., mesh=)`, the
 process-group form of parallel.make_mesh; agrl_tpu/engine/evaluator.py
 `_make_fwd_runner`, `_mesh_put`): every rank reads the whole query and
 gallery (the eval loaders are not process-sharded), each device batch is
-split into dp equal contiguous parts, one a rank, and the features are
-gathered back in order, so every rank holds the whole (N, D) features.
+split into dp equal contiguous parts, one a dp index, and the features are
+gathered back in order over the dp group, so every rank holds the whole
+(N, D) features. Under an mp axis the weights sharded over it are
+gathered whole first and the blocks restored after
+(parallel.whole_weights), as agrl_tpu's `_mesh_put` replicates the
+variables over the whole mesh: the mp ranks of one dp index run the same
+part of each batch, and a graph layer's eval forward is K1 on the whole
+W, never on a block.
 A batch that does not divide by dp pads, as agrl_tpu's does: zero frames
 with an all-ones adjacency (evenly, dense/skipdense), or, under `all`,
 zero frames, a zero adjacency and a frame mask keeping frame 0; the
 padding rows are dropped. Under `all` a bucket's batch is rounded up to a
 multiple of dp. The ranking then runs on every rank on the whole
 features, so every rank prints the same CMC and mAP; the host-scored path
-builds its (Q, G) matrix from the ranks' gallery stripes
-(ops/distmat.py `sharded_distmat`). Model parallelism (`--mesh-mp`) is
-ROADMAP A8b.
+builds its (Q, G) matrix from the dp ranks' gallery stripes
+(ops/distmat.py `sharded_distmat`).
 """
 
 from __future__ import annotations
@@ -75,6 +80,7 @@ from agrl_torch.ops.rank import (
     mars_cmc_map_from_distmat,
 )
 from agrl_torch.ops.rerank import re_ranking_from_features
+from agrl_torch.parallel import whole_weights
 from agrl_torch.utils.avgmeter import AverageMeter
 
 PROTOCOLS = ("mars", "market1501", "cuhk03", "dukev")
@@ -171,9 +177,10 @@ class Evaluator:
 
     def _runner(self, mesh, adj_pad: float = 1.0):
         """The forward of one device batch: `self._fwd`, or under a
-        process-group mesh this rank's part of the batch (padded to a
+        process-group mesh this dp index's part of the batch (padded to a
         multiple of dp: zero frames, adjacency `adj_pad`, a frame mask
-        keeping frame 0) with every rank's features gathered back in order."""
+        keeping frame 0) with every dp rank's features gathered back in
+        order."""
         if mesh is None:
             return self._fwd
         if not mesh.distributed:
@@ -196,7 +203,7 @@ class Evaluator:
                     fpad[:, 0] = 1.0  # the masked mean never divides by zero
                     frame_mask = np.concatenate([frame_mask, fpad])
             k = (n + pad) // mesh.dp
-            part = slice(mesh.rank * k, (mesh.rank + 1) * k)
+            part = slice(mesh.dp_index * k, (mesh.dp_index + 1) * k)
             f = self._fwd(imgs[part], adjs[part],
                           None if frame_mask is None else frame_mask[part])
             with torch.inference_mode():
@@ -209,12 +216,19 @@ class Evaluator:
         meter). Batch times are host time around each forward, synchronized
         with the card. The model goes to eval mode first: a trainer between
         two evaluations leaves it in train mode. `mesh`: the process-group
-        mesh whose ranks split each batch (module docstring)."""
+        mesh whose dp ranks split each batch, its mp shards gathered whole
+        for the extraction (module docstring)."""
         self.model.eval()
-        if self.test_sample in ("dense", "skipdense"):
-            return self._extract_dense_packed(loader, name, mesh)
-        if self.test_sample == "all" and getattr(self.model, "supports_frame_mask", False):
-            return self._extract_all_bucketed(loader, name, mesh)
+        with whole_weights(self.model):
+            if self.test_sample in ("dense", "skipdense"):
+                return self._extract_dense_packed(loader, name, mesh)
+            if self.test_sample == "all" and getattr(self.model, "supports_frame_mask", False):
+                return self._extract_all_bucketed(loader, name, mesh)
+            return self._extract_evenly(loader, name, mesh)
+
+    def _extract_evenly(self, loader, name: str, mesh=None):
+        """One forward a loader batch (evenly, and `all` for a model that
+        takes no frame mask: one whole tracklet a batch)."""
         run = self._runner(mesh)
         feats, pids, camids = [], [], []
         batch_time = AverageMeter()
@@ -398,14 +412,16 @@ class Evaluator:
     ):
         """Returns (rank-1, mAP), or the (Q, G) numpy distance matrix
         (re-ranked if asked) with `return_distmat`, and prints agrl_tpu's
-        result block. `mesh`: the process-group mesh whose ranks split the
-        extraction; every rank ranks the whole features and returns the same
-        result (module docstring)."""
+        result block. `mesh`: the process-group mesh whose dp ranks split
+        the extraction (its mp shards gathered whole once for both splits);
+        every rank ranks the whole features and returns the same result
+        (module docstring)."""
         if metric_protocol not in PROTOCOLS:
             raise ValueError(f"metric_protocol must be one of {PROTOCOLS}, got {metric_protocol!r}")
         kw = {} if mesh is None else {"mesh": mesh}  # without one, today's call
-        qf, q_pids, q_camids, bt_q = self.extract(queryloader, "query", **kw)
-        gf, g_pids, g_camids, bt_g = self.extract(galleryloader, "gallery", **kw)
+        with whole_weights(self.model):
+            qf, q_pids, q_camids, bt_q = self.extract(queryloader, "query", **kw)
+            gf, g_pids, g_camids, bt_g = self.extract(galleryloader, "gallery", **kw)
         avg_bt = (bt_q.sum + bt_g.sum) / max(bt_q.count + bt_g.count, 1)
         print(f"==> BatchTime(s)/Batch: {avg_bt:.3f}")
         ids = (q_pids, g_pids, q_camids, g_camids)

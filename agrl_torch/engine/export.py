@@ -48,7 +48,11 @@ to each of the mesh's devices, `batch_size` must divide by their count,
 and each request chunk (padded as above) splits into equal contiguous
 parts, one a device, whose features come back concatenated in order.
 `from_exported` refuses a mesh of more than one device, as agrl_tpu's
-does: scale artifact serving by process.
+does: scale artifact serving by process. The local-devices form has no mp
+axis: agrl_tpu's FeatureExtractor replicates the weights over the mesh
+(export.py:161), so a `--mesh-mp` run serves from its checkpoint, which
+holds the whole weights (core/checkpoint.py `fetch_global_state`); a model
+still holding mp shards is refused.
 """
 
 from __future__ import annotations
@@ -173,6 +177,9 @@ class FeatureExtractor:
             return
         if model is None:
             raise ValueError("pass a model (or use from_exported)")
+        if any(getattr(m, "mp_shards", None) for m in model.modules()):
+            raise ValueError("the model holds mp shards (parallel.place_state): serve the whole "
+                             "weights, e.g. a model built from the run's checkpoint")
         from agrl_torch.engine.evaluator import make_eval_forward
         from agrl_torch.models import default_num_vertices
 

@@ -34,25 +34,37 @@ forward (the model's `draw_subclips`: VMGN's subclips, gsta's and
 ganet's dropped frames), so it computes the first forward's values.
 
 `mesh` (the process-group form of parallel.make_mesh) makes the step
-data-parallel: each of the dp processes passes its slice of the global
-batch, and the step computes agrl_tpu's single-device step on the global
-batch (agrl_tpu/engine/trainer.py, GSPMD over the 'dp' axis):
+data-parallel over its dp axis: each dp index passes its slice of the
+global batch, and the step computes agrl_tpu's single-device step on the
+global batch (agrl_tpu/engine/trainer.py, GSPMD over the 'dp' axis):
   * every rank draws the augmentations and the consistent-loss draw for
     the GLOBAL batch from its identically seeded generator (injected
-    `flip` and `subclip_indices` are the global batch's) and keeps its
+    `flip` and `subclip_indices` are the global batch's) and keeps its dp
     slice, so a run of dp ranks sees the flips, erasures, crops and
     subclips of a one-rank run of the same seed;
-  * train-mode BatchNorms take the global batch's statistics
-    (models/backbone.py `global_batch_stats`, also in the recompute);
-  * the batch-hard mining gathers the global batch
+  * train-mode BatchNorms take the global batch's statistics over the dp
+    group (models/backbone.py `global_batch_stats`, also in the recompute);
+  * the batch-hard mining gathers the global batch over the dp group
     (losses.batch_hard_triplet_heads); cross-entropy is the rank's slice
-    mean, whose average over the ranks is the global mean because the
+    mean, whose average over the dp group is the global mean because the
     slices are equal;
-  * the gradients are averaged over the ranks (parallel.average_gradients,
-    in buckets) before the optimizer step, so every rank takes the same
-    update and the parameters stay equal;
-  * the metrics are averaged over the ranks: every rank returns the global
-    batch's loss, xent_loss, htri_loss and top1.
+  * the gradients are averaged over the dp group
+    (parallel.average_gradients, in buckets) before the optimizer step, so
+    the ranks of a dp group take the same update;
+  * the metrics are averaged over the dp group: every rank returns the
+    global batch's loss, xent_loss, htri_loss and top1.
+With an mp axis (`--mesh-mp`: parallel.place_state has sharded the wide
+Linears and their optimizer state), the mp ranks of one dp index pass the
+same slice and draw the same augmentations. A sharded Linear computes its
+column block, gathers the whole output over the mp group and sums its
+input's gradient over it (parallel.MPShard), so everything after it (the
+graph, BN and residual of a train-mode graph layer, the heads, the
+losses, K3 on the dp-gathered features) runs alike on every rank of an
+mp group: the replicated parameters' gradients agree there in exact
+arithmetic. They are averaged over every rank of the mesh, which is
+their dp mean and keeps them bit-equal across the mp group on a card,
+whose backward kernels do not sum in a fixed order; the blocks' over the
+dp group. Either mean divides the gathered mining's dp-fold sum once.
 Without a mesh nothing of this runs: no collective, no global draw.
 """
 
@@ -170,8 +182,8 @@ def make_train_step(
     `start_step` is the count already taken: a run resumed after epoch e
     passes (e + 1) * steps_per_epoch, as agrl_tpu's CLI sets its state's
     step, so the schedule goes on where it stopped. `mesh`: a process
-    group's mesh, for a data-parallel step on this rank's slice of the
-    batch (module docstring).
+    group's mesh, for a step on this rank's dp slice of the batch, data-
+    and (after parallel.place_state) tensor-parallel (module docstring).
 
     The metrics `loss`, `xent_loss`, `htri_loss` and `top1` (argmax
     accuracy averaged over heads) are 0-d device tensors: nothing syncs
@@ -198,7 +210,7 @@ def make_train_step(
         raise ValueError(f"the model is on {device}, this rank's device is {mesh.device}")
     if mesh is not None:
         from agrl_torch.models.backbone import global_batch_stats
-        from agrl_torch.parallel import all_reduce_mean, average_gradients
+        from agrl_torch.parallel import all_reduce_mean, average_gradients, sharded_parameters
 
         bn_context = partial(global_batch_stats, mesh)
     else:
@@ -242,7 +254,7 @@ def make_train_step(
         optimizer.zero_grad(set_to_none=True)
         loss.backward()
         if mesh is not None:
-            average_gradients(model.parameters(), mesh)
+            average_gradients(model.parameters(), mesh, shards=sharded_parameters(model))
         lr = lr_fn(step)
         for group in optimizer.param_groups:
             group["lr"] = lr
@@ -265,9 +277,9 @@ def make_train_step(
         return metrics
 
     def global_inputs(imgs, generator, flip, subclip_indices):
-        """The data-parallel step's input: this rank's slice of the global
-        batch's augmentation and consistent-loss draws."""
-        world, rank = mesh.dp, mesh.rank
+        """The data-parallel step's input: this rank's dp slice of the
+        global batch's augmentation and consistent-loss draws."""
+        world, rank = mesh.dp, mesh.dp_index
         if aug is None:
             x = imgs
         else:

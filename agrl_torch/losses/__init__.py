@@ -81,13 +81,15 @@ def batch_hard_triplet_heads(features, labels, margin: float = 0.3, soft: bool =
     divided by H.
 
     With a process-group `mesh` (parallel.make_mesh), each rank holds its
-    slice of the batch: every head's features (one all_gather for all
-    heads) and the labels are gathered, and the loss is the global batch's,
-    equal on every rank, as agrl_tpu's loss sees the global array. The
-    gather's backward sums the ranks' gradients of that one loss, so each
-    rank's features get dp times their slice of the global gradient; the
-    train step's average of the parameter gradients over the ranks divides
-    by dp once. K3's limits (B <= 256, H <= 64) hold for the global B."""
+    dp slice of the batch: every head's features (one all_gather for all
+    heads) and the labels are gathered over the dp group, and the loss is
+    the global batch's, equal on every rank, as agrl_tpu's loss sees the
+    global array. The gather's backward sums the dp ranks' gradients of
+    that one loss, so each rank's features get dp times their slice of the
+    global gradient; the train step's average of the parameter gradients
+    over the dp group divides by dp once. The mp ranks of one dp index
+    mine the same gathered batch. K3's limits (B <= 256, H <= 64) hold for
+    the global B."""
     if not isinstance(features, (list, tuple)):
         features = [features]
     if mesh is not None:

@@ -45,7 +45,7 @@ def frozen_running_stats():
 @contextmanager
 def global_batch_stats(mesh):
     """Train-mode BatchNorms in this thread normalize with the mean and the
-    biased variance of the GLOBAL batch of `mesh`'s process group, and
+    biased variance of the GLOBAL batch of `mesh`'s dp group, and
     update their running statistics with them (agrl_tpu gets this from
     GSPMD: under jit the batch axis is global, agrl_tpu/models/backbone.py:
     11-13). The train step enters it around the forward of a data-parallel
@@ -69,7 +69,7 @@ def _bn_layout(t: torch.Tensor) -> torch.Tensor:
 
 
 class _GlobalBatchNorm(torch.autograd.Function):
-    """Train-mode BatchNorm over the global batch of a process group.
+    """Train-mode BatchNorm over the global batch of a dp group.
 
     Forward: each rank's (count, mean, biased variance) per channel, in
     float32 (Welford's on the card, a two-pass one on the CPU), go to every
@@ -103,7 +103,7 @@ class _GlobalBatchNorm(torch.autograd.Function):
             var_r, mean_r = torch.var_mean(xf, dim=[0, *range(2, x.dim())], correction=0)
         row = torch.cat([xf.new_full((1,), float(n)), mean_r, var_r])
         rows = [torch.empty_like(row) for _ in range(mesh.dp)]
-        dist.all_gather(rows, row, group=mesh.group)
+        dist.all_gather(rows, row, group=mesh.dp_group)
         rows = torch.stack(rows)
         counts, means, variances = rows[:, :1], rows[:, 1:C + 1], rows[:, C + 1:]
         total = counts.sum()
@@ -132,7 +132,7 @@ class _GlobalBatchNorm(torch.autograd.Function):
             sum_dy, sum_dy_xmu, dw, db = torch.batch_norm_backward_reduce(
                 dy, x, mean, invstd, weight, True, True, True)
             both = torch.cat([sum_dy, sum_dy_xmu])
-            dist.all_reduce(both, group=ctx.mesh.group)
+            dist.all_reduce(both, group=ctx.mesh.dp_group)
             g_dy, g_dy_xmu = both.split(C)
             dx = torch.batch_norm_backward_elemt(dy, x, mean, invstd, weight, g_dy, g_dy_xmu,
                                                  ctx.counts)
@@ -142,7 +142,7 @@ class _GlobalBatchNorm(torch.autograd.Function):
         xmu = x - mean.reshape(shape)
         local = torch.cat([dy.sum(dims), (dy * xmu).sum(dims)])
         both = local.clone()
-        dist.all_reduce(both, group=ctx.mesh.group)
+        dist.all_reduce(both, group=ctx.mesh.dp_group)
         sum_dy, sum_dy_xmu = (both / ctx.total).split(C)
         dx = (dy - sum_dy.reshape(shape) - xmu * (invstd * invstd * sum_dy_xmu).reshape(shape)) \
             * (invstd * weight).reshape(shape)
@@ -285,15 +285,27 @@ class Conv3d(_ComputeDtypeConv, nn.Conv3d):
     """The 3-D convolution of the resnet3d family (NCDHW)."""
 
 
+def linear(module: nn.Module, name: str, x: torch.Tensor, weight: torch.Tensor, bias=None):
+    """F.linear(x, weight, bias), or its tensor-parallel form when
+    `module`'s parameter `name` is a block of rows sharded over an mp group
+    (parallel.place_state: `weight` is the block, the output whole)."""
+    shard = getattr(module, "mp_shards", {}).get(name)
+    return F.linear(x, weight, bias) if shard is None else shard.linear(x, weight, bias)
+
+
 class Linear(nn.Linear):
     """nn.Linear computing at the promotion of its input's and weight's
     dtypes, as flax's Dense with dtype None: the bf16 eval's rounded
-    weights on float32 features compute in float32."""
+    weights on float32 features compute in float32. Under `--mesh-mp` its
+    weight may be a block of its output rows (parallel.place_state), the
+    product then tensor-parallel at that dtype (`linear`)."""
+
+    MP_BLOCKS = {"weight": 1}  # the rows parallel.place_state may shard
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         dt = torch.promote_types(x.dtype, self.weight.dtype)
         bias = None if self.bias is None else self.bias.to(dt)
-        return F.linear(x.to(dt), self.weight.to(dt), bias)
+        return linear(self, "weight", x.to(dt), self.weight.to(dt), bias)
 
 
 def set_compute_dtype(module: nn.Module, dtype) -> None:

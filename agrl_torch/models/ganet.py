@@ -24,7 +24,7 @@ from __future__ import annotations
 import torch
 from torch import nn
 
-from agrl_torch.models.backbone import Conv2d
+from agrl_torch.models.backbone import Conv2d, Linear
 from agrl_torch.models.gsta import GSTA
 from agrl_torch.models.layers import BNNeck, GraphConvLayer
 from agrl_torch.models.vmgn import FEATURE_DIM
@@ -92,7 +92,7 @@ class GANet(GSTA):
         )
         width = (num_gb + 1) * FEATURE_DIM
         self.bottleneck = BNNeck(width)
-        self.classifier = nn.Linear(width, num_classes, bias=False)
+        self.classifier = Linear(width, num_classes, bias=False)
 
     def pool_vertices(self, fmap: torch.Tensor, B: int, S: int) -> torch.Tensor:
         """Each split's stripes of h // n rows through PAM, one batch per

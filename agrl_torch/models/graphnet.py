@@ -126,7 +126,7 @@ class _GraphNetBase(PartPooling, nn.Module):
         self.fusion_conv = nn.Conv1d(self.num_vertices, 1, 1, bias=False)
         self._heads_name = heads_name
         setattr(self, heads_name, nn.ModuleList(
-            nn.Linear(dim, num_classes) for _ in range(self.num_vertices + 1)))
+            Linear(dim, num_classes) for _ in range(self.num_vertices + 1)))
 
     @property
     def head_layers(self) -> nn.ModuleList:

@@ -28,7 +28,7 @@ import numpy as np
 import torch
 from torch import nn
 
-from agrl_torch.models.backbone import ResLayer, ResNetTrunk, set_compute_dtype
+from agrl_torch.models.backbone import Linear, ResLayer, ResNetTrunk, set_compute_dtype
 from agrl_torch.models.layers import BNNeck, GraphConvLayer, temporal_attention
 from agrl_torch.models.vmgn import FEATURE_DIM, check_dtype
 from agrl_torch.utils.reidtools import calc_splits
@@ -87,7 +87,7 @@ class GSTA(ResNetTrunk):
             for _ in range(num_gb)
         )
         self.bottleneck = BNNeck(FEATURE_DIM)
-        self.classifier = nn.Linear(FEATURE_DIM, num_classes, bias=False)
+        self.classifier = Linear(FEATURE_DIM, num_classes, bias=False)
         for stage in (self.conv1, self.bn1, self.layer1, self.layer2, self.layer3, self.layer4):
             set_compute_dtype(stage, dtype)
 

@@ -97,7 +97,7 @@ class GraphConvLayer(nn.Module):
         self.gamma = gamma
         self.mask_diag = mask_diag
         self.additive = residual == "additive"
-        self.linear = nn.Linear(in_features, out_features, bias=False)
+        self.linear = Linear(in_features, out_features, bias=False)
         self.bn = BatchNorm1d(out_features, eps=BN_EPS)
 
     def init_weights(self, generator: torch.Generator) -> None:
@@ -116,6 +116,10 @@ class GraphConvLayer(nn.Module):
         mode BN's batch statistics still take every row, as agrl_tpu's do."""
         bn = self.bn
         if not self.training:
+            if "weight" in getattr(self.linear, "mp_shards", {}):
+                raise RuntimeError("the eval graph layer takes the whole W: gather the mp "
+                                   "shards first (parallel.whole_weights, as the mesh "
+                                   "Evaluator does)")
             propagate = graph_propagate_v2 if x.dtype == torch.bfloat16 else graph_propagate
             var = bn.running_var
             if var.dtype != torch.float32:

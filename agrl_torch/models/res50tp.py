@@ -21,7 +21,7 @@ from __future__ import annotations
 import torch
 from torch import nn
 
-from agrl_torch.models.backbone import ResLayer, ResNetTrunk
+from agrl_torch.models.backbone import Linear, ResLayer, ResNetTrunk
 from agrl_torch.models.gsta import check_loss
 from agrl_torch.models.layers import BNNeck, l1_normalize
 from agrl_torch.models.vmgn import FEATURE_DIM
@@ -39,7 +39,7 @@ class _SingleLayer4(ResNetTrunk):
         self.loss = check_loss(loss)
         self.layer4 = ResLayer(1024, 512, layers[3], stride=last_stride)
         self.bottleneck = BNNeck(FEATURE_DIM)
-        self.classifier = nn.Linear(FEATURE_DIM, num_classes, bias=False)
+        self.classifier = Linear(FEATURE_DIM, num_classes, bias=False)
 
     def init_weights(self, generator: torch.Generator) -> None:
         self.init_backbone(generator)

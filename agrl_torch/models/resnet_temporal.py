@@ -41,6 +41,7 @@ from agrl_torch.models.backbone import (
     init_backbone_,
     init_lecun_normal_,
     init_linear_default_,
+    linear,
     resnet_base,
 )
 from agrl_torch.models.gsta import check_loss
@@ -82,7 +83,15 @@ class LSTM(nn.Module):
     `bias_ih_l0` is kept for the reference's state-dict names and is frozen
     (no gradient): zero after the port's init and after an agrl_tpu bridge,
     a reference checkpoint's value after a torch-named load; the forward
-    adds both, as torch's LSTM does."""
+    adds both, as torch's LSTM does.
+
+    Under `--mesh-mp` the packed weights may be sharded gate by gate
+    (parallel.param_shardings: each gate's rows, as flax's four leaves):
+    each product is then tensor-parallel and its gathered output comes
+    back in gate order (i, f, g, o) before the recurrence reads it."""
+
+    # the packed weights parallel.place_state may shard: four gate blocks each
+    MP_BLOCKS = {"weight_ih_l0": 4, "weight_hh_l0": 4}
 
     def __init__(self, input_size: int, hidden_size: int):
         super().__init__()
@@ -110,13 +119,14 @@ class LSTM(nn.Module):
         B, T, _ = x.shape
         H = self.hidden_size
         dt_i = torch.promote_types(x.dtype, self.weight_ih_l0.dtype)
-        xi = F.linear(x.to(dt_i), self.weight_ih_l0.to(dt_i))  # (B, T, 4H)
+        xi = linear(self, "weight_ih_l0", x.to(dt_i), self.weight_ih_l0.to(dt_i))  # (B, T, 4H)
         c = h = torch.zeros(B, H, dtype=torch.float32, device=x.device)
         outs = []
         for t in range(T):
             dt_h = torch.promote_types(h.dtype, self.weight_hh_l0.dtype)
             bias = self.bias_hh_l0.to(dt_h) + self.bias_ih_l0.to(dt_h)
-            g = F.linear(h.to(dt_h), self.weight_hh_l0.to(dt_h), bias) + xi[:, t]
+            g = linear(self, "weight_hh_l0", h.to(dt_h), self.weight_hh_l0.to(dt_h), bias)
+            g = g + xi[:, t]
             i, f = torch.sigmoid(g[:, :H]), torch.sigmoid(g[:, H:2 * H])
             gg, o = torch.tanh(g[:, 2 * H:3 * H]), torch.sigmoid(g[:, 3 * H:])
             c = f * c + i * gg

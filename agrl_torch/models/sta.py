@@ -39,7 +39,7 @@ class STA(ResNetTrunk):
         # the reference's Sequential, so its state-dict names (fc1.0, fc1.1)
         self.fc1 = nn.Sequential(Linear(2 * FEATURE_DIM, reduced_dim, bias=False),
                                  BatchNorm1d(reduced_dim, eps=BN_EPS), nn.ReLU())
-        self.classifier = nn.Linear(reduced_dim, num_classes)
+        self.classifier = Linear(reduced_dim, num_classes)
 
     def init_weights(self, generator: torch.Generator) -> None:
         """Reference _init_params: convs kaiming, BN 1/0, Linear N(0, 0.01)

@@ -51,6 +51,7 @@ from torch import nn
 
 from agrl_torch.models.backbone import (
     Bottleneck,
+    Linear,
     ResLayer,
     ResNetTrunk,
     set_compute_dtype,
@@ -91,8 +92,8 @@ class VMGN(ResNetTrunk):
         self.layer4_2 = ResLayer(1024, 512, layers[3], stride=last_stride)
         self.global_bottleneck = BNNeck(FEATURE_DIM)
         self.att_bottleneck = BNNeck(FEATURE_DIM)
-        self.global_classifier = nn.Linear(FEATURE_DIM, num_classes, bias=False)
-        self.att_classifier = nn.Linear(FEATURE_DIM, num_classes, bias=False)
+        self.global_classifier = Linear(FEATURE_DIM, num_classes, bias=False)
+        self.att_classifier = Linear(FEATURE_DIM, num_classes, bias=False)
         self.graph_layers = nn.ModuleList(
             GraphConvLayer(FEATURE_DIM, FEATURE_DIM, learn_graph=learn_graph, use_pose=use_pose)
             for _ in range(num_gb)

@@ -37,8 +37,8 @@ def compute_distmat(qf, gf, metric: str = "euclidean") -> torch.Tensor:
 
 
 def sharded_distmat(mesh, qf, gf, metric: str = "euclidean") -> torch.Tensor:
-    """compute_distmat with the gallery axis split over the ranks of a
-    process-group mesh (parallel.make_mesh): each rank computes the
+    """compute_distmat with the gallery axis split over the dp group of a
+    process-group mesh (parallel.make_mesh): each dp rank computes the
     (Q, G / dp) stripe of its contiguous gallery rows (the gallery padded
     with zero rows to a multiple of dp, dropped after), and the stripes are
     gathered in order on every rank."""
@@ -49,5 +49,5 @@ def sharded_distmat(mesh, qf, gf, metric: str = "euclidean") -> torch.Tensor:
     if pad:
         gf = torch.cat([gf, gf.new_zeros((pad, gf.shape[1]))])
     k = gf.shape[0] // mesh.dp
-    stripe = compute_distmat(qf, gf[mesh.rank * k:(mesh.rank + 1) * k], metric)
+    stripe = compute_distmat(qf, gf[mesh.dp_index * k:(mesh.dp_index + 1) * k], metric)
     return gather_rows(stripe.t(), mesh).t()[:, :G]

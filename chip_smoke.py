@@ -210,9 +210,9 @@ Phases (any failure exits non-zero before the result lines):
      request at the FeatureExtractor's default (finite, vs fp32); 6 train
      steps at 4x4 with flips and the soft margin over 22 heads: median ms
      of steps 3-6, peak GB, finite losses, K3 1 + 1 launches a step; card
-     vs CPU at depth (1,1,1,1), 64x32 (1e-3); K3 vs its twin at (H=22,
-     D=512), (22, 1536), (46, 1536) and (64, 1536), the most heads one
-     launch takes; one CLI epoch of -a msppgn
+     vs CPU at depth (1,1,1,1), 64x32 (1e-3); K3 vs its twin at msppgn's
+     (H=22, D=1536) and at (64, 1536), the most heads one launch takes,
+     device ms over 5 calls; one CLI epoch of -a msppgn
      --num-scale 3 on phase 16's layout, then --evaluate under evenly and
      all (all pads the adjacency through msppgn's pad_eval_adjacency; K1 0);
  26. (run after phase 25; its kernel check after phase 8) the legacy video
@@ -256,11 +256,29 @@ Phases (any failure exits non-zero before the result lines):
      (as (a)), Rank-1 and mAP printed equal; (c)
      FeatureExtractor(mesh=<the one card>) answers phase 4's requests
      (K1 2 a 16-clip chunk), its features within 1e-5 of max of phase 4's;
+ 28. (run after phase 27) tensor parallelism (--mesh-mp) on the one card: two
+     processes (`chip_smoke.py --mp-worker RANK PORT DIR`) in a gloo group
+     (NCCL refuses two ranks on one card; gloo stages the CUDA collectives
+     through the host) under the port's dp 1 x mp 2 mesh, at --mesh-mp's
+     placement with the production min_size (VMGN's two 2048 x 2048 graph
+     linears shard; 625 classes do not divide by 2): phase 27's 8 steps
+     of phase 9's recipe from its seed, batches and generator through the
+     mp step, held against phase 27's run without a group (losses step 1
+     rtol 1e-5, all 2e-2; final parameters within 2 of the update, phase
+     27's bars), K3 1 + 1 launches a step on each rank, the replicated
+     tensors bit-equal across the mp group; the gathered checkpoint (every
+     rank joins, rank 0 writes a run without mp's layout), loaded whole
+     into other weights and placed: its state (weights, buffers, Adam's)
+     and the next step's losses bit-equal to the live model's; the mp
+     Evaluator on phase 4's model placed answers phase 4's
+     requests (the shards gathered whole: K1 2 a 16-clip batch on the
+     whole 2048 x 2048 W, never a block), features within 1e-5 of max of
+     phase 4's, the blocks back after it;
 then one {"serving": ...} line (with "bf16" and "artifact"), one {"training": ...} line (with "bf16"),
 one {"reranking": ...} line, one {"cli": ...} line (with "bf16"), one {"evaluation": ...}
 line, one {"input": ...} line, one {"train_surface": ...} line, one {"archs": ...} line, one
 {"graphnets": ...} line, one {"legacy": ...} line, one {"parallel": ...} line, one
-{"kernels": [...]} line (each kernel's `slower_than_plain`
+{"mp": ...} line, one {"kernels": [...]} line (each kernel's `slower_than_plain`
 lists the shapes where this run timed it above its plain version), the
 card's name and power limit, and
 {"ok": true, "device": {...}} as the last line.
@@ -390,14 +408,14 @@ def device_ms_per_call(torch, fn, n=20):
     return sum(r[1] for r in device_rows(prof, n))
 
 
-def device_ms_or_events(torch, fn, flush, tries=3):
+def device_ms_or_events(torch, fn, flush, tries=3, n=20):
     """(ms, how) of one fn() call: its device time from torch.profiler
-    (device_ms_per_call), tried again when the profiler reported no device
-    event (it drops a window's device events now and then); after `tries`
-    empty windows, CUDA events around one call with the L2 flushed, host
-    dispatch included."""
+    (device_ms_per_call over n calls), tried again when the profiler
+    reported no device event (it drops a window's device events now and
+    then); after `tries` empty windows, CUDA events around one call with
+    the L2 flushed, host dispatch included."""
     for _ in range(tries):
-        ms = device_ms_per_call(torch, fn)
+        ms = device_ms_per_call(torch, fn, n)
         if ms > 0:
             return ms, "profiler"
     return time_cuda(torch, fn, flush), "events"
@@ -3530,11 +3548,11 @@ def phase_k1_flags(torch, gc, device, flush):
 
 
 def phase_k3_arch_shapes(torch, tri, losses_mod, device, flush,
-                         shapes=((2, 6144), (1, 1024)), tag="archs"):
+                         shapes=((2, 6144), (1, 1024)), tag="archs", reps=20):
     """K3 vs its twin at ganet's (H=2, D=6144) and sta's (H=1, D=1024) train
-    shapes (phase 25: msppn's and msppgn's `shapes`): values atol 1e-4,
-    picks equal, the multi-head loss's gradients atol 1e-5; device ms of
-    both kernels and their twins, and the bounds."""
+    shapes (phase 25: msppgn's `shapes`): values atol 1e-4, picks equal,
+    the multi-head loss's gradients atol 1e-5; device ms of both kernels
+    and their twins over `reps` calls each, and the bounds."""
     plain_loss = plain_triplet_heads(tri, losses_mod)
     recs = []
     for H, D in shapes:
@@ -3560,7 +3578,7 @@ def phase_k3_arch_shapes(torch, tri, losses_mod, device, flush,
                          ("plain_backward_ms", lambda: tri.hard_mine_backward_reference(
                              heads, *got, g_ap, g_an)),
                          ("library_ms", lambda: torch.cdist(stacked, stacked))):
-            rec[name], rec["timing"][name] = device_ms_or_events(torch, fn, flush)
+            rec[name], rec["timing"][name] = device_ms_or_events(torch, fn, flush, n=reps)
         rec["bound_ms"], rec["bound_by"] = triplet_bound_ms(H, BATCH, D)
         rec["backward_bound_ms"], rec["backward_bound_by"] = triplet_bound_ms(
             H, BATCH, D, s_nnz=s_nonzeros(torch, tri, *got))
@@ -3677,9 +3695,9 @@ def phase_archs(torch, tri, gc, layers_mod, device):
 
 GRAPHNETS = ("msppn", "msppgn")
 NUM_SCALES_GRAPHNET = 3  # their vertices span layer2, layer3 and layer4
-# K3 at msppn's and msppgn's train steps (--num-gb 2), at --num-split 8,
-# and at the most heads one launch takes (ops/triplet.MAX_HEADS, 64)
-GRAPHNET_K3_SHAPES = ((22, 512), (22, 1536), (46, 1536), (64, 1536))
+# K3 at msppn's and msppgn's train steps (--num-gb 2) and at the most heads
+# one launch takes (ops/triplet.MAX_HEADS, 64); timed over 5 calls
+GRAPHNET_K3_SHAPES, GRAPHNET_K3_REPS = ((22, 512), (22, 1536), (64, 1536)), 5
 
 
 def build_graphnet(torch, arch, device, seed=0):
@@ -4040,7 +4058,7 @@ def parallel_train(torch, tri, device, batches):
             and grad_err <= 5e-2 and loss_err[0] <= 1e-5 and max(loss_err) <= 2e-2
             and param_err <= 2.0 and not dist.is_initialized()):
         raise AssertionError(f"world-1 data-parallel step: {out}")
-    return out
+    return out, (plain_grads, plain_params)
 
 
 def parallel_cli(torch, tri, gc):
@@ -4133,11 +4151,13 @@ def parallel_serving(torch, gc, device, serving_outs):
 
 def phase_parallel(torch, tri, gc, device, batches, serving_outs):
     """Phase 27: (a) the world-1 NCCL train step, (b) the CLI with --dist-*,
-    (c) mesh serving."""
+    (c) mesh serving. Returns its record and, from (a)'s run without a
+    group, phase 28's reference: the step-1 gradients {name: grad} and the
+    final parameters {name: (final, initial)}."""
     t_phase = time.perf_counter()
     out = {}
     t0 = time.perf_counter()
-    out["train"] = parallel_train(torch, tri, device, batches)
+    out["train"], plain_ref = parallel_train(torch, tri, device, batches)
     out["train_seconds"] = time.perf_counter() - t0
     t0 = time.perf_counter()
     out["cli"] = parallel_cli(torch, tri, gc)
@@ -4146,6 +4166,313 @@ def phase_parallel(torch, tri, gc, device, batches, serving_outs):
     out["serving"] = parallel_serving(torch, gc, device, serving_outs)
     out["serving_seconds"] = time.perf_counter() - t0
     out["phase_seconds"] = time.perf_counter() - t_phase
+    return out, plain_ref
+
+
+# ---- phase 28: tensor parallelism on the one card ---------------------------
+
+MP = 2  # the mp axis of phase 28's dp 1 x mp 2 group
+# phase 28's bars on the sharded weights against phase 27's run without a
+# group: step-1 gradients (Frobenius over the gradient's; 3.3e-3 measured
+# on an H100, fp32 rounding through the train-mode BN's backward) and the
+# final parameters after 8 Adam steps (Frobenius over the update's; 0.30
+# measured, Adam's sign steps on small gradients). A block that never
+# updates reads 1 of its update, one that moves the wrong way 2
+MP_SHARD_GRAD_TOL, MP_SHARD_UPDATE_TOL = 2e-2, 0.6
+
+
+def state_digests(model) -> dict:
+    """{state-dict name: sha1 of its bytes}: equal digests across ranks are
+    bit-equal tensors."""
+    import hashlib
+
+    return {k: hashlib.sha1(v.detach().cpu().contiguous().numpy().tobytes()).hexdigest()
+            for k, v in model.state_dict().items()}
+
+
+def mp_eval_requests(torch, model, mesh, device):
+    """Phase 4's requests through the mp Evaluator (the mesh's shards
+    gathered whole, the batches over dp): each request cut into 16-clip
+    loader batches padded as the FeatureExtractor pads them (zero frames,
+    an all-ones adjacency), the padding rows dropped. Returns ({clips:
+    features}, K1 launches, the W shapes K1 was handed)."""
+    import contextlib
+
+    from agrl_torch.engine.evaluator import Evaluator
+    from agrl_torch.models import default_num_vertices
+    from agrl_torch.models import layers as layers_mod
+    from agrl_torch.ops import graph_conv as gc
+
+    V = default_num_vertices(model, SEQ_LEN)
+    ev = Evaluator(model, test_sample="evenly", device=device)
+    shapes = []
+    real = layers_mod.graph_propagate
+
+    def recorded(x, adj, w, *args, **kwargs):
+        shapes.append(tuple(w.shape))
+        return real(x, adj, w, *args, **kwargs)
+
+    feats = {}
+    layers_mod.graph_propagate = recorded
+    gc.launches = 0  # the mp eval path starts here
+    try:
+        for n, (imgs, adjs) in serving_requests_of_phase4().items():
+            adjs = np.ones((n, V, V), np.float32) if adjs is None else adjs
+            loader = []
+            for i in range(0, n, BATCH):
+                b_imgs, b_adjs = imgs[i:i + BATCH], adjs[i:i + BATCH]
+                pad = BATCH - len(b_imgs)
+                b_imgs = np.concatenate([b_imgs, np.zeros((pad, *imgs.shape[1:]), np.uint8)])
+                b_adjs = np.concatenate([b_adjs, np.ones((pad, V, V), np.float32)])
+                loader.append((b_imgs, np.zeros(BATCH, np.int64), np.zeros(BATCH, np.int64),
+                               b_adjs))
+            with contextlib.redirect_stdout(io.StringIO()):
+                f = ev.extract(loader, "query", mesh=mesh)[0].cpu().numpy()
+            feats[n] = np.concatenate([f[j * BATCH:j * BATCH + min(BATCH, n - j * BATCH)]
+                                       for j in range(len(loader))])
+        launches = gc.launches  # and ends here
+    finally:
+        layers_mod.graph_propagate = real
+    return feats, launches, sorted(set(shapes))
+
+
+def mp_worker(rank: int, port: int, work: str) -> int:
+    """One rank of phase 28 (`chip_smoke.py --mp-worker RANK PORT DIR`): a
+    gloo group of two processes on the one card (NCCL refuses two ranks on
+    one card; gloo stages its collectives through the host) and the port's
+    dp 1 x mp 2 mesh over it, at --mesh-mp's placement with the production
+    min_size. Phase 27's run without a group (phase 9's seed, its first
+    PARALLEL_STEPS batches from DIR/in.pt, its generator) trained through
+    the mp step, its K3 launches counted and its step-1 gradients kept
+    (rank 0 all, rank 1 its blocks); the gathered checkpoint written
+    by rank 0, loaded whole into a model of other weights, placed, and its
+    next step against the live model's; the mp eval of phase 4's requests
+    with K1 counted. Writes DIR/rank{RANK}.pt."""
+    import dataclasses
+
+    import torch
+    import torch.distributed as dist
+
+    sys.path.insert(0, str(REPO))
+    from agrl_torch.core.checkpoint import fetch_global_state, load_checkpoint, save_checkpoint
+    from agrl_torch.engine.trainer import make_train_step
+    from agrl_torch.models import init_model
+    from agrl_torch.ops import triplet as tri
+    from agrl_torch.optim import init_optim
+    from agrl_torch.parallel import make_mesh, place_state, replicated
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    device = torch.device("cuda", 0)
+    torch.cuda.set_device(device)
+    dist.init_process_group("gloo", init_method=f"tcp://127.0.0.1:{port}", world_size=MP,
+                            rank=rank)
+    try:
+        # the port's mesh over this group; gloo's mesh names the CPU, its card here
+        mesh = dataclasses.replace(make_mesh(mp=MP), devices=(device,))
+        batches = torch.load(f"{work}/in.pt", weights_only=False)
+        out = dict(mesh=[mesh.dp, mesh.mp, mesh.dp_index, mesh.mp_index],
+                   backend=dist.get_backend())
+
+        def make(seed):
+            model = build_train_model(init_model, device, seed)
+            opt = init_optim("adam", model.parameters(), 1e-4, weight_decay=5e-4)
+            return model, opt
+
+        def stepper(model, opt):
+            return make_train_step(model, opt, lambda s: 1e-4, label_smooth=False, margin=0.3,
+                                   soft_margin=True, aug={"flip_aug": True}, mesh=mesh)
+
+        model, opt = make(0)
+        whole = {k: tuple(v.shape) for k, v in model.state_dict().items()}
+        replicated(mesh, model, opt)
+        out["plan"] = place_state(mesh, model, opt)
+        step = stepper(model, opt)
+        gen = torch.Generator().manual_seed(0)
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        history, times = [], []
+        tri.launches = tri.backward_launches = 0  # the mp train path starts here
+        for i, (imgs, pids, _, adjs) in enumerate(batches):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            metrics = step(imgs, pids, adjs, generator=gen)
+            torch.cuda.synchronize()
+            times.append((time.perf_counter() - t0) * 1e3)
+            history.append({k: float(v) for k, v in metrics.items()})
+            if i == 0:  # step 1's, as phase 27 keeps them
+                out["step1_grads"] = {n: g for n, g in grads_of(model).items()
+                                      if rank == 0 or n in out["plan"]}
+        out["k3_launches"] = [tri.launches, tri.backward_launches]  # and ends here
+        out.update(history=history, step_all_ms=times, step_ms=float(np.median(times[2:])),
+                   peak_mem_gb=torch.cuda.max_memory_allocated() / 1e9,
+                   digests=state_digests(model),
+                   blocks={n: list(dict(model.named_parameters())[n].shape) for n in out["plan"]})
+
+        # the gathered checkpoint: every rank joins the gather, rank 0 writes
+        ckpt = f"{work}/mp.pth.tar"
+        t0 = time.perf_counter()
+        state = fetch_global_state(model, opt, fetch_local=rank == 0)
+        out["gather_s"] = time.perf_counter() - t0
+        if rank == 0:
+            save_checkpoint(model, opt, ckpt, 0, state=state)
+            saved = torch.load(ckpt, weights_only=True)
+            sd, osd = saved["state_dict"], saved["optimizer"]
+            names = [n for n, p in model.named_parameters() if p.requires_grad]
+            out["file_layout_ok"] = (
+                [(k, tuple(v.shape)) for k, v in sd.items()] == list(whole.items())
+                and len(osd["state"]) == len(names)
+                and all(tuple(osd["state"][i][k].shape) == whole[n]
+                        for i, n in enumerate(names) for k in ("exp_avg", "exp_avg_sq")))
+            out["params"] = {n: sd[n].clone() for n, _ in model.named_parameters()}
+            del saved, sd, osd
+        del state
+        dist.barrier()
+        resumed, r_opt = make(1)  # other weights: the file sets every one
+        load_checkpoint(ckpt, resumed, r_opt)
+        place_state(mesh, resumed, r_opt)
+        # the resumed, placed state is the live one bit for bit: weights,
+        # buffers, and each parameter's Adam state (the step's update is not:
+        # cuDNN's weight gradients do not sum in a fixed order)
+        live_opt = [opt.state[p] for p in model.parameters() if p.requires_grad]
+        resumed_opt = [r_opt.state[p] for p in resumed.parameters() if p.requires_grad]
+        out["resumed_bit_equal"] = state_digests(model) == state_digests(resumed) and all(
+            a.keys() == b.keys() and all(torch.equal(a[k], b[k]) for k in a)
+            for a, b in zip(live_opt, resumed_opt))
+        imgs, pids, _, adjs = batches[0]
+        out["next_live"], out["next_resumed"] = [{k: float(v) for k, v in stepper(m, o)(
+            imgs, pids, adjs, generator=torch.Generator().manual_seed(1)).items()}
+            for m, o in ((model, opt), (resumed, r_opt))]
+        del model, opt, resumed, r_opt, step
+        torch.cuda.empty_cache()
+
+        # the mp eval of phase 4's requests, on phase 4's model placed
+        serve = init_model("vmgn", num_classes=NUM_CLASSES, device=device, seed=0, num_split=4,
+                           pyramid_part=True, num_gb=2, use_pose=True, learn_graph=True)
+        place_state(mesh, serve)
+        blocks = {n: p for n, p in serve.named_parameters()}
+        out["features"], out["k1_launches"], out["k1_w_shapes"] = mp_eval_requests(
+            torch, serve, mesh, device)
+        out["blocks_restored"] = all(p is blocks[n] for n, p in serve.named_parameters())
+        torch.save(out, f"{work}/rank{rank}.pt")
+    finally:
+        dist.destroy_process_group()
+    return 0
+
+
+def phase_mp(torch, batches, plain, plain_ref, serving_outs):
+    """Phase 28: its two ranks (mp_worker) started on the one card,
+    their results held against phase 27's run without a group (losses,
+    step-1 gradients and final parameters: phase 27's bars, and tighter
+    ones on the sharded weights), phase 4's features and each other."""
+    build_dir = REPO / "agrl_torch" / "_build"
+    build_dir.mkdir(parents=True, exist_ok=True)
+    t_phase = time.perf_counter()
+    with tempfile.TemporaryDirectory(dir=build_dir) as work:
+        torch.save(batches, f"{work}/in.pt")
+        port = free_port()
+        logs = [open(f"{work}/rank{r}.log", "w") for r in range(MP)]
+        procs = [subprocess.Popen([sys.executable, str(REPO / "chip_smoke.py"), "--mp-worker",
+                                   str(r), str(port), work], cwd=REPO, stdout=logs[r],
+                                  stderr=subprocess.STDOUT) for r in range(MP)]
+        try:
+            codes = [p.wait(timeout=400) for p in procs]
+        finally:
+            for p in procs:
+                if p.poll() is None:
+                    p.kill()
+                    p.wait()
+            for f in logs:
+                f.close()
+        if any(codes):
+            tails = "\n".join(Path(f"{work}/rank{r}.log").read_text()[-3000:] for r in range(MP))
+            raise AssertionError(f"phase 28's ranks exited {codes}:\n{tails}")
+        ranks = [torch.load(f"{work}/rank{r}.pt", weights_only=False) for r in range(MP)]
+    plain_grads, plain_params = plain_ref
+    r0 = ranks[0]
+    plan = set(r0["plan"])
+    losses = [[h["loss"] for h in r0["history"]], [h["loss"] for h in plain["history"]]]
+    loss_err = [abs(a - b) / abs(b) for a, b in zip(*losses)]
+    # step 1's gradients with each sharded weight's blocks stacked in rank
+    # order (rank r holds rows r * out / MP to (r + 1) * out / MP), over the
+    # gradient's size; the final parameters over the size of their update
+    # (Frobenius both)
+    grads = {**r0["step1_grads"],
+             **{n: torch.cat([r["step1_grads"][n] for r in ranks]) for n in plan}}
+    grad_errs = {n: float((grads[n] - g).norm() / max(float(g.norm()), 1e-30))
+                 for n, g in plain_grads.items()}
+    param_errs = {n: float((r0["params"][n] - p).norm() / max(float((p - p0).norm()), 1e-30))
+                  for n, (p, p0) in plain_params.items()}
+    grad_leaf = max(grad_errs, key=grad_errs.get)
+    param_leaf = max(param_errs, key=param_errs.get)
+    # the sharded weights alone, under bars of their own (MP_SHARD_*): the
+    # all-leaf bar of 2 would pass a block that never updates
+    shard_grad_errs = {n: grad_errs[n] for n in plan}
+    shard_param_errs = {n: param_errs[n] for n in plan}
+    shard_grad_err = max(shard_grad_errs.values(), default=math.inf)
+    shard_param_err = max(shard_param_errs.values(), default=math.inf)
+    replicas_equal = all(
+        (ranks[0]["digests"][k] != ranks[1]["digests"][k]) == (k in plan)
+        for k in ranks[0]["digests"])
+    eval_errs = {r: {n: rel_err(f, serving_outs[n]) for n, f in rank["features"].items()}
+                 for r, rank in enumerate(ranks)}
+    want_k1 = 2 * sum(math.ceil(n / BATCH) for n in serving_outs)
+    out = dict(
+        backend=r0["backend"], mesh=[rank["mesh"] for rank in ranks], plan=r0["plan"],
+        blocks=r0["blocks"], history=r0["history"], step_all_ms=[r["step_all_ms"] for r in ranks],
+        step_ms=[r["step_ms"] for r in ranks], plain_step_ms=plain["step_ms"],
+        peak_mem_gb=[r["peak_mem_gb"] for r in ranks], plain_peak_mem_gb=plain["peak_mem_gb"],
+        k3_launches=[r["k3_launches"] for r in ranks], loss_rel_err=loss_err,
+        step1_grad_fro_rel_err=grad_errs[grad_leaf], step1_grad_worst_leaf=grad_leaf,
+        final_param_update_rel_err=param_errs[param_leaf], final_param_worst_leaf=param_leaf,
+        sharded_step1_grad_fro_rel_err=shard_grad_errs,
+        sharded_final_param_update_rel_err=shard_param_errs,
+        replicas_equal=replicas_equal, ranks_history_equal=ranks[0]["history"] == ranks[1]["history"],
+        gather_s=[r["gather_s"] for r in ranks], file_layout_ok=r0["file_layout_ok"],
+        resumed_equal=[r["resumed_bit_equal"] and r["next_live"] == r["next_resumed"]
+                       for r in ranks],
+        eval_rel_err=eval_errs, k1_launches=[r["k1_launches"] for r in ranks],
+        k1_w_shapes=[r["k1_w_shapes"] for r in ranks],
+        blocks_restored=[r["blocks_restored"] for r in ranks],
+        phase_seconds=time.perf_counter() - t_phase)
+    log(f"[mp] dp 1 x mp {MP} over gloo on the one card ({out['mesh']}): sharded {r0['plan']} "
+        f"as blocks {r0['blocks']}; {PARALLEL_STEPS} steps of phase 9's recipe, step median "
+        f"{out['step_ms']} ms a rank (two ranks share the card) vs {plain['step_ms']:.2f} ms "
+        f"without a group (phase 27); peak {out['peak_mem_gb']} GB vs "
+        f"{plain['peak_mem_gb']:.2f} GB; hard_mine {out['k3_launches']} launches a rank")
+    log(f"[mp] vs phase 27's run without a group: losses {max(loss_err):.3e} (step 1 "
+        f"{loss_err[0]:.3e}, tol 1e-5; all tol 2e-2); step-1 gradients {grad_errs[grad_leaf]:.3e} "
+        f"(worst leaf {grad_leaf}, Frobenius, tol 5e-2); final parameters "
+        f"{param_errs[param_leaf]:.3e} of the update (worst leaf {param_leaf}, Frobenius, tol 2); "
+        f"replicated tensors bit-equal across the mp group and blocks apart: {replicas_equal}")
+    log(f"[mp] the sharded weights: step-1 gradients {shard_grad_errs} (tol "
+        f"{MP_SHARD_GRAD_TOL:g}); final parameters {shard_param_errs} of the update (tol "
+        f"{MP_SHARD_UPDATE_TOL:g})")
+    log(f"[mp] gathered checkpoint: gather {out['gather_s']} s, the file's layout a run "
+        f"without mp's: {out['file_layout_ok']}; resumed and placed, the state (weights, "
+        f"buffers, Adam's) and the next step's losses bit-equal to the live model's: "
+        f"{out['resumed_equal']}")
+    log(f"[mp] mp eval of phase 4's requests: features vs phase 4's max|diff|/max "
+        f"{ {r: max(e.values()) for r, e in eval_errs.items()} } (tol 1e-5); K1 "
+        f"{out['k1_launches']} launches a rank (want {want_k1}) on W of shape "
+        f"{out['k1_w_shapes']}; blocks restored {out['blocks_restored']}; "
+        f"{out['phase_seconds']:.1f} s")
+    finite = all(math.isfinite(v) for r in ranks for h in r["history"] for v in h.values())
+    whole_w = [[FEATURE_DIM, FEATURE_DIM]]
+    if not (finite and out["backend"] == "gloo"
+            and out["mesh"] == [[1, MP, 0, r] for r in range(MP)]
+            and set(r0["plan"]) == {"graph_layers.0.linear.weight", "graph_layers.1.linear.weight"}
+            and out["k3_launches"] == [[PARALLEL_STEPS] * 2] * MP
+            and loss_err[0] <= 1e-5 and max(loss_err) <= 2e-2
+            and grad_errs[grad_leaf] <= 5e-2 and param_errs[param_leaf] <= 2.0
+            and shard_grad_err <= MP_SHARD_GRAD_TOL and shard_param_err <= MP_SHARD_UPDATE_TOL
+            and replicas_equal and out["ranks_history_equal"]
+            and out["file_layout_ok"] and all(out["resumed_equal"])
+            and all(max(e.values()) <= 1e-5 for e in eval_errs.values())
+            and out["k1_launches"] == [want_k1] * MP
+            and [[list(s) for s in w] for w in out["k1_w_shapes"]] == [whole_w] * MP
+            and all(out["blocks_restored"])):
+        raise AssertionError(f"the dp 1 x mp {MP} group: {out}")
     return out
 
 
@@ -4218,7 +4545,8 @@ def main() -> int:
     # 25, kernels: K3 at msppn's and msppgn's shapes (beside phase 8)
     t0 = time.perf_counter()
     graphnet_kernels = dict(k3_shapes=phase_k3_arch_shapes(
-        torch, tri, losses_mod, device, flush, GRAPHNET_K3_SHAPES, "graphnets"))
+        torch, tri, losses_mod, device, flush, GRAPHNET_K3_SHAPES, "graphnets",
+        GRAPHNET_K3_REPS))
     graphnet_kernels["kernels_seconds"] = time.perf_counter() - t0
     # 26, kernels: K3 at the legacy archs' one head (beside phase 8)
     t0 = time.perf_counter()
@@ -4339,8 +4667,13 @@ def main() -> int:
     legacy.update(legacy_kernels)
     # 27. data parallelism on the one card: the world-1 NCCL step against the
     # step without a group, the CLI with and without --dist-*, mesh serving
-    parallel = phase_parallel(torch, tri, gc, device, parallel_batches, serving_outs)
-    del parallel_batches, serving_outs
+    parallel, plain_ref = phase_parallel(torch, tri, gc, device, parallel_batches,
+                                         serving_outs)
+    # 28. tensor parallelism on the one card: a dp 1 x mp 2 gloo group of two
+    # processes, held against phase 27's run without a group and phase 4
+    mp = phase_mp(torch, parallel_batches, parallel["train"]["plain"], plain_ref,
+                  serving_outs)
+    del parallel_batches, serving_outs, plain_ref
 
     print(json.dumps({"serving": serving}))
     print(json.dumps({"training": training}))
@@ -4355,6 +4688,7 @@ def main() -> int:
     print(json.dumps({"graphnets": graphnets}))
     print(json.dumps({"legacy": legacy}))
     print(json.dumps({"parallel": parallel}))
+    print(json.dumps({"mp": mp}))
     kernel = {
         "name": "graph_propagate",
         "route": "cuda",
@@ -4591,6 +4925,8 @@ def main() -> int:
 if __name__ == "__main__":
     if sys.argv[1:2] == ["--term-only"] and len(sys.argv) == 3:
         sys.exit(main_term_only(Path(sys.argv[2]).resolve()))
+    if sys.argv[1:2] == ["--mp-worker"] and len(sys.argv) == 5:
+        sys.exit(mp_worker(int(sys.argv[2]), int(sys.argv[3]), sys.argv[4]))
     if len(sys.argv) > 1:
         print("usage: chip_smoke.py [--term-only ROOT]", file=sys.stderr)
         sys.exit(2)

@@ -55,12 +55,15 @@ REFUSALS = {
     "arch": (["-a", "res50tp_legacy", "--mesh-dp", "2"], "--mesh-dp", "2", "ROADMAP A8a"),
     "arch_res50ta": (["-a", "res50ta", "--dist-num-processes", "2"], "--dist-num-processes",
                      "2", "together"),
-    "arch_legacy": (["-a", "res50rnn", "--mesh-mp", "2"], "--mesh-mp", "2", "ROADMAP A8b"),
+    # --mesh-mp shards over the processes of one dp index: a world that mp
+    # does not divide is refused, naming both
+    "arch_legacy": (["-a", "res50rnn", "--mesh-mp", "2"], "--mesh-mp", "2", "1 process(es)"),
     "arch_3d": (["-a", "resnet3d50", "--dist-process-id", "1"], "--dist-process-id", "1",
                 "together"),
     # one process per card: --mesh-dp is the process count (1 here)
     "mesh_dp": (["--mesh-dp", "2"], "--mesh-dp", "2", "1 process(es)"),
-    "mesh_mp": (["--mesh-mp", "2"], "--mesh-mp", "2", "ROADMAP A8b"),
+    "mesh_mp": (["--mesh-mp", "2", "--dist-coordinator", "127.0.0.1:1", "--dist-num-processes",
+                 "3", "--dist-process-id", "0"], "--mesh-mp", "2", "3 process(es)"),
     # a multi-process run takes the three --dist-* flags together
     "dist_coordinator": (["--dist-coordinator", "localhost:1234"], "--dist-coordinator",
                          "localhost:1234", "missing --dist-num-processes, --dist-process-id"),

@@ -960,3 +960,111 @@ def test_world_one_nccl_step_equals_the_step_without_a_group(cuda):
         update = (p - init[name]).norm()
         if update > 0:
             assert float((grouped[2][name] - p).norm() / update) <= 2e-2, name
+
+
+# one rank of the dp 1 x mp 2 group below: gloo on the one card (NCCL refuses
+# two ranks on one card), the port's mesh over it with the card as its device
+_MP_RANK = r"""
+import dataclasses, sys
+import numpy as np, torch, torch.distributed as dist
+from agrl_torch.engine.evaluator import Evaluator
+from agrl_torch.engine.trainer import make_train_step
+from agrl_torch.models.vmgn import VMGN
+from agrl_torch.ops import graph_conv, triplet
+from agrl_torch.optim import init_optim
+from agrl_torch.parallel import gather_state, make_mesh, place_state
+
+rank, port, work = int(sys.argv[1]), sys.argv[2], sys.argv[3]
+torch.backends.cuda.matmul.allow_tf32 = False
+torch.backends.cudnn.allow_tf32 = False
+cuda = torch.device("cuda", 0)
+torch.cuda.set_device(cuda)
+dist.init_process_group("gloo", init_method=f"tcp://127.0.0.1:{port}", world_size=2, rank=rank)
+mesh = dataclasses.replace(make_mesh(mp=2), devices=(cuda,))
+inp = torch.load(work + "/in.pt", weights_only=False)
+model = VMGN(num_classes=4, layers=(1, 1, 1, 1), consistent_loss=True).to(cuda)
+model.load_state_dict(inp["state"])
+opt = init_optim("sgd", model.parameters(), 1e-3, weight_decay=5e-4)
+plan = place_state(mesh, model, opt, min_size=1024)
+ev = Evaluator(model, test_sample="evenly", device=cuda)
+k1 = graph_conv.launches
+batch = (inp["imgs"][:4], np.zeros(4), np.zeros(4), inp["adjs"][:4])
+feats = ev.extract([batch], "query", mesh=mesh)[0].cpu()
+k1 = graph_conv.launches - k1
+step = make_train_step(model, opt, lambda s: 1e-3, aug={"flip_aug": True}, mesh=mesh)
+gen = torch.Generator().manual_seed(1)
+before = (triplet.launches, triplet.backward_launches)
+losses = [float(step(inp["imgs"], inp["pids"], inp["adjs"], generator=gen)["loss"])
+          for _ in range(2)]
+k3 = (triplet.launches - before[0], triplet.backward_launches - before[1])
+state, _ = gather_state(model)
+torch.save(dict(plan=plan, feats=feats, k1=k1, losses=losses, k3=k3,
+                state={k: v.cpu() for k, v in state.items()}), f"{work}/rank{rank}.pt")
+dist.destroy_process_group()
+"""
+
+
+def test_dp_one_mp_two_over_gloo_on_the_card(cuda, tmp_path):
+    """Two processes on the one card in a gloo group (its CUDA collectives
+    staged through the host) under the port's dp 1 x mp 2 mesh, VMGN
+    (1,1,1,1) at 128x64, S=8, 16 clips, min_size 1024 (both graph linears
+    and both 4-class classifiers shard): the mp Evaluator's features of a
+    4-clip batch equal the one-process Evaluator's within 1e-6 of max with
+    K1 2 launches a rank (the whole W); two SGD steps at lr 1e-3 against
+    the same steps without a group: losses within rtol 1e-5, each
+    parameter (the blocks gathered) within 2e-2 of its update, one K3
+    launch each way a step on each rank."""
+    import os
+    import socket
+    import subprocess
+    import sys
+
+    from agrl_torch.engine.evaluator import Evaluator
+    from agrl_torch.engine.trainer import make_train_step
+    from agrl_torch.models.vmgn import VMGN
+    from agrl_torch.optim import init_optim
+
+    model = VMGN(num_classes=4, layers=(1, 1, 1, 1), consistent_loss=True)
+    model.init_weights(torch.Generator().manual_seed(0))
+    init = {k: v.clone() for k, v in model.state_dict().items()}
+    rng = np.random.RandomState(0)
+    imgs = rng.randint(0, 256, (16, 8, 128, 64, 3)).astype(np.uint8)
+    adjs = (rng.rand(16, 56, 56) > 0.5).astype(np.float32)
+    pids = np.repeat(np.arange(4), 4)
+    torch.save(dict(state=init, imgs=imgs, adjs=adjs, pids=pids), tmp_path / "in.pt")
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        port = s.getsockname()[1]
+    repo = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    env = dict(os.environ, PYTHONPATH=repo)
+    procs = [subprocess.Popen([sys.executable, "-c", _MP_RANK, str(r), str(port), str(tmp_path)],
+                              env=env, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                              text=True) for r in range(2)]
+    try:
+        outs = [p.communicate(timeout=300)[0] for p in procs]
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    assert [p.returncode for p in procs] == [0, 0], [o[-2000:] for o in outs]
+    ranks = [torch.load(tmp_path / f"rank{r}.pt", weights_only=False) for r in range(2)]
+
+    model = model.to(cuda)
+    batch = (imgs[:4], np.zeros(4), np.zeros(4), adjs[:4])
+    want_feats = Evaluator(model, test_sample="evenly", device=cuda).extract([batch])[0].cpu()
+    opt = init_optim("sgd", model.parameters(), 1e-3, weight_decay=5e-4)
+    step = make_train_step(model, opt, lambda s: 1e-3, aug={"flip_aug": True})
+    gen = torch.Generator().manual_seed(1)
+    losses = [float(step(imgs, pids, adjs, generator=gen)["loss"]) for _ in range(2)]
+    for r in ranks:
+        assert set(r["plan"]) == {"graph_layers.0.linear.weight", "graph_layers.1.linear.weight",
+                                  "global_classifier.weight", "att_classifier.weight"}
+        assert float((r["feats"] - want_feats).abs().max()) <= 1e-6 * float(want_feats.abs().max())
+        assert r["k1"] == 2 and r["k3"] == (2, 2)
+        np.testing.assert_allclose(r["losses"], losses, rtol=1e-5)
+    for name, p in model.named_parameters():
+        p = p.detach().cpu()
+        update = (p - init[name]).norm()
+        if update > 0:
+            assert float((ranks[0]["state"][name] - p).norm() / update) <= 2e-2, name

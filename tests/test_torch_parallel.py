@@ -256,16 +256,32 @@ def test_process_shard_refuses_an_indivisible_batch():
 # --- the mesh itself ---------------------------------------------------------
 
 def test_make_mesh_forms_and_refusals():
-    """Without a group: the local-devices form over given devices; mp > 1
-    names ROADMAP A8b; shard_batch takes the rank's contiguous slice."""
+    """Without a group: the local-devices form over given devices, which is
+    data-parallel serving (agrl_tpu's FeatureExtractor replicates over mp):
+    mp > 1 there raises; in a process group of one process, mp = 2 does
+    not divide the world and raises naming both; shard_batch takes the
+    rank's contiguous dp slice."""
+    import torch.distributed as dist
+
+    from tests.torch_parallel_worker import free_port
+
     mesh = make_mesh(devices=["cpu", "cpu"])
     assert (mesh.dp, mesh.rank, mesh.distributed) == (2, 0, False)
     assert make_mesh(dp=1, devices=["cpu", "cpu"]).dp == 1
-    with pytest.raises(NotImplementedError, match="ROADMAP A8b"):
+    with pytest.raises(ValueError, match="local-devices form is data-parallel"):
         make_mesh(mp=2, devices=["cpu", "cpu"])
     with pytest.raises(ValueError, match="needs that many devices"):
         make_mesh(dp=3, devices=["cpu", "cpu"])
-    rank1 = Mesh(dp=2, rank=1, devices=(torch.device("cpu"),), group=object())
+    dist.init_process_group("gloo", init_method=f"tcp://127.0.0.1:{free_port()}", world_size=1,
+                            rank=0)
+    try:
+        with pytest.raises(ValueError, match="mp=2 does not divide the world of 1"):
+            make_mesh(mp=2)
+        one = make_mesh(mp=1)
+        assert (one.dp, one.mp, one.rank, one.world, one.distributed) == (1, 1, 0, 1, True)
+    finally:
+        dist.destroy_process_group()
+    rank1 = Mesh(dp=2, dp_index=1, devices=(torch.device("cpu"),), dp_group=object())
     a, b = shard_batch(rank1, np.arange(6), np.arange(12).reshape(6, 2))
     np.testing.assert_array_equal(a, [3, 4, 5])
     np.testing.assert_array_equal(b, [[6, 7], [8, 9], [10, 11]])
@@ -313,7 +329,7 @@ def test_mesh_serving_matches_one_device(tmp_path):
         np.testing.assert_array_equal(two(imgs), one(imgs))
     with pytest.raises(ValueError, match="divide over"):
         FeatureExtractor(model, batch_size=3, seq_len=4, mesh=mesh)
-    grouped = Mesh(dp=2, rank=0, devices=(torch.device("cpu"),), group=object())
+    grouped = Mesh(dp=2, dp_index=0, devices=(torch.device("cpu"),), dp_group=object())
     with pytest.raises(ValueError, match="local-devices form"):
         FeatureExtractor(model, batch_size=4, seq_len=4, mesh=grouped)
     exp = export_eval_forward(model, model.state_dict(), 4, 4, 32, 16, device="cpu")
@@ -325,7 +341,8 @@ def test_mesh_serving_matches_one_device(tmp_path):
 
 PREFLIGHT = {
     # extra argv -> what the refusal names
-    "mesh_mp": (["--mesh-mp", "2"], ("--mesh-mp", "ROADMAP A8b")),
+    "mesh_mp": (["--mesh-mp", "2", "--dist-coordinator", "127.0.0.1:1", "--dist-num-processes",
+                 "3", "--dist-process-id", "0"], ("--mesh-mp 2", "mp=2", "3 process(es)")),
     "mesh_dp_not_world": (["--mesh-dp", "3", "--dist-coordinator", "127.0.0.1:1",
                            "--dist-num-processes", "2", "--dist-process-id", "0"],
                           ("--mesh-dp 3", "2 process(es)")),
