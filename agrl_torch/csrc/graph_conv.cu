@@ -56,26 +56,47 @@
 //
 // V > 128 (long clips, up to 8288 vertices for a 1184-frame bucket): a
 // block cannot hold a clip's rows of G, and a k-split Gram scratch would
-// take B * 32 * V^2 floats, so four launches with G and h in scratch:
-//   gram_tile       grid (ceil(V / 64), ceil(V / 64), B): one 64 x 64 tile
-//                   of the Gram over all C channels (no k-split), fp32 on
-//                   the FMA pipe; diagonal tiles also write the diagonal
-//                   (B, V), the same fp32 values, so d2_ii is exactly 0.
+// take B * 32 * V^2 floats, so four launches with G and h in scratch. All
+// three products run in 3xTF32 on the tensor cores: f @ W in
+// graph_propagate's K loop, the Gram and G @ h in tile_product_3xtf32, the
+// same loop (a 128 x 128 tile, both operands K-major rows brought by TMA,
+// split and promoted per K chunk).
+// The scratch matrices G (B, V, ld) and h^T (B, C, ld) have rows of
+// ld = V rounded up to a multiple of 4 floats (TMA takes 16-byte strides
+// only; V = 129 is the smallest long clip); their tensor maps are V wide,
+// so columns V..ld-1 are never read or written, and a K chunk past V (or a
+// row past V) loads as TMA's zero fill in both operands.
+//   gram_upper      grid (nt (nt + 1) / 2, B), nt = ceil(V / 128): block
+//                   (t, b) takes the t-th tile (ti, tj), tj >= ti, of the
+//                   upper half of f_b f_b^T, f tiles as both operands;
+//                   the tile is staged in shared memory and written to
+//                   (i, j) and, mirrored, to (j, i). A diagonal tile
+//                   writes its upper triangle to both halves and its
+//                   diagonal to diag (B, V). So G2_ij == G2_ji bit for bit,
+//                   and d2_ii = G2_ii + G2_ii - 2 G2_ii is exactly 0.
 //   graph_blend_long grid (V, B): one block per row, masked row sums over
 //                   the full row in a fixed order (no atomics), then G
-//                   written over the row's Gram entries in place.
-//   graph_propagate the short schedule's tensor-core mainloop over the
-//                   flattened (B * V, C) rows, 128 rows a block (clip
-//                   boundaries fall inside a block; the product does not
-//                   care), stored into an h scratch (B, V, C).
-//   graph_apply_long grid (C / 128, ceil(V / 128), B): a (128 x 128) tile of
-//                   G_b @ h_b with K running over V, fp32 FMA, each 32-deep
-//                   chunk summed apart and added into the total; BN,
-//                   LeakyReLU and the residual on the tile.
-// At V = 8288, C = 2048 the Gram and G @ h are 281 GFLOP each against 69.5
-// for f @ W: on the FP32 pipe they take ~8.4 ms per layer, where the three
-// products in 3xTF32, with only the Gram's upper half (it is symmetric),
-// would take ~3.0; tensor cores for them are later work.
+//                   written over the row's Gram entries in place; rows of
+//                   up to 12288 vertices are read once (their entries held
+//                   in shared memory between the two passes).
+//   graph_propagate the short schedule's kernel over the flattened
+//                   (B * V, C) rows, 128 rows a block (clip boundaries
+//                   fall inside a block; the product does not care); the
+//                   tile is staged in shared memory and stored transposed
+//                   into h^T, the K-major B operand of G @ h.
+//   graph_apply_long grid (C / 128, ceil(V / 128), B): a 128 x 128 tile of
+//                   G_b @ h_b, G rows as A and h^T rows as B, K running
+//                   over V; BN, LeakyReLU and the residual on the
+//                   accumulators.
+// G and h^T are stored once as fp32 and split into hi/lo planes per chunk
+// in shared memory, as f and W^T are: one mainloop serves the three
+// products, and planes stored pre-split would double the scratch, the
+// blend's and the f @ W epilogue's stores, and the bytes TMA brings.
+// At V = 8288, C = 2048 the Gram's upper half is 141 GFLOP, G @ h 281 and
+// f @ W 69.5: three tf32 products each at 495 TFLOP/s bound the call at
+// 2.98 ms (operations; the bytes it must move, f, adj and out, ~0.48 GB,
+// take 0.14 ms at 3.35 TB/s). The earlier design ran the whole Gram and
+// G @ h on the FP32 pipe in register tiles: 31.4 ms a call on an H100.
 //
 // Bound on an H100 SXM (B=16, V=56, C=2048, one call): f@W is
 // 2*896*2048^2 = 7.52 GFLOP, the Gram and G@h add 0.21 GFLOP each; the
@@ -89,7 +110,7 @@
 // output's scale at the serving shape), far outside the kernel's fp32
 // bars. Three tf32 passes at 495 TFLOP/s over f@W, the Gram's upper half
 // and G@h bound the call at ~0.047 ms (~0.052 with the Gram and G@h on the
-// FMA pipe, where this design runs them).
+// FMA pipe, where the short schedule runs them).
 //
 // graph_propagate's design:
 //   * a block holds BM = 128 rows: two clips of up to 64 vertices (V=56
@@ -113,8 +134,9 @@
 //     the split's reads and writes conflict-free;
 //   * the epilogue: the h tile and each clip's G_b in shared memory, G @ h
 //     in fp32 FMA, BN, LeakyReLU, residual.
-// The Gram stays fp32 on the FMA pipe (3% of the work): its cancellation
-// near zero distance is where the affinity is sharpest.
+// The short schedule's Gram stays fp32 on the FMA pipe (3% of the work):
+// its cancellation near zero distance is where the affinity is sharpest
+// (the long schedule's keeps fp32 accuracy in 3xTF32).
 //
 // What it moves (PERF.md has its times on an H100): 251 MB of operands
 // from L2 per call at B=16 (f once per column tile, W once per clip
@@ -401,25 +423,149 @@ __device__ __forceinline__ unsigned long long plane_desc(const float* p) {
          ((unsigned long long)(1024 >> 4) << 32) | (1ull << 62);
 }
 
+// The tile product's shared memory: two buffers of the four planes (A hi,
+// A lo, B hi, B lo), then the raw ring: STAGES chunks of BM A rows and BN
+// B rows, then one mbarrier per stage. After the K loop it holds the
+// epilogue's tiles.
+constexpr int PLANES = 2 * 4 * PLANE;
+constexpr int RAW = (BM + BN) * KC;
+constexpr int PIPE = PLANES + STAGES * RAW;
+constexpr size_t PIPE_BYTES = sizeof(float) * PIPE + 8 * STAGES + 1024;  // + alignment slack
+constexpr int TS = BN + 1;  // row stride of a staged output tile: transposed reads hit distinct banks
+static_assert(BM * TS <= PIPE, "a staged output tile fits in the ring");
+
+// The dynamic shared memory, aligned to a 1024-byte swizzle atom.
+__device__ __forceinline__ float* aligned_smem(unsigned char* p) {
+  return reinterpret_cast<float*>((reinterpret_cast<size_t>(p) + 1023) & ~(size_t)1023);
+}
+
+// tot = this warpgroup's 64 rows (64 wg ..) x BN columns of the BM x BN
+// tile A B^T, in 3xTF32 on the tensor cores, over nk K chunks of KC. Both
+// operands are K-major rows: load_chunk(rs, bar, kt) issues, from one
+// thread, chunk kt's TMA loads into the raw stage rs (BM A rows, then BN
+// B rows at rs + BM * KC, 128-byte swizzled) completing on bar, with the
+// stage's byte count. A stage's rows that no load covers must be set by
+// the caller before the call. All threads of the block call this.
+// graph_propagate_kernel keeps its own copy of this loop: built through
+// this function, ptxas serialized its wgmma (its warning C7515) and the
+// short schedule ran ~11% slower on an H100; the long kernels time the
+// same either way.
+template <class LoadChunk>
+__device__ __forceinline__ void tile_product_3xtf32(float* smem, int nk, LoadChunk load_chunk,
+                                                    float (&tot)[64]) {
+  float* raw = smem + PLANES;
+  unsigned long long* full = reinterpret_cast<unsigned long long*>(smem + PIPE);
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < STAGES; ++s) mbar_init(full + s);
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+  // raw chunk -> hi/lo planes of buffer buf: x = hi + lo, hi = tf32(x),
+  // lo = tf32(x - hi) (x - hi is exact); consecutive threads take
+  // consecutive rows, so the reads (swizzled) and the writes are
+  // conflict-free
+  auto split_chunk = [&](int stage, int buf) {
+    const float* rs = raw + stage * RAW;
+    float* pl = smem + buf * 4 * PLANE;
+#pragma unroll
+    for (int i = 0; i < 2 * BM * (KC / 4) / kThreads; ++i) {
+      const int idx = i * kThreads + threadIdx.x;
+      const int op = idx / (BM * (KC / 4));  // 0: A, 1: B
+      const int r = idx % BM, q = idx / BM % (KC / 4);
+      const float4 x = *reinterpret_cast<const float4*>(rs + slot(op * BM + r, q));
+      float4 hi, lo;
+      hi.x = round_tf32(x.x); lo.x = round_tf32(x.x - hi.x);
+      hi.y = round_tf32(x.y); lo.y = round_tf32(x.y - hi.y);
+      hi.z = round_tf32(x.z); lo.z = round_tf32(x.z - hi.z);
+      hi.w = round_tf32(x.w); lo.w = round_tf32(x.w - hi.w);
+      float* dst = pl + op * 2 * PLANE + slot(r, q);
+      *reinterpret_cast<float4*>(dst) = hi;
+      *reinterpret_cast<float4*>(dst + PLANE) = lo;
+    }
+  };
+  auto load = [&](int stage, int kt) { load_chunk(raw + stage * RAW, full + stage, kt); };
+
+  if (threadIdx.x == 0)
+    for (int s = 0; s < STAGES - 1 && s < nk; ++s) load(s, s);
+
+  // warpgroup wg computes tile rows 64 wg .. 64 wg + 63 x all BN columns.
+  // The tensor cores add into acc with truncation, so a chain of 3 K / 8
+  // wgmma on one accumulator drifts (at K = 2048, 3e-6 of max|output|
+  // from float64, ~20x an fp32 product's error); acc holds one chunk's 12
+  // products (the chunk's first wgmma does not add acc) and is promoted
+  // into tot, in fp32 adds that round to nearest.
+  const int wg = threadIdx.x / 128;
+  float acc[64];
+#pragma unroll
+  for (int e = 0; e < 64; ++e) acc[e] = tot[e] = 0.f;
+
+  for (int kt = 0; kt < nk; ++kt) {
+    // every thread has split chunk kt-1 (its stage is free) and every
+    // warpgroup has waited for chunk kt-2's products (plane buffer kt % 2
+    // is free)
+    __syncthreads();
+    if (threadIdx.x == 0 && kt + STAGES - 1 < nk) load((kt + STAGES - 1) % STAGES, kt + STAGES - 1);
+    mbar_wait(full + kt % STAGES, (kt / STAGES) & 1);  // chunk kt has landed
+    split_chunk(kt % STAGES, kt % 2);  // overlaps chunk kt-1's products
+    fence_proxy_async();
+    __syncthreads();
+
+    const float* pl = smem + (kt % 2) * 4 * PLANE;
+    const float* f_hi = pl + wg * 64 * KC;  // A rows 64 wg ..
+    const float* w_hi = pl + 2 * PLANE;     // B rows
+    wgmma_wait<0>();  // chunk kt-1's products are done: promote them
+#pragma unroll
+    for (int e = 0; e < 64; ++e) {
+      pin(acc[e]);
+      tot[e] += acc[e];
+      pin(acc[e]);
+    }
+    wgmma_fence();
+#pragma unroll
+    for (int k8 = 0; k8 < KC / 8; ++k8) {
+      const int at = k8 * 8;  // slots 2 k8, 2 k8 + 1 of every row
+      const unsigned long long fh = plane_desc(f_hi + at);
+      const unsigned long long fl = plane_desc(f_hi + PLANE + at);
+      const unsigned long long wh = plane_desc(w_hi + at);
+      const unsigned long long wl = plane_desc(w_hi + PLANE + at);
+      wgmma_m64n128k8_tf32(acc, fl, wh, k8 > 0);  // small terms first; the chunk starts at 0
+      wgmma_m64n128k8_tf32(acc, fh, wl, 1);
+      wgmma_m64n128k8_tf32(acc, fh, wh, 1);
+    }
+    wgmma_commit();
+  }
+  wgmma_wait<0>();
+#pragma unroll
+  for (int e = 0; e < 64; ++e) {
+    pin(acc[e]);
+    tot[e] += acc[e];
+  }
+}
+
+// Where a thread's accumulator e of tile_product_3xtf32 lies in the tile:
+// row 64 wg + 16 warp + lane / 4 (+ 8 for e % 4 >= 2), column 8 (e / 4) +
+// 2 (lane % 4) (+ 1 for odd e).
+__device__ __forceinline__ int acc_row(int e) {
+  return threadIdx.x / 128 * 64 + threadIdx.x / 32 % 4 * 16 + threadIdx.x % 32 / 4 + (e & 2) * 4;
+}
+__device__ __forceinline__ int acc_col(int e) { return e / 4 * 8 + threadIdx.x % 4 * 2 + (e & 1); }
+
 template <int VP>
 struct PropagateSmem {
   static constexpr int CLIPS = BM / VP;  // clips per block
   static constexpr int GS = VP + 1;
-  // K loop: two buffers of the four planes (f hi, f lo, W^T hi, W^T lo),
-  // then the raw ring: STAGES chunks of BM f rows and BN W^T rows, then
-  // one mbarrier per stage
-  static constexpr int PLANES = 2 * 4 * PLANE;
-  static constexpr int RAW = (BM + BN) * KC;
-  static constexpr int PIPE = PLANES + STAGES * RAW;
   static constexpr int TILES = BM * HS + BM * GS;  // h tile + each clip's G_b, after the K loop
   static constexpr size_t BYTES =
       sizeof(float) * (PIPE > TILES ? PIPE : TILES) + 8 * STAGES + 1024;  // + alignment slack
 };
 
-// STORE_H: the long schedule's h = f @ W alone. f is then one (1, V, C)
+// The long schedule's leading dimension of G and h^T rows: V rounded up to
+// 16 bytes, the stride TMA takes.
+__host__ __device__ constexpr int long_ld(int V) { return (V + 3) / 4 * 4; }
+
+// STORE_H: the long schedule's h = f @ W alone. f is then one (1, B V, C)
 // matrix of the flattened rows, block y takes rows 128 y .. 128 y + 127,
-// and the tile is stored into out (the h scratch) as it comes from the
-// accumulators.
+// and the tile is stored transposed into out, h^T (B, C, long_ld(V)).
 template <int VP, bool STORE_H, bool ADDITIVE>
 __global__ void __launch_bounds__(kThreads, 1)
 graph_propagate_kernel(const __grid_constant__ CUtensorMap f_map,
@@ -434,8 +580,8 @@ graph_propagate_kernel(const __grid_constant__ CUtensorMap f_map,
   extern __shared__ unsigned char prop_raw_smem[];
   float* const prop_smem = reinterpret_cast<float*>(
       (reinterpret_cast<size_t>(prop_raw_smem) + 1023) & ~(size_t)1023);
-  float* raw = prop_smem + L::PLANES;
-  unsigned long long* full = reinterpret_cast<unsigned long long*>(prop_smem + L::PIPE);
+  float* raw = prop_smem + PLANES;
+  unsigned long long* full = reinterpret_cast<unsigned long long*>(prop_smem + PIPE);
 
   const int col0 = blockIdx.x * BN;
   const int v0 = STORE_H ? blockIdx.y * BM : 0;            // first row of the block
@@ -448,7 +594,7 @@ graph_propagate_kernel(const __grid_constant__ CUtensorMap f_map,
   // them); rows V..VP-1 of a clip are the TMA box's zero fill
   for (int idx = threadIdx.x; idx < STAGES * BM * KC; idx += kThreads) {
     const int s = idx / (BM * KC), r = idx % (BM * KC) / KC;
-    if (r / VP >= clips) raw[s * L::RAW + idx % (BM * KC)] = 0.f;
+    if (r / VP >= clips) raw[s * RAW + idx % (BM * KC)] = 0.f;
   }
   if (threadIdx.x == 0) {
     for (int s = 0; s < STAGES; ++s) mbar_init(full + s);
@@ -458,7 +604,7 @@ graph_propagate_kernel(const __grid_constant__ CUtensorMap f_map,
   // one thread loads chunk kt into a stage: each clip's (VP x KC) box of
   // the (B, V, C) f map and the (BN x KC) box of the W^T map
   auto load_chunk = [&](int stage, int kt) {
-    float* rs = raw + stage * L::RAW;
+    float* rs = raw + stage * RAW;
     mbar_expect_tx(full + stage, (unsigned)(sizeof(float) * (clips * VP + BN) * KC));
     for (int p = 0; p < clips; ++p)
       tma_load_3d(rs + p * VP * KC, &f_map, kt * KC, v0, b0 + p, full + stage);
@@ -469,7 +615,7 @@ graph_propagate_kernel(const __grid_constant__ CUtensorMap f_map,
   // consecutive rows, so the reads (swizzled) and the writes are
   // conflict-free
   auto split_chunk = [&](int stage, int buf) {
-    const float* rs = raw + stage * L::RAW;
+    const float* rs = raw + stage * RAW;
     float* pl = prop_smem + buf * 4 * PLANE;
 #pragma unroll
     for (int i = 0; i < 2 * BM * (KC / 4) / kThreads; ++i) {
@@ -547,16 +693,19 @@ graph_propagate_kernel(const __grid_constant__ CUtensorMap f_map,
     tot[e] += acc[e];
   }
   if constexpr (STORE_H) {
-    const int warp = threadIdx.x / 32 % 4, lane = threadIdx.x % 32;
-    const int r = v0 + wg * 64 + warp * 16 + lane / 4, c = col0 + 2 * (lane % 4);
+    __syncthreads();  // the ring is free
+    // the tile transposed, ts[c][r] = h[v0 + r, col0 + c], then stored
+    // with consecutive threads on consecutive rows (vertices) of h^T
+    float* ts = prop_smem;
 #pragma unroll
-    for (int i = 0; i < BN / 8; ++i) {
-      if (r < V)
-        *reinterpret_cast<float2*>(out + (size_t)r * C + c + 8 * i) =
-            make_float2(tot[4 * i], tot[4 * i + 1]);
-      if (r + 8 < V)
-        *reinterpret_cast<float2*>(out + (size_t)(r + 8) * C + c + 8 * i) =
-            make_float2(tot[4 * i + 2], tot[4 * i + 3]);
+    for (int e = 0; e < 64; ++e) ts[acc_col(e) * TS + acc_row(e)] = tot[e];
+    __syncthreads();
+    const int rows = B * V, ld = long_ld(V);
+    for (int idx = threadIdx.x; idx < BM * BN; idx += kThreads) {
+      const int c = idx / BM, r = idx % BM, row = v0 + r;
+      if (row >= rows) continue;
+      const int b = row / V, v = row - b * V;
+      out[((size_t)b * C + col0 + c) * ld + v] = ts[c * TS + r];
     }
     return;
   }
@@ -627,70 +776,48 @@ graph_propagate_kernel(const __grid_constant__ CUtensorMap f_map,
 
 // ---- long clips (V > 128) -------------------------------------------------
 
-constexpr int GT = 64;        // Gram tile: 64 x 64 entries, 4 x 4 a thread
-constexpr int GTS = GT + 1;   // odd stride: the transposed stores hit distinct banks
-constexpr int AT = 128;       // G @ h tile: 128 rows x 128 columns, 8 x 8 a thread
-constexpr int ATS = AT + 1;
+// Upper tile t of clip b's Gram f_b f_b^T (blockIdx = (t, b)): tiles
+// (ti, tj) with tj >= ti of nt = ceil(V / 128) per side, numbered row by
+// row. f tiles of the (B, V, C) map are both operands; rows past V load as
+// zeros. The tile is staged in shared memory and written to gram (B, V,
+// ld) at (i, j) and, off the diagonal, mirrored at (j, i). A diagonal
+// tile writes the entry of its upper triangle to both (r, c) and (c, r),
+// and its diagonal to diag (B, V) from the same values, so the Gram is
+// symmetric bit for bit and d2_ii is exactly 0.
+__global__ void __launch_bounds__(kThreads, 1)
+gram_upper_kernel(const __grid_constant__ CUtensorMap f_map, float* __restrict__ gram,
+                  float* __restrict__ diag, int V, int C) {
+  extern __shared__ unsigned char gram_raw_smem[];
+  float* const smem = aligned_smem(gram_raw_smem);
+  const int nt = (V + BM - 1) / BM, b = blockIdx.y, ld = long_ld(V);
+  int ti = 0, t = blockIdx.x;
+  while (t >= nt - ti) t -= nt - ti++;  // row ti holds tiles ti .. nt - 1
+  const int tj = ti + t, i0 = ti * BM, j0 = tj * BN;
 
-// Gram tile (i0.., j0..) of clip b over all C channels, in 32-deep chunks
-// whose sums are added into the total (a chain of C fmaf on one register
-// would drift further from the plain product). Symmetric entries see the
-// same products in the same order, so G2_ij == G2_ji and, on the diagonal,
-// the values written to diag are the Gram's own.
-__global__ void __launch_bounds__(kThreads)
-gram_tile_kernel(const float* __restrict__ f, float* __restrict__ gram,
-                 float* __restrict__ diag, int V, int C) {
-  __shared__ float fa[KC * GTS], fb[KC * GTS];
-  const int i0 = blockIdx.y * GT, j0 = blockIdx.x * GT, b = blockIdx.z;
-  const int tx = threadIdx.x % 16, ty = threadIdx.x / 16;
-  const float* fc = f + (size_t)b * V * C;
+  auto load_chunk = [&](float* rs, unsigned long long* bar, int kt) {
+    mbar_expect_tx(bar, (unsigned)(sizeof(float) * (BM + BN) * KC));
+    tma_load_3d(rs, &f_map, kt * KC, i0, b, bar);
+    tma_load_3d(rs + BM * KC, &f_map, kt * KC, j0, b, bar);
+  };
+  float tot[64];
+  tile_product_3xtf32(smem, C / KC, load_chunk, tot);
+  __syncthreads();  // the ring is free
 
-  float part[4][4], tot[4][4];
+  float* ts = smem;  // ts[r][c] = G2[i0 + r, j0 + c]
 #pragma unroll
-  for (int r = 0; r < 4; ++r)
-#pragma unroll
-    for (int c = 0; c < 4; ++c) tot[r][c] = 0.f;
-
-  for (int k0 = 0; k0 < C; k0 += KC) {
-    for (int idx = threadIdx.x; idx < GT * KC; idx += kThreads) {
-      const int v = idx / KC, k = idx % KC;
-      fa[k * GTS + v] = i0 + v < V ? fc[(size_t)(i0 + v) * C + k0 + k] : 0.f;
-      fb[k * GTS + v] = j0 + v < V ? fc[(size_t)(j0 + v) * C + k0 + k] : 0.f;
-    }
-    __syncthreads();
-#pragma unroll
-    for (int r = 0; r < 4; ++r)
-#pragma unroll
-      for (int c = 0; c < 4; ++c) part[r][c] = 0.f;
-#pragma unroll 8
-    for (int k = 0; k < KC; ++k) {
-      float a[4], bv[4];
-#pragma unroll
-      for (int r = 0; r < 4; ++r) {
-        a[r] = fa[k * GTS + ty + 16 * r];
-        bv[r] = fb[k * GTS + tx + 16 * r];
-      }
-#pragma unroll
-      for (int r = 0; r < 4; ++r)
-#pragma unroll
-        for (int c = 0; c < 4; ++c) part[r][c] = fmaf(a[r], bv[c], part[r][c]);
-    }
-#pragma unroll
-    for (int r = 0; r < 4; ++r)
-#pragma unroll
-      for (int c = 0; c < 4; ++c) tot[r][c] += part[r][c];
-    __syncthreads();
-  }
-#pragma unroll
-  for (int r = 0; r < 4; ++r) {
-    const int i = i0 + ty + 16 * r;
-    if (i >= V) continue;
-#pragma unroll
-    for (int c = 0; c < 4; ++c) {
-      const int j = j0 + tx + 16 * c;
-      if (j >= V) continue;
-      gram[((size_t)b * V + i) * V + j] = tot[r][c];
-      if (i == j) diag[(size_t)b * V + i] = tot[r][c];
+  for (int e = 0; e < 64; ++e) ts[acc_row(e) * TS + acc_col(e)] = tot[e];
+  __syncthreads();
+  float* gb = gram + (size_t)b * V * ld;
+  for (int idx = threadIdx.x; idx < BM * BN; idx += kThreads) {
+    const int r = idx / BN, c = idx % BN;
+    if (ti == tj) {
+      const int i = i0 + r, j = j0 + c;
+      const float g = c >= r ? ts[r * TS + c] : ts[c * TS + r];  // the upper triangle's
+      if (i < V && j < V) gb[(size_t)i * ld + j] = g;
+      if (r == c && i < V) diag[(size_t)b * V + i] = g;
+    } else {
+      if (i0 + r < V && j0 + c < V) gb[(size_t)(i0 + r) * ld + j0 + c] = ts[r * TS + c];
+      if (j0 + r < V && i0 + c < V) gb[(size_t)(j0 + r) * ld + i0 + c] = ts[c * TS + r];
     }
   }
 }
@@ -718,7 +845,7 @@ graph_blend_long_kernel(float* __restrict__ graph, const float* __restrict__ dia
                         int mode, int mask_diag) {
   __shared__ float red[kThreads / 32];
   const int i = blockIdx.x, b = blockIdx.y;
-  float* row = graph + ((size_t)b * V + i) * V;
+  float* row = graph + ((size_t)b * V + i) * long_ld(V);
   const float* adj_row = adj + ((size_t)b * V + i) * V;
   const float* db = diag + (size_t)b * V;
   const float* mb = mask == nullptr ? nullptr : mask + (size_t)b * V;
@@ -750,80 +877,47 @@ graph_blend_long_kernel(float* __restrict__ graph, const float* __restrict__ dia
   }
 }
 
-// Tile (rows i0.., columns col0..) of G_b @ h_b, K over V in 32-deep
-// chunks (each chunk's 32 products summed apart, then added into the
-// total), then BN (running stats), LeakyReLU(0.1) and the residual.
-// Thread (tx, ty) owns rows ty + 16 i and columns tx + 16 c.
+// Tile (rows i0.., columns col0..) of G_b @ h_b (blockIdx = (column tile,
+// row tile, b)): G rows of the (B, V, V) map as A and h^T rows of the
+// (B, C, V) map as B, both K-major with K over the V vertices (chunks past
+// V load as zeros in both), then BN (running stats), LeakyReLU(0.1) and
+// the residual on the accumulators.
 template <bool ADDITIVE>
-__global__ void __launch_bounds__(kThreads)
-graph_apply_long_kernel(const float* __restrict__ graph, const float* __restrict__ h,
-                        const float* __restrict__ f, const float* __restrict__ scale,
-                        const float* __restrict__ bias, const float* __restrict__ mean,
-                        const float* __restrict__ var, float gamma, float* __restrict__ out,
-                        int V, int C) {
-  __shared__ float gs[KC * ATS];  // gs[k][r] = G_b[i0 + r, k0 + k]
-  __shared__ float hs[KC * AT];   // hs[k][c] = h_b[k0 + k, col0 + c]
-  const int col0 = blockIdx.x * AT, i0 = blockIdx.y * AT, b = blockIdx.z;
-  const int tx = threadIdx.x % 16, ty = threadIdx.x / 16;
-  const float* gb = graph + (size_t)b * V * V;
-  const float* hb = h + (size_t)b * V * C;
+__global__ void __launch_bounds__(kThreads, 1)
+graph_apply_long_kernel(const __grid_constant__ CUtensorMap g_map,
+                        const __grid_constant__ CUtensorMap ht_map, const float* __restrict__ f,
+                        const float* __restrict__ scale, const float* __restrict__ bias,
+                        const float* __restrict__ mean, const float* __restrict__ var,
+                        float gamma, float* __restrict__ out, int V, int C) {
+  extern __shared__ unsigned char apply_raw_smem[];
+  float* const smem = aligned_smem(apply_raw_smem);
+  const int col0 = blockIdx.x * BN, i0 = blockIdx.y * BM, b = blockIdx.z;
 
-  float part[AT / 16][AT / 16], tot[AT / 16][AT / 16];
-#pragma unroll
-  for (int i = 0; i < AT / 16; ++i)
-#pragma unroll
-    for (int c = 0; c < AT / 16; ++c) tot[i][c] = 0.f;
-
-  for (int k0 = 0; k0 < V; k0 += KC) {
-    for (int idx = threadIdx.x; idx < AT * KC; idx += kThreads) {
-      const int r = idx / KC, k = idx % KC;  // consecutive threads: consecutive k of a row
-      gs[k * ATS + r] = i0 + r < V && k0 + k < V ? gb[(size_t)(i0 + r) * V + k0 + k] : 0.f;
-    }
-    for (int idx = threadIdx.x; idx < KC * AT; idx += kThreads) {
-      const int k = idx / AT, c = idx % AT;
-      hs[k * AT + c] = k0 + k < V ? hb[(size_t)(k0 + k) * C + col0 + c] : 0.f;
-    }
-    __syncthreads();
-#pragma unroll
-    for (int i = 0; i < AT / 16; ++i)
-#pragma unroll
-      for (int c = 0; c < AT / 16; ++c) part[i][c] = 0.f;
-#pragma unroll 4
-    for (int k = 0; k < KC; ++k) {
-      float gv[AT / 16], hv[AT / 16];
-#pragma unroll
-      for (int i = 0; i < AT / 16; ++i) gv[i] = gs[k * ATS + ty + 16 * i];
-#pragma unroll
-      for (int c = 0; c < AT / 16; ++c) hv[c] = hs[k * AT + tx + 16 * c];
-#pragma unroll
-      for (int i = 0; i < AT / 16; ++i)
-#pragma unroll
-        for (int c = 0; c < AT / 16; ++c) part[i][c] = fmaf(gv[i], hv[c], part[i][c]);
-    }
-#pragma unroll
-    for (int i = 0; i < AT / 16; ++i)
-#pragma unroll
-      for (int c = 0; c < AT / 16; ++c) tot[i][c] += part[i][c];
-    __syncthreads();
-  }
+  auto load_chunk = [&](float* rs, unsigned long long* bar, int kt) {
+    mbar_expect_tx(bar, (unsigned)(sizeof(float) * (BM + BN) * KC));
+    tma_load_3d(rs, &g_map, kt * KC, i0, b, bar);
+    tma_load_3d(rs + BM * KC, &ht_map, kt * KC, col0, b, bar);
+  };
+  float tot[64];
+  tile_product_3xtf32(smem, (V + KC - 1) / KC, load_chunk, tot);
 
 #pragma unroll
-  for (int c = 0; c < AT / 16; ++c) {
-    const int col = col0 + tx + 16 * c;
-    const float mul = rsqrtf(var[col] + kBnEps) * scale[col];
-    const float sub = mean[col], add = bias[col];
+  for (int e = 0; e < 64; e += 2) {
+    const int r = i0 + acc_row(e), col = col0 + acc_col(e);
+    if (r >= V) continue;
+    const size_t at = ((size_t)b * V + r) * C + col;
+    const float2 x = *reinterpret_cast<const float2*>(f + at);
+    float y[2];
 #pragma unroll
-    for (int i = 0; i < AT / 16; ++i) {
-      const int r = i0 + ty + 16 * i;
-      if (r >= V) continue;
-      const size_t at = ((size_t)b * V + r) * C + col;
-      float y = (tot[i][c] - sub) * mul + add;
-      y = y >= 0.f ? y : 0.1f * y;
-      if constexpr (ADDITIVE)
-        out[at] = f[at] + gamma * y;
-      else
-        out[at] = (1.f - gamma) * f[at] + gamma * y;
+    for (int q = 0; q < 2; ++q) {
+      const float mul = rsqrtf(var[col + q] + kBnEps) * scale[col + q];
+      y[q] = (tot[e + q] - mean[col + q]) * mul + bias[col + q];
+      y[q] = y[q] >= 0.f ? y[q] : 0.1f * y[q];
     }
+    *reinterpret_cast<float2*>(out + at) =
+        ADDITIVE ? make_float2(x.x + gamma * y[0], x.y + gamma * y[1])
+                 : make_float2((1.f - gamma) * x.x + gamma * y[0],
+                               (1.f - gamma) * x.y + gamma * y[1]);
   }
 }
 
@@ -846,16 +940,20 @@ EncodeTiled encode_tiled() {
   return fn;
 }
 
-// A row-major fp32 tensor of `rank` dims (innermost first) read in boxes of
-// `box`, 128-byte swizzled in shared memory; rows past the end of a dim
-// load as zeros.
+// A row-major fp32 tensor of `rank` dims (innermost first) whose rows are
+// ld floats apart (ld >= dims[0], a multiple of 4; 0: dims[0]), read in
+// boxes of `box`, 128-byte swizzled in shared memory; rows and columns
+// past the end of a dim load as zeros.
 bool tensor_map(CUtensorMap* map, const float* base, cuuint32_t rank, const cuuint64_t* dims,
-                const cuuint32_t* box) {
+                const cuuint32_t* box, cuuint64_t ld = 0) {
   EncodeTiled encode = encode_tiled();
   if (encode == nullptr) return false;
   cuuint64_t strides[2];  // bytes, of dims 1 .. rank-1
-  cuuint64_t stride = sizeof(float);
-  for (cuuint32_t d = 0; d + 1 < rank; ++d) strides[d] = stride *= dims[d];
+  cuuint64_t stride = sizeof(float) * (ld ? ld : dims[0]);
+  for (cuuint32_t d = 0; d + 1 < rank; ++d) {
+    strides[d] = stride;
+    stride *= dims[d + 1];
+  }
   const cuuint32_t elem[3] = {1, 1, 1};
   return encode(map, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, rank, const_cast<float*>(base), dims,
                 strides, box, elem, CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
@@ -903,21 +1001,30 @@ int launch(const float* f, const float* adj, const float* mask, const float* wt,
   return (int)cudaGetLastError();
 }
 
-// V > 128: scratch holds h (B, V, C), then the Gram, overwritten by G
-// (B, V, V), then the Gram's diagonal (B, V).
+// V > 128: scratch holds h^T (B, C, ld), then the Gram, overwritten by G
+// (B, V, ld), then the Gram's diagonal (B, V); ld = long_ld(V).
 int launch_long(const float* f, const float* adj, const float* mask, const float* wt,
                 const float* scale, const float* bias, const float* mean, const float* var,
                 float gamma, bool additive, int mode, int mask_diag, float* scratch,
                 float* out, int B, int V, int C, cudaStream_t stream) {
-  const size_t rows = (size_t)B * V;
-  float* h = scratch;
-  float* graph = h + rows * C;
-  float* diag = graph + rows * V;
+  const size_t rows = (size_t)B * V, ld = long_ld(V);
+  float* ht = scratch;
+  float* graph = ht + (size_t)B * C * ld;
+  float* diag = graph + rows * ld;
+  const cuuint32_t box[3] = {KC, BM, 1};  // every map: 128 rows of a 32-deep K chunk
+  static_assert(BM == BN, "A and B tiles share the box");
 
   cudaError_t err;
   if (needs_gram(mode)) {
-    const int gt = (V + GT - 1) / GT;
-    gram_tile_kernel<<<dim3(gt, gt, B), kThreads, 0, stream>>>(f, graph, diag, V, C);
+    CUtensorMap f_map;
+    const cuuint64_t f_dims[3] = {(cuuint64_t)C, (cuuint64_t)V, (cuuint64_t)B};
+    if (!tensor_map(&f_map, f, 3, f_dims, box)) return (int)cudaErrorInvalidValue;
+    err = cudaFuncSetAttribute(gram_upper_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               (int)PIPE_BYTES);
+    if (err != cudaSuccess) return (int)err;
+    const unsigned nt = (V + BM - 1) / BM;
+    gram_upper_kernel<<<dim3(nt * (nt + 1) / 2, B), kThreads, PIPE_BYTES, stream>>>(
+        f_map, graph, diag, V, C);
     err = cudaGetLastError();
     if (err != cudaSuccess) return (int)err;
   }
@@ -927,27 +1034,35 @@ int launch_long(const float* f, const float* adj, const float* mask, const float
   err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
 
-  // h = f @ W over the flattened rows: f as one (1, B * V, C) matrix
+  // h = f @ W over the flattened rows: f as one (1, B * V, C) matrix;
+  // stored as h^T
   using L = PropagateSmem<BM>;
   CUtensorMap f_map, wt_map;
   const cuuint64_t f_dims[3] = {(cuuint64_t)C, (cuuint64_t)rows, 1};
-  const cuuint32_t f_box[3] = {KC, BM, 1};
   const cuuint64_t wt_dims[2] = {(cuuint64_t)C, (cuuint64_t)C};
-  const cuuint32_t wt_box[2] = {KC, BN};
-  if (!tensor_map(&f_map, f, 3, f_dims, f_box) || !tensor_map(&wt_map, wt, 2, wt_dims, wt_box))
+  if (!tensor_map(&f_map, f, 3, f_dims, box) || !tensor_map(&wt_map, wt, 2, wt_dims, box))
     return (int)cudaErrorInvalidValue;
   err = cudaFuncSetAttribute(graph_propagate_kernel<BM, true, false>,
                              cudaFuncAttributeMaxDynamicSharedMemorySize, (int)L::BYTES);
   if (err != cudaSuccess) return (int)err;
   graph_propagate_kernel<BM, true, false><<<dim3(C / BN, (unsigned)((rows + BM - 1) / BM)),
                                              kThreads, L::BYTES, stream>>>(
-      f_map, wt_map, f, nullptr, scale, bias, mean, var, gamma, h, 1, (int)rows, C);
+      f_map, wt_map, f, nullptr, scale, bias, mean, var, gamma, ht, B, V, C);
   err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
 
+  // G @ h: G (B, V, V) and h^T (B, C, V), rows ld floats apart
+  CUtensorMap g_map, ht_map;
+  const cuuint64_t g_dims[3] = {(cuuint64_t)V, (cuuint64_t)V, (cuuint64_t)B};
+  const cuuint64_t ht_dims[3] = {(cuuint64_t)V, (cuuint64_t)C, (cuuint64_t)B};
+  if (!tensor_map(&g_map, graph, 3, g_dims, box, ld) ||
+      !tensor_map(&ht_map, ht, 3, ht_dims, box, ld))
+    return (int)cudaErrorInvalidValue;
   const auto apply = additive ? graph_apply_long_kernel<true> : graph_apply_long_kernel<false>;
-  apply<<<dim3(C / AT, (V + AT - 1) / AT, B), kThreads, 0, stream>>>(graph, h, f, scale, bias,
-                                                                     mean, var, gamma, out, V, C);
+  err = cudaFuncSetAttribute(apply, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)PIPE_BYTES);
+  if (err != cudaSuccess) return (int)err;
+  apply<<<dim3(C / BN, (V + BM - 1) / BM, B), kThreads, PIPE_BYTES, stream>>>(
+      g_map, ht_map, f, scale, bias, mean, var, gamma, out, V, C);
   return (int)cudaGetLastError();
 }
 
@@ -959,9 +1074,9 @@ extern "C" {
 int graph_conv_column_tile() { return BN; }
 
 // Floats of scratch graph_conv_forward needs. V <= 128: Gram partials,
-// then G. V > 128: h, G, the Gram's diagonal.
+// then G. V > 128: h^T and G with rows of long_ld(V), the Gram's diagonal.
 long long graph_conv_scratch_floats(int B, int V, int C) {
-  if (V > 128) return (long long)B * V * C + (long long)B * V * V + (long long)B * V;
+  if (V > 128) return (long long)B * (C + V) * long_ld(V) + (long long)B * V;
   const long long vp = V <= 64 ? 64 : 128;
   return (long long)B * gram_slices(C) * vp * vp + (long long)B * V * V;
 }

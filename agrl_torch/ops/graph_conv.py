@@ -24,10 +24,11 @@ takes the residual x + gamma * h'.
 
 On the card this op IS the hand-written kernel (csrc/graph_conv.cu: f @ W
 on the tensor cores in 3xTF32, each K chunk promoted into fp32 registers,
-which keeps fp32 accuracy; the Gram and G @ h in fp32), for any number
-of vertices: clips of more than 128 take the kernel's long schedule;
-`graph_propagate_reference` is its plain PyTorch
-version, used for CPU tensors and to check the kernel.
+which keeps fp32 accuracy; the Gram and G @ h on the FP32 pipe for clips
+of up to 128 vertices), for any number of vertices: clips of more than
+128 take the kernel's long schedule, where the Gram (its upper tiles,
+mirrored) and G @ h run in 3xTF32 too; `graph_propagate_reference` is
+its plain PyTorch version, used for CPU tensors and to check the kernel.
 
 Both entries are registered torch ops, `agrl_torch::graph_propagate` (K1,
 with an optional vertex mask) and `agrl_torch::graph_propagate_v2` (K2's

@@ -98,7 +98,10 @@ Phases (any failure exits non-zero before the result lines):
      included), CUDA-event times (L2 flushed) of the kernel, the plain
      version and torch.bmm(G, h) alone, the bound (all three products in
      3xTF32, the symmetric Gram's upper half only) and the kernel's share
-     of it, and the device kernels by name (torch.profiler);
+     of it, the device kernels by name (torch.profiler) and, at V > 128,
+     each stage's device time (Gram, blend, f @ W, G @ h); at (9, 392) the
+     kernel's and the plain twin's distance from a float64 run; a
+     `compare` line per shape (kernel, plain, bmm, bound, share);
  18. (run after phase 7) dense, skipdense and all evaluation at the paper
      config (the serving model): 24 query tracklets of 16-300 frames and
      one of 1,000 (the top bucket, V = 8288), 40 gallery tracklets of
@@ -288,6 +291,11 @@ card's name and power limit, and
 measures only the triplet term of a train step (5 heads, forward and
 backward) and K1 at the serving shape as the agrl_torch package in ROOT
 computes them, e.g. an unpacked earlier commit, and prints one JSON line.
+
+    python3 chip_smoke.py --k1-long-only ROOT
+
+runs phase 17 alone with the agrl_torch package in ROOT (no serving-shape
+bit check) and prints one JSON line: two commits compared in one call.
 """
 
 from __future__ import annotations
@@ -544,9 +552,25 @@ def masked_graph_inputs(torch, gc, B, V, C, seed, device):
     return args, mask, real
 
 
+# the stages of K1's long schedule, by the device kernels' names (this
+# tree's and the earlier design's: gram_tile_kernel)
+K1_LONG_STAGES = (("gram", ("gram_upper_kernel", "gram_tile_kernel")),
+                  ("blend", ("graph_blend_long_kernel",)),
+                  ("f@W", ("graph_propagate_kernel<128, true",)),
+                  ("G@h", ("graph_apply_long_kernel",)))
+K1_FLOAT64_SHAPE = (9, 392)  # held against float64: one of K1_LONG_SHAPES
+
+
+def k1_stage_ms(rows) -> dict:
+    """Device ms per call of each long-schedule stage in profiler rows."""
+    return {stage: sum(ms for name, ms, _ in rows if any(k in name for k in keys))
+            for stage, keys in K1_LONG_STAGES}
+
+
 def phase_k1_long(torch, gc, device, flush, serving_out):
     """K1 masked and long vs its plain twin at the `all` Evaluator's shapes
-    (phase 17); the unmasked serving shape must repeat phase 3's output."""
+    (phase 17); the unmasked serving shape must repeat phase 3's output
+    (serving_out None: not checked)."""
     from torch.profiler import ProfilerActivity, profile
 
     C, recs = 2048, []
@@ -560,7 +584,7 @@ def phase_k1_long(torch, gc, device, flush, serving_out):
         got, want = kernel(), plain()
         torch.cuda.synchronize()
         err = float((got - want).abs().max() / want.abs().max())
-        same = None if masked else bool(torch.equal(got, serving_out))
+        same = None if masked or serving_out is None else bool(torch.equal(got, serving_out))
         G = gc.blended_graph(args[0], args[1], mask)
         h = torch.matmul(args[0], args[2])
         iters = 20 if V <= 392 else 5
@@ -571,12 +595,23 @@ def phase_k1_long(torch, gc, device, flush, serving_out):
                    library_ms=time_cuda(torch, lambda: torch.bmm(G, h), flush, iters=iters))
         rec["bound_ms"], rec["bound_by"], rec["fp32_fma_bound_ms"] = graph_bound_ms(
             B, V, C, masked)
-        del G, h, got, want
+        del G, h
+        if (B, V) == K1_FLOAT64_SHAPE:
+            exact = gc.graph_propagate_reference(
+                *(x.double() for x in args), vertex_mask=mask.double())
+            scale = float(exact.abs().max())
+            rec["float64_rel_err"] = float((got.double() - exact).abs().max()) / scale
+            rec["plain_float64_rel_err"] = float((want.double() - exact).abs().max()) / scale
+            del exact
+        del got, want
         with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
             for _ in range(3):
                 kernel()
             torch.cuda.synchronize()
-        rec["kernels"] = [(name[:60], ms) for name, ms, _ in device_rows(prof, 3)]
+        rows = device_rows(prof, 3)
+        rec["kernels"] = [(name[:60], ms) for name, ms, _ in rows]
+        if V > 128:
+            rec["stage_ms"] = k1_stage_ms(rows)
         pads = "" if real is None else f", real frames {real.min()}-{real.max()} of {V // 7}"
         log(f"[k1long] B={B} V={V} {'masked' if masked else 'unmasked'}{pads}: "
             f"max|kernel - plain|/max|plain| = {err:.3e} (tol 1e-5); kernel {rec['ms']:.4f} ms, "
@@ -586,6 +621,16 @@ def phase_k1_long(torch, gc, device, flush, serving_out):
             f"{rec['fp32_fma_bound_ms']:.4f} ms)"
             + ("" if same is None else f"; bit-equal to phase 3: {same}"))
         log("[k1long]   device: " + ", ".join(f"{n} {m:.4f} ms" for n, m in rec["kernels"]))
+        if "stage_ms" in rec:
+            log("[k1long]   stages (device ms a call): " + ", ".join(
+                f"{k} {m:.4f}" for k, m in rec["stage_ms"].items()))
+        if "float64_rel_err" in rec:
+            log(f"[k1long]   float64: max|kernel - float64|/max|float64| = "
+                f"{rec['float64_rel_err']:.3e}, the plain fp32 twin's "
+                f"{rec['plain_float64_rel_err']:.3e}")
+        log(f"[k1long] compare ({B}, {V}): kernel {rec['ms']:.4f} | plain {rec['plain_ms']:.4f} | "
+            f"bmm {rec['library_ms']:.4f} | bound {rec['bound_ms']:.4f} | "
+            f"share {rec['bound_ms'] / rec['ms']:.1%}")
         if not (err <= 1e-5) or same is False:
             raise AssertionError(f"K1 at B={B} V={V} masked={masked}: rel err {err}, "
                                  f"bit-equal to phase 3: {same}")
@@ -593,6 +638,33 @@ def phase_k1_long(torch, gc, device, flush, serving_out):
         del args, mask
         torch.cuda.empty_cache()
     return recs
+
+
+def main_k1_long_only(root: Path) -> int:
+    """`chip_smoke.py --k1-long-only ROOT`: phase 17 alone (its bars, no
+    serving-shape bit check) with the agrl_torch package found in ROOT (e.g.
+    an unpacked earlier commit); prints the card and one JSON line."""
+    if not (root / "agrl_torch" / "csrc" / "graph_conv.cu").exists():
+        print(f"chip_smoke.py: no agrl_torch package in {root}", file=sys.stderr)
+        return 2
+    import torch
+
+    if not torch.cuda.is_available():
+        print("chip_smoke.py: torch.cuda.is_available() is False", file=sys.stderr)
+        return 3
+    sys.path.insert(0, str(root))
+    from agrl_torch.ops import graph_conv as gc
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    device = torch.device("cuda")
+    gc._lib()
+    smi = nvidia_smi_line()
+    log(f"[k1long] {root}: {smi}")
+    recs = phase_k1_long(torch, gc, device, L2Flusher(torch, device), None)
+    print(json.dumps({"k1_long": dict(root=str(root), card=smi, shapes=[
+        {k: v for k, v in r.items() if k != "kernels"} for r in recs])}))
+    return 0
 
 
 def random_clips(n, seed):
@@ -4709,7 +4781,8 @@ def main() -> int:
         "float64_rel_err": krec["float64_rel_err"],
         "plain_float64_rel_err": krec["plain_float64_rel_err"],
         "precision": "f@W in 3xTF32 (wgmma.m64n128k8 tf32, TMA ring, fp32 accumulators); "
-                     "Gram, G@h fp32",
+                     "V <= 128: Gram, G@h fp32 FMA; V > 128: Gram (upper tiles, mirrored) "
+                     "and G@h in 3xTF32 too",
         "library_ms": krec["library_ms"],
         "library_call": "torch.matmul(f, W): the f@W product alone",
         "v2_max_abs_err": krec["v2_max_abs_err"],
@@ -4718,7 +4791,9 @@ def main() -> int:
         "masked_and_long": [{k: v for k, v in r.items() if k != "kernels"} for r in k1_long],
         "masked_and_long_timing": "CUDA events around one call, L2 flushed: kernel mean of 20 "
                                   "(5 at V >= 1064), plain of 5 (2), library torch.bmm(G, h) "
-                                  "alone; max_rel_err = max|kernel - plain| / max|plain|",
+                                  "alone; max_rel_err = max|kernel - plain| / max|plain|; "
+                                  "stage_ms: device ms a call per stage (torch.profiler, 3 "
+                                  "calls); float64_rel_err at (9, 392)",
         "eval_launches": {s: evaluation[s]["k1_launches"] for s in ("dense", "skipdense", "all")},
         "bf16_serving_launches": serving["bf16"]["launches"],
         "bf16_eval_launches_per_chunk": {k: v["k1_per_chunk"]
@@ -4925,9 +5000,11 @@ def main() -> int:
 if __name__ == "__main__":
     if sys.argv[1:2] == ["--term-only"] and len(sys.argv) == 3:
         sys.exit(main_term_only(Path(sys.argv[2]).resolve()))
+    if sys.argv[1:2] == ["--k1-long-only"] and len(sys.argv) == 3:
+        sys.exit(main_k1_long_only(Path(sys.argv[2]).resolve()))
     if sys.argv[1:2] == ["--mp-worker"] and len(sys.argv) == 5:
         sys.exit(mp_worker(int(sys.argv[2]), int(sys.argv[3]), sys.argv[4]))
     if len(sys.argv) > 1:
-        print("usage: chip_smoke.py [--term-only ROOT]", file=sys.stderr)
+        print("usage: chip_smoke.py [--term-only ROOT | --k1-long-only ROOT]", file=sys.stderr)
         sys.exit(2)
     sys.exit(main())

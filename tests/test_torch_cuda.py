@@ -129,12 +129,19 @@ def _masked_case(dev, B, V, C, masked, seed=0):
         (3, 129, True),
         (21, 168, True),   # Sp = 24
         (9, 392, True),    # Sp = 56: clip boundaries inside the 128-row product blocks
+        (3, 1064, True),   # Sp = 152
+        (1, 2128, True),   # Sp = 304
+        (2, 130, False),   # V % 4 != 0: G and h^T rows padded to a 16-byte stride
+        (2, 131, True),
+        (1, 257, True),
+        (2, 1063, True),
     ],
 )
 def test_masked_and_long_kernel_matches_plain(cuda, B, V, masked):
     """One launch per call; within 1e-5 of max|plain| (fp32 both ways,
     another summation order; padded rows included: both sides give them
-    a zero graph row)."""
+    a zero graph row). The long schedule's scratch rows are V rounded up
+    to 4 floats; the columns past V are never read."""
     args, mask = _masked_case(cuda, B, V, 2048, masked, seed=V)
     before = graph_conv.launches
     got = graph_conv.graph_propagate(*args, vertex_mask=mask)
@@ -144,9 +151,63 @@ def test_masked_and_long_kernel_matches_plain(cuda, B, V, masked):
     assert float((got - want).abs().max()) <= 1e-5 * float(want.abs().max())
 
 
+def _long_call(args, mask, **kw):
+    """One K1 call (one launch) and its plain twin's output."""
+    before = graph_conv.launches
+    got = graph_conv.graph_propagate(*args, vertex_mask=mask, **kw)
+    torch.cuda.synchronize()
+    assert graph_conv.launches == before + 1
+    return got, graph_conv.graph_propagate_reference(*args, vertex_mask=mask, **kw)
+
+
+def _near_duplicate_case(dev, B, V, C, seed):
+    """The `all` eval's masked layout with video-like features: each of a
+    frame's 7 parts is its clip's part base (ReLU-like) plus 1e-3-scale
+    noise, so every vertex has near-duplicates at distance ~0.06 in the
+    other frames, where the affinity is sharpest and the Gram cancels
+    (|f|^2 ~ 2700)."""
+    rng = np.random.RandomState(seed)
+    base = rng.rand(B, 1, 7, C) * 2.0
+    f = (base + rng.randn(B, V // 7, 7, C) * 1e-3).reshape(B, V, C).astype(np.float32)
+    args, mask = _masked_case(dev, B, V, C, True, seed=seed)
+    return (torch.from_numpy(f).to(dev), *args[1:]), mask
+
+
+@pytest.mark.parametrize("B,V", [(9, 392), (1, 2128)])
+def test_long_kernel_near_duplicate_vertices(cuda, B, V):
+    """Near-duplicate vertices (consecutive frames) on the long schedule:
+    the 3xTF32 Gram keeps the plain twin's fp32 arithmetic's outcome,
+    within 1e-5 of max|plain| (both fp32, another summation order)."""
+    args, mask = _near_duplicate_case(cuda, B, V, 2048, seed=V + 11)
+    got, want = _long_call(args, mask)
+    assert float((got - want).abs().max()) <= 1e-5 * float(want.abs().max())
+
+
+@pytest.mark.parametrize("mask_diag,additive", [(True, True), (True, False), (False, True)])
+def test_long_ganet_flags_match_plain(cuda, mask_diag, additive):
+    """ganet's flags, alone and together, on the long schedule (masked
+    (9, 392), gamma 0.3): within 1e-5 of max|plain|."""
+    args, mask = _masked_case(cuda, 9, 392, 2048, True, seed=23)
+    got, want = _long_call((*args, 0.3), mask, mask_diag=mask_diag, additive=additive)
+    assert float((got - want).abs().max()) <= 1e-5 * float(want.abs().max())
+
+
+def test_long_kernel_within_fp32_of_float64(cuda):
+    """The long schedule's three 3xTF32 products keep fp32 accuracy: at
+    the masked (3, 392) packing the kernel lies no further from the float64
+    plain version than twice the fp32 plain twin does."""
+    args, mask = _masked_case(cuda, 3, 392, 2048, True, seed=5)
+    got, want = _long_call(args, mask)
+    exact = graph_conv.graph_propagate_reference(*(x.double() for x in args),
+                                                 vertex_mask=mask.double())
+    kernel_err = float((got.double() - exact).abs().max())
+    plain_err = float((want.double() - exact).abs().max())
+    assert kernel_err <= 2.0 * plain_err
+
+
 @pytest.mark.parametrize("mode", graph_conv.GRAPH_MODES)
 @pytest.mark.parametrize("B,V,masked", [(16, 56, False), (64, 56, True), (3, 129, True),
-                                        (9, 392, False)])
+                                        (9, 392, False), (3, 1064, True)])
 def test_graph_modes_match_plain(cuda, mode, B, V, masked):
     """Each graph mode (both, pose, learned) on both schedules, with
     and without a vertex mask: one launch per call, within 1e-5 of

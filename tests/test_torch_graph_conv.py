@@ -6,6 +6,7 @@ tests/test_ops_pallas.py does. On CPU tensors the port dispatches to its
 plain version (the CUDA kernel is checked in tests/test_torch_cuda.py).
 """
 
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -248,3 +249,150 @@ def test_3xtf32_truncating_accumulation_needs_promotion():
     promoted = float((product(4) - exact).abs().max()) / scale
     assert one_accumulator > 5e-6
     assert promoted <= 2e-6
+
+
+# ---- the CUDA kernel's long schedule (V > 128), emulated -----------------
+#
+# The card's long schedule computes its three products (f @ W, the Gram
+# f f^T and G @ h) as one 3xTF32 tile product: each operand split into
+# tf32 hi/lo, each k8 step's exact products added to a truncating fp32
+# accumulator, each 32-deep chunk promoted into the total in fp32. The Gram
+# launches only upper tiles and mirrors them; d2 comes from the Gram's own
+# diagonal. These tests replay that arithmetic in torch on the CPU.
+
+LONG_C = 2048
+LONG_N = 128  # output columns emulated: one of the kernel's column tiles
+
+
+def _tile_product_3xtf32(a: torch.Tensor, b: torch.Tensor, passes: int = 3) -> torch.Tensor:
+    """a (M, K) @ b (K, N), fp32, as the kernel's tile product computes it:
+    x = hi + lo, hi = tf32(x), lo = tf32(x - hi); per k8 step lo*hi, hi*lo,
+    hi*hi (passes=3; hi*hi alone at passes=1) each added exactly to the
+    accumulator, which truncates to fp32; every 4 steps (a 32-deep chunk)
+    the accumulator is added into the total (fp32, round to nearest). K
+    past the end is TMA's zero fill, which adds nothing."""
+    a_hi, b_hi = _round_tf32(a), _round_tf32(b)
+    a_lo, b_lo = _round_tf32(a - a_hi), _round_tf32(b - b_hi)
+    parts = [(a_lo, b_hi), (a_hi, b_lo), (a_hi, b_hi)] if passes == 3 else [(a_hi, b_hi)]
+    parts = [(x.double(), y.double()) for x, y in parts]
+    K = a.shape[1]
+    acc = torch.zeros(a.shape[0], b.shape[1], dtype=torch.float64)
+    total = torch.zeros(a.shape[0], b.shape[1], dtype=torch.float32)
+    for step, k in enumerate(range(0, K, 8)):
+        for x, y in parts:
+            acc = _round_fp32_toward_zero(acc + x[:, k:k + 8] @ y[k:k + 8])
+        if (step + 1) % 4 == 0 or k + 8 >= K:
+            total = total + acc.float()
+            acc = torch.zeros_like(acc)
+    return total
+
+
+def _long_d2(f: torch.Tensor, passes: int = 3) -> torch.Tensor:
+    """(V, C) -> d2 (V, V) as the long schedule's blend reads it: the Gram's
+    upper half (upper tiles, and each diagonal tile's upper triangle)
+    mirrored, d2_ij = G2_ii + G2_jj - 2 G2_ij in fp32."""
+    g = _tile_product_3xtf32(f, f.t().contiguous(), passes)
+    g = torch.triu(g) + torch.triu(g, 1).t()
+    diag = torch.diagonal(g)
+    return diag[:, None] + diag[None, :] - 2.0 * g
+
+
+def _long_schedule(f, adj, W, scale, bias, mean, var, mask=None, gamma=0.1, passes=3):
+    """One clip (V, C) -> its first LONG_N output columns, as the long
+    schedule computes them: the Gram stage (_long_d2), the blend (masked
+    affinity and pose rows, row L1 sums, mode "both"), h = f @ W and G @ h
+    as 3xTF32 tile products, then BN, LeakyReLU(0.1) and the convex
+    residual; `passes` applies to the Gram."""
+    d2 = _long_d2(f, passes)
+    pair = torch.ones_like(adj) if mask is None else mask[:, None] * mask[None, :]
+    s = 2.0 / (1.0 + torch.exp(torch.sqrt(torch.clamp(d2, min=1e-12)))) * pair
+    a = adj * pair
+    G = 0.5 * (a / torch.clamp(a.abs().sum(1, keepdim=True), min=1e-12)
+               + s / torch.clamp(s.abs().sum(1, keepdim=True), min=1e-12))
+    h = _tile_product_3xtf32(f, W[:, :LONG_N].contiguous())
+    hp = _tile_product_3xtf32(G, h)
+    mul = torch.rsqrt(var[:LONG_N] + tgc.BN_EPS) * scale[:LONG_N]
+    y = (hp - mean[:LONG_N]) * mul + bias[:LONG_N]
+    y = torch.where(y >= 0, y, 0.1 * y)
+    return (1.0 - gamma) * f[:, :LONG_N] + gamma * y
+
+
+def _video_inputs(B, V, seed):
+    """Long clips of 7 parts a frame, video-like: each part is its clip's
+    ReLU-like base plus 1e-3-scale noise per frame, so every vertex has
+    near-duplicates (d ~ 0.06) in the other frames; W ~ N(0, 0.01), a 0/1
+    pose graph, BN running statistics."""
+    rng = np.random.RandomState(seed)
+    base = rng.rand(B, 1, 7, LONG_C) * 2.0
+    f = base + rng.randn(B, V // 7, 7, LONG_C) * 1e-3
+    return (
+        f.reshape(B, V, LONG_C).astype(np.float32),
+        (rng.rand(B, V, V) > 0.5).astype(np.float32),
+        (rng.randn(LONG_C, LONG_C) * 0.01).astype(np.float32),
+        (rng.rand(LONG_C) + 0.5).astype(np.float32),
+        (rng.randn(LONG_C) * 0.1).astype(np.float32),
+        (rng.randn(LONG_C) * 0.1).astype(np.float32),
+        (rng.rand(LONG_C) + 0.5).astype(np.float32),
+    )
+
+
+@pytest.mark.parametrize("masked", [False, True])
+@pytest.mark.parametrize("B,V", [(2, 168), (1, 392)])
+def test_long_schedule_emulation_matches_jax(B, V, masked):
+    """The long schedule's arithmetic (3xTF32 products with per-chunk
+    promotion, mirrored upper Gram tiles, d2 from the Gram's diagonal, the
+    vertex mask) on near-duplicate vertices at the `all` eval's V = 168 and
+    392, C = 2048, against agrl_tpu: graph_propagate_reference unmasked,
+    GraphConvLayer(vertex_mask=) masked (trailing frames padded, their pose
+    rows zeroed). Output columns 0..127 within 1e-5 of max|reference| (both
+    fp32 with other summation orders; padded rows included)."""
+    args = _video_inputs(B, V, seed=V + masked)
+    f, adj, W, scale, bias, mean, var = args
+    mask = None
+    if masked:
+        real = np.random.RandomState(V).randint(V // 14, V // 7, size=B)
+        mask = np.repeat((np.arange(V // 7)[None] < real[:, None]).astype(np.float32), 7, axis=1)
+        adj = adj * mask[:, :, None] * mask[:, None, :]
+        want = np.asarray(JaxGraphConvLayer(in_features=LONG_C, out_features=LONG_C).apply(
+            {"params": {"linear": {"kernel": jnp.asarray(W)},
+                        "bn": {"scale": jnp.asarray(scale), "bias": jnp.asarray(bias)}},
+             "batch_stats": {"bn": {"mean": jnp.asarray(mean), "var": jnp.asarray(var)}}},
+            jnp.asarray(f), jnp.asarray(adj), train=False, vertex_mask=jnp.asarray(mask)))
+    else:
+        want = np.asarray(graph_propagate_reference(f, adj, W, scale, bias, mean, var))
+    want = want[:, :, :LONG_N]
+    t = [torch.from_numpy(x) for x in (f, adj, W, scale, bias, mean, var)]
+    got = np.stack([
+        _long_schedule(t[0][b], t[1][b], *t[2:],
+                       mask=None if mask is None else torch.from_numpy(mask[b])).numpy()
+        for b in range(B)])
+    assert np.abs(got - want).max() <= 1e-5 * np.abs(want).max()
+
+
+@pytest.mark.parametrize("V", [168, 392])
+def test_long_schedule_gram_needs_three_tf32_passes(V):
+    """Why the long schedule keeps all three tf32 products in its Gram. On
+    near-duplicate vertices (C = 2048, |f|^2 ~ 2700) the d2 the blend reads
+    (mirrored upper tiles, the Gram's own diagonal) stays within 1e-5 of
+    max|d2| of agrl_tpu's l2 affinity (fp32, Precision.HIGHEST) with three
+    passes, and misses it with one (hi*hi: ~11 bits of each operand, ~0.09
+    off on pairs whose tf32 roundings are independent). Mirroring makes d2
+    symmetric bit for bit and d2_ii exactly 0. On these inputs the layer's
+    output would not tell them apart: a Gram error reweights neighbours
+    whose h are nearly equal, and one pass stays within 1e-5 of the
+    output's max there as well (checked here too)."""
+    f, adj, W, scale, bias, mean, var = _video_inputs(1, V, seed=V)
+    fj = jnp.asarray(f)
+    sq = jnp.sum(fj * fj, axis=2)
+    want = np.asarray(sq[:, None, :] + sq[:, :, None] - 2.0 * jnp.einsum(
+        "bic,bjc->bij", fj, fj, precision=jax.lax.Precision.HIGHEST))[0]
+    bar = 1e-5 * np.abs(want).max()
+    ft = torch.from_numpy(f[0])
+    three, one = _long_d2(ft, 3), _long_d2(ft, 1)
+    assert torch.equal(three, three.t()) and not bool(torch.diagonal(three).any())
+    assert np.abs(three.numpy() - want).max() <= bar
+    assert np.abs(one.numpy() - want).max() > bar
+    out = np.asarray(graph_propagate_reference(f, adj, W, scale, bias, mean, var))[0, :, :LONG_N]
+    t = [torch.from_numpy(x) for x in (adj[0], W, scale, bias, mean, var)]
+    got_one = _long_schedule(ft, *t, passes=1).numpy()
+    assert np.abs(got_one - out).max() <= 1e-5 * np.abs(out).max()
