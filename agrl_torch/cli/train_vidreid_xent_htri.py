@@ -269,11 +269,13 @@ def preflight(args) -> None:
     model that reads a multi-scale adjacency (`expected_adj_scales`, msppgn
     with --use-pose or without --learn-graph) needs that --num-scale and
     the data side's parts per frame. Without --use-cpu it also refuses what
-    the card's kernels would refuse later (ROADMAP C, limits): a train
-    batch above K3's, or more heads than it mines in one launch."""
+    the card's kernels would refuse later (ROADMAP C, limits): K3 mines any
+    batch, head count and width up to its grid dimensions (65535 heads,
+    65535 x 16 clips) and its long schedule's partials in the card's memory
+    (about B^2 / 4 bytes a head for a --train-batch B above 256)."""
     from agrl_torch.models import build_model, get_names
     from agrl_torch.optim import OPTIMIZER_NAMES
-    from agrl_torch.ops.triplet import MAX_BATCH, MAX_HEADS
+    from agrl_torch.ops.triplet import MAX_BATCH, MAX_HEADS, hard_mine_scratch_bytes
     from agrl_torch.utils.reidtools import calc_splits
 
     if args.arch not in get_names():
@@ -314,8 +316,8 @@ def preflight(args) -> None:
     if not args.use_cpu and args.train_batch > MAX_BATCH:
         raise SystemExit(
             f"--train-batch {args.train_batch}: the card's batch-hard mining kernel (K3) "
-            f"takes at most {MAX_BATCH} clips (ROADMAP C, limits); the CPU path "
-            "(--use-cpu) takes it"
+            f"takes at most {MAX_BATCH} clips, its grid's limit (ROADMAP C, limits); the CPU "
+            "path (--use-cpu) takes it"
         )
     try:
         with torch.device("meta"):  # the structure alone: no weights are made
@@ -344,9 +346,25 @@ def preflight(args) -> None:
     if not args.use_cpu and heads > MAX_HEADS:
         raise SystemExit(
             f"-a {args.arch} --num-split {args.num_split}: {heads} heads; the card's "
-            f"batch-hard mining kernel (K3) mines at most {MAX_HEADS} in one launch "
+            f"batch-hard mining kernel (K3) mines at most {MAX_HEADS}, its grid's limit "
             "(ROADMAP C, limits); the CPU path (--use-cpu) takes them"
         )
+    scratch = hard_mine_scratch_bytes(heads, args.train_batch)
+    card = card_memory() if not args.use_cpu and scratch else None
+    if card is not None and scratch > card:
+        raise SystemExit(
+            f"--train-batch {args.train_batch}: the card's batch-hard mining kernel (K3) takes "
+            f"{scratch / 2**30:.1f} GiB of partials at {heads} heads, more than the card's "
+            f"{card / 2**30:.1f} GiB (ROADMAP C, limits); the CPU path (--use-cpu) takes it"
+        )
+
+
+def card_memory():
+    """Bytes of memory of the card this process runs on, or None without
+    one (the run then stops where it asks for the card)."""
+    if not torch.cuda.is_available():
+        return None
+    return torch.cuda.get_device_properties(torch.cuda.current_device()).total_memory
 
 
 def model_kwargs(args, dtype=torch.float32) -> dict:

@@ -49,10 +49,15 @@ and each request chunk (padded as above) splits into equal contiguous
 parts, one a device, whose features come back concatenated in order.
 `from_exported` refuses a mesh of more than one device, as agrl_tpu's
 does: scale artifact serving by process. The local-devices form has no mp
-axis: agrl_tpu's FeatureExtractor replicates the weights over the mesh
-(export.py:161), so a `--mesh-mp` run serves from its checkpoint, which
-holds the whole weights (core/checkpoint.py `fetch_global_state`); a model
-still holding mp shards is refused.
+axis. A model placed by `parallel.place_state` (a `--mesh-mp` run's, its
+wide Linears held as mp blocks) is served whole: at construction the
+FeatureExtractor gathers every block over the model's mp group, once,
+with `parallel.whole_weights`'s gather, and serves from its own copy of
+the whole weights (K1 on the whole W), as agrl_tpu's FeatureExtractor
+replicates whatever variables it is given (export.py:161): a snapshot of
+the weights at construction, where a model without blocks is served live.
+The trained model keeps its blocks. The gather is a collective: every
+rank of the mp group builds its FeatureExtractor, in the same order.
 """
 
 from __future__ import annotations
@@ -149,7 +154,18 @@ class FeatureExtractor:
     or from an exported artifact (`FeatureExtractor.from_exported`), which
     needs no model code. `bf16` (default True, as agrl_tpu's) rounds the
     weights, pixels and adjacency to bf16 (engine/evaluator.py
-    `eval_program`); bf16=False serves float32."""
+    `eval_program`); bf16=False serves float32.
+
+    Which weights it serves: a model without mp blocks is served live (the
+    extractor holds the module itself, moved to `device`), so a request
+    sees the weights the model holds at that moment. A model holding mp
+    blocks (parallel.place_state) is served from a snapshot: copied whole
+    at construction, each block gathered over its mp group, so weights the
+    model takes later do not reach the extractor; build a new one to serve
+    them. Every rank of that group builds its FeatureExtractor, in the same
+    order, as every rank enters parallel.whole_weights; the model keeps its
+    blocks. The copy holds the weights and buffers, not the model's
+    gradients (a Parameter's deep copy clones its data alone)."""
 
     def __init__(
         self,
@@ -177,12 +193,15 @@ class FeatureExtractor:
             return
         if model is None:
             raise ValueError("pass a model (or use from_exported)")
-        if any(getattr(m, "mp_shards", None) for m in model.modules()):
-            raise ValueError("the model holds mp shards (parallel.place_state): serve the whole "
-                             "weights, e.g. a model built from the run's checkpoint")
         from agrl_torch.engine.evaluator import make_eval_forward
         from agrl_torch.models import default_num_vertices
+        from agrl_torch.parallel import sharded_weights, whole_weights
 
+        if sharded_weights(model):
+            import copy
+
+            with whole_weights(model):  # one gather a block, over its mp group
+                model = copy.deepcopy(model)  # the weights, not the gradients
         self.model = model.to(self.device)
         self._num_vertices = (
             num_vertices if num_vertices is not None else default_num_vertices(model, seq_len)

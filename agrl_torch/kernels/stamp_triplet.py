@@ -6,7 +6,8 @@ Copies the kernel source (default: agrl_torch/csrc/triplet.cu) with a
 %globaltimer stamp written by each block's thread 0 at the end of every
 phase, builds the copy with nvcc into agrl_torch/_build/, runs the
 forward and the backward at the train step's shape (H=5 heads of
-(16, 2048)) 30 times each, and prints for each phase the median over the
+(16, 2048): the cluster schedule, the launch's parameter table) 30 times
+each, and prints for each phase the median over the
 last 20 runs of each block's time since the first block started (the
 fastest, median and slowest block), then the device time per call of the
 stamped kernels and of an empty kernel (torch.profiler). The stamps cost
@@ -64,7 +65,7 @@ _ANCHORS = (
     ("  cluster.sync();  // every partial has landed in the block that sums it\n",
      "  STAMP_F(5)\n"),
     ("      i_an[out] = k_an;\n    }\n  }\n", "  STAMP_F(6)\n"),
-    ("  const float* f = heads.f[h];\n\n", "  STAMP_B(0)\n"),
+    ("  const float* f = heads[h];\n\n", "  STAMP_B(0)\n"),
     ("  for (int e = tid; e < kBand * B; e += kThreads) ST[e] = 0.f;\n  __syncthreads();\n",
      "  STAMP_B(1)\n"),
     ("    if (wi[p] != 0.f) ST[ki[p] * kBand + tid] = wi[p];\n  __syncthreads();\n",
@@ -102,8 +103,8 @@ def build(source) -> ctypes.CDLL:
         raise RuntimeError(f"nvcc failed for {cu}:\n{proc.stderr[-4000:]}")
     dll = ctypes.CDLL(str(lib))
     p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-    dll.hard_mine_heads_forward.argtypes = [p, i, p, i, i, p, p, p, p, p]
-    dll.hard_mine_heads_backward.argtypes = [p, p, i, i, i, p, p, p, p, p, p, f, p]
+    dll.hard_mine_heads_forward.argtypes = [p, p, i, p, i, i, p, p, p, p, p, p]
+    dll.hard_mine_heads_backward.argtypes = [p, p, p, i, i, i, p, p, p, p, p, p, f, p]
     dll.hard_mine_empty_launch.argtypes = [p]
     dll.read_stamps.argtypes = [i, p, i]
     return dll
@@ -154,12 +155,13 @@ def main() -> int:
             raise RuntimeError(f"launch failed ({rc})")
 
     def forward():
-        check(dll.hard_mine_heads_forward(ptrs, H, labels.data_ptr(), B, D,
-                                          *(o.data_ptr() for o in outs), stream))
+        check(dll.hard_mine_heads_forward(ptrs, None, H, labels.data_ptr(), B, D,
+                                          *(o.data_ptr() for o in outs), None, stream))
         torch.cuda.synchronize()
 
     def backward():
-        check(dll.hard_mine_heads_backward(ptrs, gptrs, H, B, D, *(o.data_ptr() for o in outs),
+        check(dll.hard_mine_heads_backward(ptrs, gptrs, None, H, B, D,
+                                           *(o.data_ptr() for o in outs),
                                            g_ap.data_ptr(), g_an.data_ptr(), _DIST_MIN, stream))
         torch.cuda.synchronize()
 

@@ -88,8 +88,8 @@ def batch_hard_triplet_heads(features, labels, margin: float = 0.3, soft: bool =
     that one loss, so each rank's features get dp times their slice of the
     global gradient; the train step's average of the parameter gradients
     over the dp group divides by dp once. The mp ranks of one dp index
-    mine the same gathered batch. K3's limits (B <= 256, H <= 64) hold for
-    the global B."""
+    mine the same gathered batch. K3 takes any global B, head count and
+    width (above B = 256 on its long schedule)."""
     if not isinstance(features, (list, tuple)):
         features = [features]
     if mesh is not None:

@@ -7,8 +7,13 @@ farthest sample of its label (self included) and to the nearest sample
 of another label, on Euclidean distances sqrt(max(d2, 1e-12)).
 
 On the card this op IS the hand-written kernels (csrc/triplet.cu): one
-launch mines the H heads of a train step (`hard_mine_heads_kernel`), one
-more launch gives their gradient (`hard_mine_heads_backward_kernel`).
+call mines the H heads of a train step (`hard_mine_heads_kernel`), one
+more gives their gradient (`hard_mine_heads_backward_kernel`), for any
+number of heads, batch and width: the forward's cluster schedule up to
+B = 256, its tiled long schedule above; the backward's S-matrix kernel
+up to B = 96, its pick-based one above (the kernel side picks each by B,
+and the head table by H; none is a setting). A width that is not a multiple of 4 is padded with
+zero columns, which change no distance, and the gradient sliced back.
 The plain versions (`hard_mine_heads_reference`,
 `hard_mine_backward_reference`) serve CPU tensors and check the kernels.
 `hard_mine_heads` takes CUDA tensors to the kernels inside
@@ -25,13 +30,27 @@ import functools
 import torch
 
 # Launches of the CUDA kernels: the forward (one per `hard_mine_heads_kernel`
-# call, whatever the number of heads) and the backward. Plain integers:
-# callers reset them to 0 and read them back.
+# call, whatever the number of heads or the schedule) and the backward.
+# Plain integers: callers reset them to 0 and read them back.
 launches = 0
 backward_launches = 0
 
-# What the kernels take (csrc/triplet.cu checks the same limits)
-MAX_BATCH, MAX_DIM, MAX_HEADS = 256, 8192, 64
+# What the kernels take (csrc/triplet.cu states the same): heads and batch
+# up to grid dimensions (65535, 65535 x 16 rows), any width; the cluster
+# schedule's largest batch; heads the launch's own parameter table holds
+# (more go through a device table of pointers)
+MAX_HEADS, MAX_BATCH = 65535, 65535 * 16
+SHORT_MAX_BATCH, PARAM_HEADS = 256, 64
+
+
+def hard_mine_scratch_bytes(H: int, B: int) -> int:
+    """Device memory the forward takes at (H, B) beside its inputs and
+    outputs: the long schedule's partials (a float2 and an int2 per head,
+    64-column tile and anchor, about B^2 / 4 bytes a head), none for the
+    cluster schedule. csrc/triplet.cu's function of the same name, which
+    the wrapper compares with this one at first use."""
+    return 0 if B <= SHORT_MAX_BATCH else H * -(-B // 64) * B * 16
+
 
 D2_MIN = 1e-12  # the clamp under the square root, as the JAX package has it
 # the distance the clamp leaves; a pick at it carries no gradient (the
@@ -110,23 +129,38 @@ def _lib() -> ctypes.CDLL:
 
     lib = load_library("triplet")
     p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-    lib.hard_mine_heads_forward.argtypes = [p, i, p, i, i, p, p, p, p, p]
+    lib.hard_mine_heads_forward.argtypes = [p, p, i, p, i, i, p, p, p, p, p, p]
     lib.hard_mine_heads_forward.restype = i
-    lib.hard_mine_heads_backward.argtypes = [p, p, i, i, i, p, p, p, p, p, p, f, p]
+    lib.hard_mine_heads_backward.argtypes = [p, p, p, i, i, i, p, p, p, p, p, p, f, p]
     lib.hard_mine_heads_backward.restype = i
+    lib.hard_mine_scratch_bytes.argtypes = [i, i]
+    lib.hard_mine_scratch_bytes.restype = ctypes.c_longlong
     lib.hard_mine_empty_launch.argtypes = [p]
     lib.hard_mine_empty_launch.restype = i
     lib.hard_mine_error_string.argtypes = [i]
     lib.hard_mine_error_string.restype = ctypes.c_char_p
-    limits = (lib.hard_mine_max_batch(), lib.hard_mine_max_dim(), lib.hard_mine_max_heads())
-    if limits != (MAX_BATCH, MAX_DIM, MAX_HEADS):
-        raise RuntimeError(f"csrc/triplet.cu takes (B, D, H) up to {limits}, the wrapper "
-                           f"{(MAX_BATCH, MAX_DIM, MAX_HEADS)}")
+    limits = (lib.hard_mine_max_heads(), lib.hard_mine_max_batch(),
+              lib.hard_mine_short_max_batch(), lib.hard_mine_param_heads())
+    if limits != (MAX_HEADS, MAX_BATCH, SHORT_MAX_BATCH, PARAM_HEADS):
+        raise RuntimeError(f"csrc/triplet.cu states (heads, B, short B, table) {limits}, the "
+                           f"wrapper {(MAX_HEADS, MAX_BATCH, SHORT_MAX_BATCH, PARAM_HEADS)}")
+    for H, B in ((1, 256), (3, 300), (94, 4096)):
+        if lib.hard_mine_scratch_bytes(H, B) != hard_mine_scratch_bytes(H, B):
+            raise RuntimeError(f"csrc/triplet.cu's scratch at (H, B) = ({H}, {B}) is "
+                               f"{lib.hard_mine_scratch_bytes(H, B)} bytes, the wrapper's "
+                               f"{hard_mine_scratch_bytes(H, B)}")
     return lib
 
 
 def _pointers(tensors):
     return (ctypes.c_void_p * len(tensors))(*(t.data_ptr() for t in tensors))
+
+
+def _device_table(tensors, dev):
+    """A device array of the tensors' addresses, copied up on the current
+    stream (the kernels read it in place of their parameter table)."""
+    ptrs = torch.tensor([t.data_ptr() for t in tensors], dtype=torch.int64)
+    return ptrs.pin_memory().to(dev, non_blocking=True)
 
 
 def _check(rc: int, what: str) -> None:
@@ -149,15 +183,14 @@ def _check_heads(features, labels: torch.Tensor):
            for f in features):
         raise ValueError("the heads must share one (B, D), dtype and device")
     B, D = f0.shape
-    if not (0 < B <= MAX_BATCH and 0 < D <= MAX_DIM and D % 4 == 0):
-        raise ValueError(f"kernel takes 0 < B <= {MAX_BATCH}, 0 < D <= {MAX_DIM}, D % 4 == 0; "
-                         f"got B={B} D={D}")
+    if not (0 < B <= MAX_BATCH and D > 0):
+        raise ValueError(f"kernel takes 0 < B <= {MAX_BATCH}, D > 0; got B={B} D={D}")
     dev = f0.device
     if dev.type != "cuda":
         raise ValueError(f"the kernel takes CUDA tensors, got {dev}")
     if f0.dtype != torch.float32 or not all(f.is_contiguous() for f in features):
         raise ValueError(f"features must be contiguous float32, got {f0.dtype}")
-    if any(f.data_ptr() % 16 for f in features):
+    if D % 4 == 0 and any(f.data_ptr() % 16 for f in features):
         raise ValueError("features must be 16-byte aligned")
     if labels.device != dev or labels.dtype != torch.int64 or not labels.is_contiguous():
         raise ValueError(f"labels must be contiguous int64 on {dev}, got {labels.dtype} "
@@ -165,23 +198,36 @@ def _check_heads(features, labels: torch.Tensor):
     return H, B, D
 
 
+def _padded(features, D):
+    """The heads with D rounded up to a multiple of 4 by zero columns (new
+    tensors), or as they are."""
+    pad = -D % 4
+    return features if pad == 0 else [torch.nn.functional.pad(f, (0, pad)) for f in features]
+
+
 def hard_mine_heads_kernel(features, labels: torch.Tensor):
     """Run csrc/triplet.cu's forward on H CUDA heads of one (B, D) in one
-    launch: (d_ap, d_an, i_ap, i_an), each (H, B), no autograd. Raises on
+    call: (d_ap, d_an, i_ap, i_an), each (H, B), no autograd. Raises on
     anything the kernel does not take."""
     global launches
     features = list(features)
     H, B, D = _check_heads(features, labels)
+    features = _padded(features, D)
     lib = _lib()
     dev = labels.device
     d_ap = torch.empty(H, B, dtype=torch.float32, device=dev)
     d_an = torch.empty_like(d_ap)
     i_ap = torch.empty(H, B, dtype=torch.int64, device=dev)
     i_an = torch.empty_like(i_ap)
+    nbytes = lib.hard_mine_scratch_bytes(H, B)
+    scratch = torch.empty(nbytes, dtype=torch.uint8, device=dev) if nbytes else None
     with torch.cuda.device(dev):
+        dtab = _device_table(features, dev) if H > PARAM_HEADS else None
         rc = lib.hard_mine_heads_forward(
-            _pointers(features), H, labels.data_ptr(), B, D, d_ap.data_ptr(), d_an.data_ptr(),
-            i_ap.data_ptr(), i_an.data_ptr(), torch.cuda.current_stream(dev).cuda_stream,
+            _pointers(features), None if dtab is None else dtab.data_ptr(), H,
+            labels.data_ptr(), B, features[0].shape[1], d_ap.data_ptr(), d_an.data_ptr(),
+            i_ap.data_ptr(), i_an.data_ptr(), None if scratch is None else scratch.data_ptr(),
+            torch.cuda.current_stream(dev).cuda_stream,
         )
     _check(rc, "hard_mine_heads")
     launches += 1
@@ -204,18 +250,21 @@ def hard_mine_heads_backward_kernel(features, d_ap, d_an, i_ap, i_an, g_ap, g_an
         if t is not None and (t.shape != (H, B) or t.dtype != dtype or t.device != dev
                               or not t.is_contiguous()):
             raise ValueError(f"{name} must be contiguous {dtype} ({H}, {B}) on {dev}")
+    features = _padded(features, D)
     lib = _lib()
     grads = [torch.empty_like(f) for f in features]
     with torch.cuda.device(dev):
+        dtab = _device_table(features + grads, dev) if H > PARAM_HEADS else None
         rc = lib.hard_mine_heads_backward(
-            _pointers(features), _pointers(grads), H, B, D, d_ap.data_ptr(), d_an.data_ptr(),
-            i_ap.data_ptr(), i_an.data_ptr(), None if g_ap is None else g_ap.data_ptr(),
+            _pointers(features), _pointers(grads), None if dtab is None else dtab.data_ptr(),
+            H, B, features[0].shape[1], d_ap.data_ptr(), d_an.data_ptr(), i_ap.data_ptr(),
+            i_an.data_ptr(), None if g_ap is None else g_ap.data_ptr(),
             None if g_an is None else g_an.data_ptr(), _DIST_MIN,
             torch.cuda.current_stream(dev).cuda_stream,
         )
     _check(rc, "hard_mine_heads_backward")
     backward_launches += 1
-    return grads
+    return [g[:, :D] for g in grads] if grads[0].shape[1] != D else grads
 
 
 def empty_launch(device) -> None:

@@ -37,7 +37,17 @@ Phases (any failure exits non-zero before the result lines):
      flushed) of both kernels, their plain versions and batched
      torch.cdist, an empty kernel's call, the bounds, and the whole
      triplet term (forward and backward: the kernels, the per-head path,
-     the earlier design's structure) with its device operations;
+     the earlier design's structure) with its device operations; then the
+     long schedule (B > 256) at (H, B, D) = (5, 320, 2048), (5, 2048,
+     2048), (1, 4096, 2048) and (65, 320, 256) (the device head table) on
+     integer features (exact Grams in any summation order: ties tie in
+     both): the same bars, the backward against its twin on the same
+     picks within 1e-5 of max, device ms of both kernels, their twins and
+     batched cdist, the bound; then each on continuous features: values
+     atol 1e-4, a pick that differs a near-tie (float64 squared distances
+     within 1e-5 of sq_i + sq_j), the backward on the kernel's picks
+     within 1e-5 of its twin, two calls bit-equal, and with every anchor
+     its own label d_ap exactly the clamp's floor at pick i;
   9. the train step at the paper config (VMGN, 625 classes, consistent
      loss: 5 heads), 4x4 batches from ClipLoader + RandomIdentitySamplerV1
      over synthetic 256x128 data (restricted, seq_len 8), flips, Adam lr
@@ -215,9 +225,13 @@ Phases (any failure exits non-zero before the result lines):
      of steps 3-6, peak GB, finite losses, K3 1 + 1 launches a step; card
      vs CPU at depth (1,1,1,1), 64x32 (1e-3); K3 vs its twin at msppgn's
      (H=22, D=1536) and at (64, 1536), the most heads one launch takes,
-     device ms over 5 calls; one CLI epoch of -a msppgn
-     --num-scale 3 on phase 16's layout, then --evaluate under evenly and
-     all (all pads the adjacency through msppgn's pad_eval_adjacency; K1 0);
+     device ms over 5 calls, and as phase 8's long shapes at msppgn's 94
+     heads at --num-split 16 (94, 16, 1536: the device head table),
+     ganet's 10240-d heads at --num-gb 4 (2, 16, 10240) and a long batch
+     of a ragged width (3, 300, 1030: D padded to 1032); one CLI epoch of
+     -a msppgn --num-scale 3 on phase 16's layout, then --evaluate under
+     evenly and all (all pads the adjacency through msppgn's
+     pad_eval_adjacency; K1 0);
  26. (run after phase 25; its kernel check after phase 8) the legacy video
      archs at the paper's widths (ResNet-50 (3,4,6,3) with layer4 at
      stride 2, or the 3-D ResNet-50; 256x128, seq_len 8, fp32, 625
@@ -276,12 +290,26 @@ Phases (any failure exits non-zero before the result lines):
      Evaluator on phase 4's model placed answers phase 4's
      requests (the shards gathered whole: K1 2 a 16-clip batch on the
      whole 2048 x 2048 W, never a block), features within 1e-5 of max of
-     phase 4's, the blocks back after it;
+     phase 4's, the blocks back after it; a FeatureExtractor built on each
+     rank's placed model (it gathers the blocks whole once, at
+     construction) answers phase 4's requests bit-equal to phase 4's, K1
+     2 a 16-clip chunk, the model keeping its blocks;
+ 29. (run after phase 28) K3's long schedule, device head table and wide
+     heads through whole train steps, one K3 launch each way a step: VMGN
+     at full depth and width (phase 9's recipe) at --train-batch 320 (80
+     ids x 4) with seq_len 5 and 64x32 frames (cut: frame size and
+     seq_len; the consistent loss's subclips take 5 frames), two steps
+     with finite losses, step 1's loss against the same step with the
+     plain twins patched in (rtol 1e-5, as phase 10), the step's picks
+     against the plain mining's (any that differ are near-ties: their
+     float64 squared distances within 1e-5 of sq_i + sq_j), the whole
+     gradient's difference reported; msppgn at --num-split 16 --learn-graph
+     (94 heads) and ganet at --num-gb 4 (two 10240-d heads), one step each;
 then one {"serving": ...} line (with "bf16" and "artifact"), one {"training": ...} line (with "bf16"),
 one {"reranking": ...} line, one {"cli": ...} line (with "bf16"), one {"evaluation": ...}
 line, one {"input": ...} line, one {"train_surface": ...} line, one {"archs": ...} line, one
 {"graphnets": ...} line, one {"legacy": ...} line, one {"parallel": ...} line, one
-{"mp": ...} line, one {"kernels": [...]} line (each kernel's `slower_than_plain`
+{"mp": ...} line, one {"k3_paths": ...} line, one {"kernels": [...]} line (each kernel's `slower_than_plain`
 lists the shapes where this run timed it above its plain version), the
 card's name and power limit, and
 {"ok": true, "device": {...}} as the last line.
@@ -672,18 +700,18 @@ def random_clips(n, seed):
     return rng.randint(0, 256, (n, SEQ_LEN, HEIGHT, WIDTH, 3)).astype(np.uint8)
 
 
-def pose_adjacency(n, seed, num_scale=1):
+def pose_adjacency(n, seed, num_scale=1, seq_len=SEQ_LEN, height=HEIGHT, width=WIDTH):
     """Pose graphs from plausible random standing poses (the synthetic
     dataset's pose model), built by the port's GraphBuilder: 56 vertices,
-    or 168 at num_scale 3 (msppgn's three feature scales)."""
+    or 168 at num_scale 3 (msppgn's three feature scales), at seq_len 8."""
     from agrl_torch.data.datasets.synthetic import _make_pose
     from agrl_torch.data.graph import GraphBuilder
 
     rng = np.random.RandomState(seed)
     gb = GraphBuilder(num_split=4, pyramid_part=True, num_scale=num_scale)
-    heights = np.full(SEQ_LEN, HEIGHT, np.float64)
+    heights = np.full(seq_len, height, np.float64)
     return np.stack([
-        gb(np.stack([_make_pose(rng, WIDTH, HEIGHT) for _ in range(SEQ_LEN)]), heights)
+        gb(np.stack([_make_pose(rng, width, height) for _ in range(seq_len)]), heights)
         for _ in range(n)
     ]).astype(np.float32)
 
@@ -1060,15 +1088,84 @@ def phase_eval_strategies(torch, layers_mod, gc, model, device):
     return out
 
 
-def triplet_heads(torch, H, B, D, device, seed):
+def triplet_heads(torch, H, B, D, device, seed, integer=False):
     """H heads of (B, D) features over one P x K batch (the labels are
-    shared): identity centres plus noise, no tied distances in a row."""
+    shared): identity centres plus noise, no tied distances in a row.
+    `integer`: small integers (centres in [-1, 1], noise in [-3, 3]), whose
+    Grams every summation order gives exactly, so that tied distances tie
+    exactly in the kernel and its plain twin and go to the lowest index in
+    both; the long shapes take them (continuous features of a long batch
+    hold near-ties closer than one fp32 order's rounding of another)."""
     rng = np.random.RandomState(seed)
     labels = np.repeat(np.arange(-(-B // 4)), 4)[:B]
-    heads = [(rng.randn(B, D) + rng.randn(labels[-1] + 1, D)[labels] * 0.3) * 0.5
-             for _ in range(H)]
+    if integer:
+        heads = [rng.randint(-3, 4, (B, D)) + rng.randint(-1, 2, (labels[-1] + 1, D))[labels]
+                 for _ in range(H)]
+    else:
+        heads = [(rng.randn(B, D) + rng.randn(labels[-1] + 1, D)[labels] * 0.3) * 0.5
+                 for _ in range(H)]
     return ([torch.from_numpy(h.astype(np.float32)).to(device) for h in heads],
             torch.from_numpy(labels.astype(np.int64)).to(device))
+
+
+def near_tie_gap(heads, got, want, slots=(2, 3)):
+    """(picks that differ, their largest float64 gap) between two minings
+    (d_ap, d_an, i_ap, i_an) of the same heads, over the index slots
+    `slots` (both picks by default): for each differing pick,
+    the float64 squared distances of the two picks from the anchor apart,
+    over sq_i + sq_j. The quadratic form cancels sq_i + sq_j, and each fp32
+    summation order rounds at their scale, so picks closer than that may
+    swap between two orders; a pick that differs by more is an error."""
+    differ, gap = 0, 0.0
+    for k in slots:
+        for h, i in (got[k] != want[k]).nonzero().tolist():
+            f = heads[h].double()
+            a, b = int(got[k][h, i]), int(want[k][h, i])
+            d2 = ((f[[a, b]] - f[i]) ** 2).sum(dim=1)
+            sq = (f[[i, a, b]] ** 2).sum(dim=1)
+            differ += 1
+            gap = max(gap, float((d2[0] - d2[1]).abs() / (sq[0] + sq[1:].max())))
+    return differ, gap
+
+
+def k3_continuous_check(torch, tri, H, B, D, device, seed):
+    """K3's long schedule on continuous features (triplet_heads' default),
+    whose Grams fp32 orders round apart: values atol 1e-4 against the plain
+    twin; a pick that differs from the twin's must be a near-tie within
+    1e-5 of sq_i + sq_j (near_tie_gap, phase 29's rule); the backward
+    against its twin on the kernel's picks within 1e-5 of max; two calls
+    of each kernel bit-equal. Then the self-distance: the same features
+    with every anchor its own label, whose one positive is itself, so
+    d_ap must be exactly the clamp's floor at pick i (d2_ii exactly 0 in
+    whichever tile holds the diagonal) and d_an the twin's (atol 1e-4,
+    near-ties as above)."""
+    heads, labels = triplet_heads(torch, H, B, D, device, seed=seed)
+    got = tri.hard_mine_heads_kernel(heads, labels)
+    again = tri.hard_mine_heads_kernel(heads, labels)
+    want = tri.hard_mine_heads_reference(heads, labels)
+    gen = torch.Generator(device=device).manual_seed(seed)
+    g_ap, g_an = (torch.rand(H, B, generator=gen, device=device) / B for _ in range(2))
+    grads = tri.hard_mine_heads_backward_kernel(heads, *got, g_ap, g_an)
+    grads_again = tri.hard_mine_heads_backward_kernel(heads, *got, g_ap, g_an)
+    twin = tri.hard_mine_backward_reference(heads, *got, g_ap, g_an)
+    err = max(float((got[k] - want[k]).abs().max()) for k in (0, 1))
+    differ, gap = near_tie_gap(heads, got, want)
+    twin_err = max(rel_err(a.cpu().numpy(), b.cpu().numpy()) for a, b in zip(grads, twin))
+    same = (all(torch.equal(a, b) for a, b in zip(got, again))
+            and all(torch.equal(a, b) for a, b in zip(grads, grads_again)))
+    own = torch.arange(B, device=device)
+    mine = tri.hard_mine_heads_kernel(heads, own)
+    plain = tri.hard_mine_heads_reference(heads, own)
+    self_exact = bool(torch.all(mine[0] == tri._DIST_MIN)
+                      and torch.equal(mine[2], own.expand(H, B)))
+    self_err = float((mine[1] - plain[1]).abs().max())
+    self_differ, self_gap = near_tie_gap(heads, mine, plain, slots=(3,))
+    return dict(max_abs_err=err, picks_differ=differ, picks_float64_rel_gap=gap,
+                picks=2 * H * B, backward_twin_rel_err=twin_err, two_calls_bit_equal=same,
+                self_distance_exact=self_exact, self_d_an_max_abs_err=self_err,
+                self_picks_differ=self_differ, self_picks_float64_rel_gap=self_gap,
+                ok=(err <= 1e-4 and gap <= 1e-5 and twin_err <= 1e-5 and same and self_exact
+                    and self_err <= 1e-4 and self_gap <= 1e-5))
 
 
 def triplet_term(torch, loss_fn, heads, labels):
@@ -1281,19 +1378,19 @@ def main_term_only(root: Path) -> int:
     return 0
 
 
-def colour_clips(n, seed):
+def colour_clips(n, seed, seq_len=SEQ_LEN, height=HEIGHT, width=WIDTH):
     """Clips of a colour each under noise, so the clips of a batch differ
     as real identities do (train-mode BN normalizes over the batch)."""
     rng = np.random.RandomState(seed)
     base = rng.randint(0, 256, (n, 1, 1, 1, 3))
-    noise = rng.randint(-40, 41, (n, SEQ_LEN, HEIGHT, WIDTH, 3))
+    noise = rng.randint(-40, 41, (n, seq_len, height, width, 3))
     return np.clip(base + noise, 0, 255).astype(np.uint8)
 
 
-def subclips(seed):
+def subclips(seed, seq_len=SEQ_LEN):
     """Consistent-loss subclips: sorted subsets of S-3, S-2, S-1 frames."""
     rng = np.random.RandomState(seed)
-    return [np.sort(rng.permutation(SEQ_LEN)[:n]) for n in (SEQ_LEN - 3, SEQ_LEN - 2, SEQ_LEN - 1)]
+    return [np.sort(rng.permutation(seq_len)[:n]) for n in (seq_len - 3, seq_len - 2, seq_len - 1)]
 
 
 def build_train_model(init_model, device, seed=0):
@@ -3620,29 +3717,55 @@ def phase_k1_flags(torch, gc, device, flush):
 
 
 def phase_k3_arch_shapes(torch, tri, losses_mod, device, flush,
-                         shapes=((2, 6144), (1, 1024)), tag="archs", reps=20):
+                         shapes=((2, 6144), (1, 1024)), tag="archs", reps=20, plain_reps=2):
     """K3 vs its twin at ganet's (H=2, D=6144) and sta's (H=1, D=1024) train
-    shapes (phase 25: msppgn's `shapes`): values atol 1e-4, picks equal,
-    the multi-head loss's gradients atol 1e-5; device ms of both kernels
-    and their twins over `reps` calls each, and the bounds."""
+    shapes (phase 25: msppgn's `shapes`; phases 8 and 25 also (H, B, D)
+    shapes of the long schedule, many heads and wide or ragged D; B = 16
+    where a shape names none): values atol 1e-4, picks equal, the
+    multi-head loss's gradients atol 1e-5, two calls of each kernel
+    bit-equal; device ms of both kernels and batched cdist over `reps`
+    calls each, their twins over `plain_reps` (a twin of many heads is
+    thousands of small launches, whose profile costs seconds a call), and
+    the bounds; the backward kernel against its
+    twin on the same picks within 1e-5 of max. Integer features above B =
+    256 (triplet_heads), where every order's Gram is exact and the picks
+    must be equal; there the same shape also on continuous features
+    (k3_continuous_check: picks that differ must be near-ties, and the
+    self-distance exact)."""
     plain_loss = plain_triplet_heads(tri, losses_mod)
     recs = []
-    for H, D in shapes:
-        heads, labels = triplet_heads(torch, H, BATCH, D, device, seed=D)
+    for shape in shapes:
+        t_shape = time.perf_counter()
+        H, B, D = shape if len(shape) == 3 else (shape[0], BATCH, shape[1])
+        heads, labels = triplet_heads(torch, H, B, D, device, seed=D if B == BATCH else D + B,
+                                      integer=B > tri.SHORT_MAX_BATCH)
         got = tri.hard_mine_heads_kernel(heads, labels)
+        again = tri.hard_mine_heads_kernel(heads, labels)
         want = tri.hard_mine_heads_reference(heads, labels)
-        grads = triplet_term(torch, losses_mod.batch_hard_triplet_heads, heads, labels)()
+        kernel_term = triplet_term(torch, losses_mod.batch_hard_triplet_heads, heads, labels)
+        grads, grads_again = kernel_term(), kernel_term()
         plain_grads = triplet_term(torch, plain_loss, heads, labels)()
         torch.cuda.synchronize()
         err = max(float((got[0] - want[0]).abs().max()), float((got[1] - want[1]).abs().max()))
         picks = bool(torch.equal(got[2], want[2]) and torch.equal(got[3], want[3]))
         gerr = max(float((a - b).abs().max()) for a, b in zip(grads, plain_grads))
+        same = (all(torch.equal(a, b) for a, b in zip(got, again))
+                and all(torch.equal(a, b) for a, b in zip(grads, grads_again)))
         gen = torch.Generator(device=device).manual_seed(0)
-        g_ap, g_an = (torch.rand(H, BATCH, generator=gen, device=device) / BATCH
-                      for _ in range(2))
+        g_ap, g_an = (torch.rand(H, B, generator=gen, device=device) / B for _ in range(2))
+        # the backward kernel against its twin on the same picks (the loss
+        # paths above split tied distances' gradients apart: integer
+        # features tie exactly)
+        twin = tri.hard_mine_backward_reference(heads, *got, g_ap, g_an)
+        twin_err = max(rel_err(a.cpu().numpy(), b.cpu().numpy()) for a, b in zip(
+            tri.hard_mine_heads_backward_kernel(heads, *got, g_ap, g_an), twin))
+        del twin
         stacked = torch.stack(heads)
-        rec = dict(H=H, B=BATCH, D=D, max_abs_err=err, picks_equal=picks, grad_max_abs_err=gerr,
-                   timing={})
+        rec = dict(H=H, B=B, D=D, max_abs_err=err, picks_equal=picks, grad_max_abs_err=gerr,
+                   backward_twin_rel_err=twin_err, two_calls_bit_equal=same, timing={})
+        if B > tri.SHORT_MAX_BATCH:
+            rec["continuous"] = k3_continuous_check(torch, tri, H, B, D, device, seed=H + B + D)
+        rec["check_seconds"] = time.perf_counter() - t_shape
         for name, fn in (("ms", lambda: tri.hard_mine_heads_kernel(heads, labels)),
                          ("backward_ms", lambda: tri.hard_mine_heads_backward_kernel(
                              heads, *got, g_ap, g_an)),
@@ -3650,18 +3773,34 @@ def phase_k3_arch_shapes(torch, tri, losses_mod, device, flush,
                          ("plain_backward_ms", lambda: tri.hard_mine_backward_reference(
                              heads, *got, g_ap, g_an)),
                          ("library_ms", lambda: torch.cdist(stacked, stacked))):
-            rec[name], rec["timing"][name] = device_ms_or_events(torch, fn, flush, n=reps)
-        rec["bound_ms"], rec["bound_by"] = triplet_bound_ms(H, BATCH, D)
+            rec[name], rec["timing"][name] = device_ms_or_events(
+                torch, fn, flush, n=plain_reps if name.startswith("plain") else reps)
+        rec["bound_ms"], rec["bound_by"] = triplet_bound_ms(H, B, D)
         rec["backward_bound_ms"], rec["backward_bound_by"] = triplet_bound_ms(
-            H, BATCH, D, s_nnz=s_nonzeros(torch, tri, *got))
-        log(f"[{tag}] K3 H={H} B={BATCH} D={D}: max|kernel - plain| {err:.3e} (atol 1e-4), "
-            f"picks equal {picks}, gradients {gerr:.3e} (atol 1e-5); device ms forward "
-            f"{rec['ms']:.4f} (bound {rec['bound_ms']:.6f}, plain {rec['plain_ms']:.4f}, cdist "
+            H, B, D, s_nnz=s_nonzeros(torch, tri, *got))
+        rec["share_of_bound"] = rec["bound_ms"] / rec["ms"]
+        rec["seconds"] = time.perf_counter() - t_shape
+        log(f"[{tag}] K3 H={H} B={B} D={D}: max|kernel - plain| {err:.3e} (atol 1e-4), "
+            f"picks equal {picks}, gradients {gerr:.3e} (atol 1e-5), backward vs its twin "
+            f"{twin_err:.3e} of max (tol 1e-5), two calls bit-equal {same}; device ms forward {rec['ms']:.4f} (bound {rec['bound_ms']:.6f}, "
+            f"{rec['share_of_bound']:.1%} of it; plain {rec['plain_ms']:.4f}, cdist "
             f"{rec['library_ms']:.4f}), backward {rec['backward_ms']:.4f} (bound "
             f"{rec['backward_bound_ms']:.6f}, plain {rec['plain_backward_ms']:.4f}); timed by "
-            f"{rec['timing']}")
-        if not (err <= 1e-4 and picks and gerr <= 1e-5):
-            raise AssertionError(f"K3 at H={H} D={D}: {rec}")
+            f"{rec['timing']}; {rec['seconds']:.1f} s ({rec['check_seconds']:.1f} s of checks)")
+        cont = rec.get("continuous")
+        if cont is not None:
+            log(f"[{tag}] K3 H={H} B={B} D={D} on continuous features: max|kernel - plain| "
+                f"{cont['max_abs_err']:.3e} (atol 1e-4), {cont['picks_differ']} of "
+                f"{cont['picks']} picks differ, float64 squared distances "
+                f"{cont['picks_float64_rel_gap']:.3e} apart of sq_i + sq_j (tol 1e-5); backward "
+                f"vs its twin {cont['backward_twin_rel_err']:.3e} of max (tol 1e-5), two calls "
+                f"bit-equal {cont['two_calls_bit_equal']}; every anchor its own label: d_ap the "
+                f"clamp's floor at pick i {cont['self_distance_exact']}, d_an "
+                f"{cont['self_d_an_max_abs_err']:.3e} (atol 1e-4), {cont['self_picks_differ']} "
+                f"picks differ, {cont['self_picks_float64_rel_gap']:.3e} apart (tol 1e-5)")
+        if not (err <= 1e-4 and picks and gerr <= 1e-5 and twin_err <= 1e-5 and same
+                and (cont is None or cont["ok"])):
+            raise AssertionError(f"K3 at H={H} B={B} D={D}: {rec}")
         recs.append(rec)
     return recs
 
@@ -3768,8 +3907,14 @@ def phase_archs(torch, tri, gc, layers_mod, device):
 GRAPHNETS = ("msppn", "msppgn")
 NUM_SCALES_GRAPHNET = 3  # their vertices span layer2, layer3 and layer4
 # K3 at msppn's and msppgn's train steps (--num-gb 2) and at the most heads
-# one launch takes (ops/triplet.MAX_HEADS, 64); timed over 5 calls
+# the launch's parameter table holds (ops/triplet.PARAM_HEADS, 64); timed
+# over 5 calls
 GRAPHNET_K3_SHAPES, GRAPHNET_K3_REPS = ((22, 512), (22, 1536), (64, 1536)), 5
+# K3 past the cluster schedule's limits (phase 25, beside phase 8): msppgn's
+# 94 heads at --num-split 16 (the device head table), ganet's 10240-d heads
+# at --num-gb 4 (D past 8192), and a long batch of a ragged D (padded to
+# 1032); phase 8 takes the long batches at the train width (K3_LONG_SHAPES)
+K3_WIDE_SHAPES = ((94, 16, 1536), (2, 16, 10240), (3, 300, 1030))
 
 
 def build_graphnet(torch, arch, device, seed=0):
@@ -3960,6 +4105,10 @@ def phase_legacy(torch, tri, gc, layers_mod, device):
 # ---- phase 27: data parallelism on the one card -----------------------------
 
 PARALLEL_STEPS = 8
+# K3's long schedule at the train width: VMGN's heads at --train-batch 320,
+# a dp batch of 8 cards x 256 clips (128-row tiles), and 4096 clips of one
+# head; and past the launch's parameter table (65 heads: the device table)
+K3_LONG_SHAPES = ((5, 320, 2048), (5, 2048, 2048), (1, 4096, 2048), (65, 320, 256))
 COLLECTIVES = ("all_gather", "all_reduce", "broadcast")
 
 
@@ -4426,6 +4575,19 @@ def mp_worker(rank: int, port: int, work: str) -> int:
         out["features"], out["k1_launches"], out["k1_w_shapes"] = mp_eval_requests(
             torch, serve, mesh, device)
         out["blocks_restored"] = all(p is blocks[n] for n, p in serve.named_parameters())
+        # a FeatureExtractor on the placed model: the blocks gathered whole
+        # once, at construction; phase 4's requests with K1 counted
+        from agrl_torch.engine.export import FeatureExtractor
+        from agrl_torch.ops import graph_conv as gc
+        from agrl_torch.parallel import sharded_weights
+
+        fx = FeatureExtractor(serve, batch_size=BATCH, seq_len=SEQ_LEN, bf16=False, device=device)
+        gc.launches = 0  # the mp serving path starts here
+        out["fx_features"] = {n: fx(imgs, adjs)
+                              for n, (imgs, adjs) in serving_requests_of_phase4().items()}
+        out["fx_k1_launches"] = gc.launches  # and ends here
+        out["fx_blocks_kept"] = (set(sharded_weights(serve)) == set(out["plan"]) and all(
+            p is blocks[n] for n, p in serve.named_parameters()))
         torch.save(out, f"{work}/rank{rank}.pt")
     finally:
         dist.destroy_process_group()
@@ -4488,6 +4650,8 @@ def phase_mp(torch, batches, plain, plain_ref, serving_outs):
         for k in ranks[0]["digests"])
     eval_errs = {r: {n: rel_err(f, serving_outs[n]) for n, f in rank["features"].items()}
                  for r, rank in enumerate(ranks)}
+    fx_equal = [all(np.array_equal(f, serving_outs[n]) for n, f in rank["fx_features"].items())
+                and rank["fx_features"].keys() == serving_outs.keys() for rank in ranks]
     want_k1 = 2 * sum(math.ceil(n / BATCH) for n in serving_outs)
     out = dict(
         backend=r0["backend"], mesh=[rank["mesh"] for rank in ranks], plan=r0["plan"],
@@ -4506,6 +4670,8 @@ def phase_mp(torch, batches, plain, plain_ref, serving_outs):
         eval_rel_err=eval_errs, k1_launches=[r["k1_launches"] for r in ranks],
         k1_w_shapes=[r["k1_w_shapes"] for r in ranks],
         blocks_restored=[r["blocks_restored"] for r in ranks],
+        serving_bit_equal=fx_equal, serving_k1_launches=[r["fx_k1_launches"] for r in ranks],
+        serving_blocks_kept=[r["fx_blocks_kept"] for r in ranks],
         phase_seconds=time.perf_counter() - t_phase)
     log(f"[mp] dp 1 x mp {MP} over gloo on the one card ({out['mesh']}): sharded {r0['plan']} "
         f"as blocks {r0['blocks']}; {PARALLEL_STEPS} steps of phase 9's recipe, step median "
@@ -4527,8 +4693,11 @@ def phase_mp(torch, batches, plain, plain_ref, serving_outs):
     log(f"[mp] mp eval of phase 4's requests: features vs phase 4's max|diff|/max "
         f"{ {r: max(e.values()) for r, e in eval_errs.items()} } (tol 1e-5); K1 "
         f"{out['k1_launches']} launches a rank (want {want_k1}) on W of shape "
-        f"{out['k1_w_shapes']}; blocks restored {out['blocks_restored']}; "
-        f"{out['phase_seconds']:.1f} s")
+        f"{out['k1_w_shapes']}; blocks restored {out['blocks_restored']}")
+    log(f"[mp] FeatureExtractor on each rank's placed model (the blocks gathered whole at "
+        f"construction): phase 4's requests bit-equal to phase 4's {fx_equal}; K1 "
+        f"{out['serving_k1_launches']} launches a rank (want {want_k1}); the model keeps its "
+        f"blocks {out['serving_blocks_kept']}; {out['phase_seconds']:.1f} s")
     finite = all(math.isfinite(v) for r in ranks for h in r["history"] for v in h.values())
     whole_w = [[FEATURE_DIM, FEATURE_DIM]]
     if not (finite and out["backend"] == "gloo"
@@ -4543,8 +4712,168 @@ def phase_mp(torch, batches, plain, plain_ref, serving_outs):
             and all(max(e.values()) <= 1e-5 for e in eval_errs.values())
             and out["k1_launches"] == [want_k1] * MP
             and [[list(s) for s in w] for w in out["k1_w_shapes"]] == [whole_w] * MP
-            and all(out["blocks_restored"])):
+            and all(out["blocks_restored"])
+            and all(fx_equal) and out["serving_k1_launches"] == [want_k1] * MP
+            and all(out["serving_blocks_kept"])):
         raise AssertionError(f"the dp 1 x mp {MP} group: {out}")
+    return out
+
+
+# ---- phase 29: K3's long batch, many heads and wide heads through whole steps --
+
+# VMGN at --train-batch 320 (80 ids x 4 clips): the cut frame size and
+# seq_len that fit one card (1,600 frames a step, 78% of the paper step's
+# pixels; at 256x128 and seq_len 8 it would take ~220 GB). seq_len 5 is
+# the least the consistent loss's three subclips take (5 heads)
+LONG_BATCH, LONG_SEQ, LONG_HEIGHT, LONG_WIDTH, LONG_STEPS = 320, 5, 64, 32, 2
+
+
+def long_batches(n, seed):
+    """n batches of LONG_BATCH colour clips of 80 ids at LONG_SEQ frames of
+    LONG_HEIGHT x LONG_WIDTH, with pose graphs (16 drawn, tiled)."""
+    pids = np.repeat(np.arange(LONG_BATCH // 4), 4)
+    out = []
+    for i in range(n):
+        graphs = pose_adjacency(16, seed + i, seq_len=LONG_SEQ, height=LONG_HEIGHT,
+                                width=LONG_WIDTH)
+        out.append((colour_clips(LONG_BATCH, seed + i, LONG_SEQ, LONG_HEIGHT, LONG_WIDTH), pids,
+                    np.tile(graphs, (LONG_BATCH // 16, 1, 1))))
+    return out
+
+
+def counted_steps(torch, tri, model, batches):
+    """Train steps of the paper recipe (Adam lr 1e-4, wd 5e-4, flips, soft
+    margin) on `batches`: losses, host ms a step (synced), peak GB, and K3's
+    forward and backward launches over them."""
+    from agrl_torch.engine.trainer import make_train_step
+    from agrl_torch.optim import init_optim
+
+    model.train()
+    opt = init_optim("adam", model.parameters(), 1e-4, weight_decay=5e-4)
+    step = make_train_step(model, opt, lambda s: 1e-4, label_smooth=False, soft_margin=True,
+                           aug={"flip_aug": True})
+    gen = torch.Generator().manual_seed(29)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    losses, times = [], []
+    tri.launches = tri.backward_launches = 0  # the path starts here
+    for imgs, pids, adjs in batches:
+        t0 = time.perf_counter()
+        metrics = step(imgs, pids, adjs, generator=gen)
+        losses.append([float(metrics[k]) for k in ("loss", "xent_loss", "htri_loss")])
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+    launches = [tri.launches, tri.backward_launches]  # and ends here
+    return dict(losses=losses, step_ms=times, peak_mem_gb=torch.cuda.max_memory_allocated() / 1e9,
+                k3_launches=launches,
+                finite=all(math.isfinite(v) for r in losses for v in r))
+
+
+def phase_k3_paths(torch, tri, losses_mod, device):
+    """Phase 29: the train steps that reach K3's long schedule, its device
+    head table and its wide heads, one K3 launch each way a step: VMGN at
+    full depth and width at --train-batch 320 (two steps; step 1's loss
+    against the same step with the plain twins patched in, as phase 10,
+    and the step's picks against the plain mining's: any that differ are
+    near-ties), msppgn at --num-split 16 (94 heads, one step) and ganet at
+    --num-gb 4 (two 10240-d heads, one step)."""
+    from agrl_torch.engine import trainer as trainer_mod
+    from agrl_torch.models import default_num_vertices, init_model
+
+    t_phase = time.perf_counter()
+    out = {}
+    # VMGN at --train-batch 320
+    model = build_train_model(init_model, device)
+    batches = long_batches(LONG_STEPS, 290)
+    imgs, pids, adjs = batches[0]
+    step = frozen_step(torch, model)
+    flip = np.arange(LONG_BATCH) % 2 == 0
+    subs = subclips(290, LONG_SEQ)
+    seen = []
+
+    def recorded(features, labels, *args, **kwargs):  # the kernel path, its heads kept
+        seen.append(([f.detach().clone() for f in features], labels.clone()))
+        return losses_mod.batch_hard_triplet_heads(features, labels, *args, **kwargs)
+
+    torch.backends.cudnn.deterministic = True
+    trainer_mod.batch_hard_triplet_heads = recorded
+    try:
+        kern = step(imgs, pids, adjs, flip=flip, subclip_indices=subs)
+        g_kern = grads_of(model)
+        trainer_mod.batch_hard_triplet_heads = plain_triplet_heads(tri, losses_mod)
+        plain = step(imgs, pids, adjs, flip=flip, subclip_indices=subs)
+        g_plain = grads_of(model)
+    finally:
+        trainer_mod.batch_hard_triplet_heads = losses_mod.batch_hard_triplet_heads
+        torch.backends.cudnn.deterministic = False
+    loss_err = abs(float(kern["loss"]) - float(plain["loss"])) / abs(float(plain["loss"]))
+    # the step's heads mined both ways: picks that differ must be near-ties
+    # within fp32's reach, their float64 squared distances from the anchor
+    # within 1e-5 of the quadratic form's terms (sq_i + sq_j: the form
+    # cancels them, and each fp32 order rounds at their scale); such a pick
+    # hands one anchor's gradient to another row
+    (heads, labels), = seen
+    differ, gap = near_tie_gap(heads, tri.hard_mine_heads_kernel(heads, labels),
+                               tri.hard_mine_heads_reference(heads, labels))
+    # the whole gradient (Frobenius over every leaf) and the worst leaf (max
+    # norm), reported: a pick that differs moves its anchor's share of the
+    # gradient to another row, and a BN bias ahead of a train-mode BN sums
+    # to ~0 over the 204,800 positions of layer1
+    whole = math.sqrt(sum(float((g_kern[n] - g).norm()) ** 2 for n, g in g_plain.items())
+                      / sum(float(g.norm()) ** 2 for g in g_plain.values()))
+    worst = max((float((g_kern[n] - g).abs().max() / g.abs().max().clamp_min(1e-30)), n)
+                for n, g in g_plain.items())
+    del g_kern, g_plain, step, seen, heads
+    rec = counted_steps(torch, tri, model, batches)
+    rec.update(batch=LONG_BATCH, seq_len=LONG_SEQ, frame=[LONG_HEIGHT, LONG_WIDTH],
+               heads=TRAIN_HEADS, feature_dim=FEATURE_DIM, kernel_vs_plain_loss_rel_err=loss_err,
+               picks_differ=differ, picks_float64_rel_gap=gap,
+               kernel_vs_plain_grad_fro_rel_err=whole,
+               kernel_vs_plain_grad_worst_leaf_rel_err=worst[0],
+               kernel_vs_plain_grad_worst_leaf=worst[1])
+    out["vmgn_batch_320"] = rec
+    log(f"[k3paths] VMGN (ResNet-50, 625 classes, 5 heads) at --train-batch {LONG_BATCH}, "
+        f"seq_len {LONG_SEQ}, {LONG_HEIGHT}x{LONG_WIDTH}: steps "
+        f"{', '.join(f'{t:.1f}' for t in rec['step_ms'])} ms, peak {rec['peak_mem_gb']:.2f} GB, "
+        f"losses {[r[0] for r in rec['losses']]}; hard_mine {rec['k3_launches']} launches in "
+        f"{LONG_STEPS} steps; step 1 kernel vs plain triplet: loss rel {loss_err:.3e} (tol "
+        f"1e-5); picks of the step's heads, kernel vs plain: {differ} of "
+        f"{2 * TRAIN_HEADS * LONG_BATCH} differ, their float64 squared distances "
+        f"{gap:.3e} apart of sq_i + sq_j (tol 1e-5); gradient {whole:.3e} (Frobenius over every leaf), worst leaf "
+        f"{worst[1]} {worst[0]:.3e} of its max (reported)")
+    if not (rec["finite"] and rec["k3_launches"] == [LONG_STEPS] * 2 and loss_err <= 1e-5
+            and gap <= 1e-5):
+        raise AssertionError(f"VMGN at --train-batch {LONG_BATCH}: {rec}")
+    del model, batches
+    torch.cuda.empty_cache()
+
+    # msppgn at --num-split 16 (94 heads; --learn-graph alone reads no
+    # adjacency: an all-ones one) and ganet at --num-gb 4
+    pids = np.repeat(np.arange(BATCH // 4), 4)
+    for name, arch, kw in (
+            ("msppgn_split_16", "msppgn", dict(num_split=16, num_gb=2, use_pose=False,
+                                                 learn_graph=True)),
+            ("ganet_gb_4", "ganet", dict(num_split=4, num_gb=4, use_pose=True, learn_graph=True,
+                                         consistent_loss=True))):
+        model = init_model(arch, num_classes=NUM_CLASSES, device=device, seed=0,
+                           pyramid_part=True, dtype=torch.float32, **kw)
+        heads = getattr(model, "num_heads", 2)
+        if arch == "msppgn":
+            V = default_num_vertices(model, SEQ_LEN)
+            batch = (colour_clips(BATCH, 291), pids, np.ones((BATCH, V, V), np.float32))
+        else:
+            batch = surface_batches(1, 292)[0]
+        rec = counted_steps(torch, tri, model, [batch])
+        rec.update(heads=heads, flags=kw)
+        out[name] = rec
+        log(f"[k3paths] {arch} {kw}: {heads} heads; one step {rec['step_ms'][0]:.1f} ms (the "
+            f"first: allocation and cuDNN's choice included), peak {rec['peak_mem_gb']:.2f} GB, "
+            f"loss {rec['losses'][0]}; hard_mine {rec['k3_launches']} launches")
+        if not (rec["finite"] and rec["k3_launches"] == [1, 1]):
+            raise AssertionError(f"{arch} at {kw}: {rec}")
+        del model
+        torch.cuda.empty_cache()
+    out["phase_seconds"] = time.perf_counter() - t_phase
     return out
 
 
@@ -4608,8 +4937,13 @@ def main() -> int:
     t0 = time.perf_counter()
     arch_kernels = dict(k1_flags=phase_k1_flags(torch, gc, device, flush))
     kernels_seconds = time.perf_counter() - t0
-    # 8. K3 vs plain (run here, beside the other kernel checks)
+    # 8. K3 vs plain (run here, beside the other kernel checks) and its long
+    # schedule
     trec = phase_triplet(torch, tri, losses_mod, device, flush)
+    t0 = time.perf_counter()
+    trec["long_shapes"] = phase_k3_arch_shapes(torch, tri, losses_mod, device, flush,
+                                               K3_LONG_SHAPES, "triplet")
+    trec["long_seconds"] = time.perf_counter() - t0
     # 24, kernels: K3 at the single-scale archs' shapes (beside phase 8)
     t0 = time.perf_counter()
     arch_kernels["k3_shapes"] = phase_k3_arch_shapes(torch, tri, losses_mod, device, flush)
@@ -4619,6 +4953,8 @@ def main() -> int:
     graphnet_kernels = dict(k3_shapes=phase_k3_arch_shapes(
         torch, tri, losses_mod, device, flush, GRAPHNET_K3_SHAPES, "graphnets",
         GRAPHNET_K3_REPS))
+    graphnet_kernels["k3_wide_shapes"] = phase_k3_arch_shapes(
+        torch, tri, losses_mod, device, flush, K3_WIDE_SHAPES, "graphnets", GRAPHNET_K3_REPS)
     graphnet_kernels["kernels_seconds"] = time.perf_counter() - t0
     # 26, kernels: K3 at the legacy archs' one head (beside phase 8)
     t0 = time.perf_counter()
@@ -4746,6 +5082,10 @@ def main() -> int:
     mp = phase_mp(torch, parallel_batches, parallel["train"]["plain"], plain_ref,
                   serving_outs)
     del parallel_batches, serving_outs, plain_ref
+    # 29. K3's long schedule, device head table and wide heads in whole train
+    # steps: VMGN at --train-batch 320, msppgn at --num-split 16, ganet at
+    # --num-gb 4
+    k3_paths = phase_k3_paths(torch, tri, losses_mod, device)
 
     print(json.dumps({"serving": serving}))
     print(json.dumps({"training": training}))
@@ -4761,6 +5101,7 @@ def main() -> int:
     print(json.dumps({"legacy": legacy}))
     print(json.dumps({"parallel": parallel}))
     print(json.dumps({"mp": mp}))
+    print(json.dumps({"k3_paths": k3_paths}))
     kernel = {
         "name": "graph_propagate",
         "route": "cuda",
@@ -4876,7 +5217,8 @@ def main() -> int:
                                    for a, r in archs["archs"].items()},
         "arch_cli_launches_per_step": {a: r["k3_per_step"] for a, r in archs["cli"].items()},
         "arch_shapes": archs["k3_shapes"],
-        "max_heads_checked": max(r["H"] for r in graphnets["k3_shapes"]),
+        "max_heads_checked": max(r["H"] for r in graphnets["k3_shapes"]
+                                 + graphnets["k3_wide_shapes"]),
         "graphnet_launches_per_step": {a: r["training"]["k3_per_step"]
                                        for a, r in graphnets["archs"].items()},
         "graphnet_cli_launches_per_step": {a: r["k3_per_step"]
@@ -4892,6 +5234,19 @@ def main() -> int:
                          "the gathered global batch, one forward and one backward launch a "
                          "step",
         "legacy_shapes": legacy["k3_shapes"],
+        "long_shapes": trec["long_shapes"],
+        "wide_shapes": graphnets["k3_wide_shapes"],
+        "max_batch_checked": max(r["B"] for r in trec["long_shapes"]),
+        "max_dim_checked": max(r["D"] for r in graphnets["k3_wide_shapes"]),
+        "long_batch_launches": k3_paths["vmgn_batch_320"]["k3_launches"],
+        "many_heads_launches": k3_paths["msppgn_split_16"]["k3_launches"],
+        "wide_heads_launches": k3_paths["ganet_gb_4"]["k3_launches"],
+        "paths_note": "phase 29: launches [forward, backward] over VMGN's 2 steps at "
+                      "--train-batch 320 (the long schedule), msppgn's step at --num-split "
+                      "16 (94 heads: the device head table) and ganet's at --num-gb 4 (two "
+                      "10240-d heads); long and wide shapes: integer features above B = 256, "
+                      "and there continuous ones too (`continuous`: picks that differ are "
+                      "near-ties within 1e-5 of sq_i + sq_j; the self-distance exact)",
         "arch_shapes_note": "phase 24: device time per call (torch.profiler), or CUDA events "
                             "around one call where `timing` says so",
         "max_abs_err": trec["max_abs_err"],
@@ -4936,8 +5291,9 @@ def main() -> int:
         "slower_than_plain": slower_than_plain(
             ("forward", trec["ms"], trec["plain_ms"]),
             ("backward", trec["backward_ms"], trec["plain_backward_ms"]),
-            *((f"{n} H={r['H']} D={r['D']}", r[k], r[f"plain_{k}"])
+            *((f"{n} H={r['H']} B={r['B']} D={r['D']}", r[k], r[f"plain_{k}"])
               for r in archs["k3_shapes"] + graphnets["k3_shapes"] + legacy["k3_shapes"]
+              + trec["long_shapes"] + graphnets["k3_wide_shapes"]
               for n, k in (("forward", "ms"), ("backward", "backward_ms")))),
     }
     min_sum = {

@@ -71,12 +71,17 @@ REFUSALS = {
                            "missing --dist-coordinator, --dist-process-id"),
     "dist_process_id": (["--dist-process-id", "0"], "--dist-process-id", "0",
                         "missing --dist-coordinator, --dist-num-processes"),
-    # the card's kernel limits, checked without --use-cpu before the device
-    "card_train_batch": (["--train-batch", "257"], "--train-batch", "257", "ROADMAP C"),
-    # 3 x 31 + 1 = 94 heads, above the 64 K3 mines in one launch
-    "card_heads": (["-a", "msppgn", "--num-split", "16", "--learn-graph"], "--num-split",
-                   "94 heads", "ROADMAP C"),
+    # the card's kernel limits, checked without --use-cpu before the device:
+    # K3's grid takes 65535 x 16 clips, and its long schedule's partials
+    # (~B^2 / 4 bytes a head) must fit in the card's memory (80 GB here)
+    "card_batch_grid": (["--train-batch", "1048561"], "--train-batch", "1048561",
+                        "ROADMAP C"),
+    "card_batch_memory": (["--learn-graph", "--train-batch", "600000"], "--train-batch",
+                          "600000", "GiB of partials"),
 }
+
+# the card's memory where a test stands the card in: an H100's 80 GB
+CARD_MEMORY = 80 * 10**9
 
 
 @pytest.mark.parametrize("case", sorted(REFUSALS))
@@ -87,6 +92,7 @@ def test_preflight_refuses_before_reading_data(case, tmp_path, monkeypatch):
         raise AssertionError("the catalog was read before the refusal")
 
     monkeypatch.setattr("agrl_torch.data.datasets.init_vidreid_dataset", no_data)
+    monkeypatch.setattr(tcli, "card_memory", lambda: CARD_MEMORY)
     for var in ("MASTER_ADDR", "MASTER_PORT", "WORLD_SIZE", "RANK"):  # not under torchrun
         monkeypatch.delenv(var, raising=False)
     base = ["--root", str(tmp_path / "absent"), "--save-dir", str(tmp_path / "log"),
@@ -100,6 +106,45 @@ def test_preflight_refuses_before_reading_data(case, tmp_path, monkeypatch):
     msg = str(exc.value)
     assert flag in msg and value in msg and named in msg, msg
     assert not (tmp_path / "log").exists()
+
+
+# runs that K3 took only on the CPU until its long schedule, device head table
+# and any width: without --use-cpu the pre-flight passes them to the catalog
+CARD_RUNS = {
+    "card_train_batch": ["--learn-graph", "--train-batch", "257"],
+    # 3 x 31 + 1 = 94 heads, more than the launch's parameter table holds
+    "card_heads": ["-a", "msppgn", "--num-split", "16", "--learn-graph"],
+    # (4 + 1) x 2048 = 10240-wide triplet features
+    "card_dim": ["-a", "ganet", "--num-gb", "4"],
+}
+
+
+class _CatalogReached(Exception):
+    pass
+
+
+@pytest.mark.parametrize("case", sorted(CARD_RUNS))
+def test_preflight_reaches_the_catalog_on_the_card(case, tmp_path, monkeypatch):
+    """--train-batch 257, msppgn at --num-split 16 (94 heads) and ganet at
+    --num-gb 4 (D = 10240) pass the pre-flight without --use-cpu and reach
+    the dataset catalog (the card itself stood in by the CPU device and an
+    80 GB memory here)."""
+    def catalog(*args, **kwargs):
+        raise _CatalogReached
+
+    monkeypatch.setattr("agrl_torch.data.datasets.init_vidreid_dataset", catalog)
+    monkeypatch.setattr("agrl_torch.resolve_device", lambda device=None: torch.device("cpu"))
+    monkeypatch.setattr(tcli, "card_memory", lambda: CARD_MEMORY)
+    for var in ("MASTER_ADDR", "MASTER_PORT", "WORLD_SIZE", "RANK"):  # not under torchrun
+        monkeypatch.delenv(var, raising=False)
+    argv = ["--root", str(tmp_path / "absent"), "--save-dir", str(tmp_path / "log"),
+            "-a", "vmgn_tiny", *CARD_RUNS[case]]
+    args = tcli.build_parser().parse_args(argv)
+    assert not args.use_cpu
+    stdout = sys.stdout
+    with pytest.raises(_CatalogReached):
+        tcli.main(argv)
+    assert sys.stdout is stdout
 
 
 def test_every_arch_choice_is_ported_or_refused_by_item():

@@ -304,15 +304,16 @@ def test_hard_mine_kernel_self_distance_is_exact(cuda):
 
 def test_hard_mine_kernel_rejects_what_it_does_not_take(cuda):
     f, labels = _triplet_batch(16, 2048, cuda)
-    with pytest.raises(ValueError):  # B above the kernel's maximum
-        triplet.hard_mine_kernel(torch.zeros(257, 8, device=cuda),
-                                 torch.zeros(257, dtype=torch.int64, device=cuda))
+    big = triplet.MAX_BATCH + 1
+    with pytest.raises(ValueError):  # B above the kernel's maximum (its grid's)
+        triplet.hard_mine_kernel(torch.zeros(big, 4, device=cuda),
+                                 torch.zeros(big, dtype=torch.int64, device=cuda))
     with pytest.raises(ValueError):  # more heads than the kernel takes
         triplet.hard_mine_heads_kernel([f] * (triplet.MAX_HEADS + 1), labels)
     with pytest.raises(ValueError):  # heads of different shapes
         triplet.hard_mine_heads_kernel([f, f[:, :1024].contiguous()], labels)
-    with pytest.raises(ValueError):  # D not a multiple of 4
-        triplet.hard_mine_kernel(f[:, :2046].contiguous(), labels)
+    with pytest.raises(ValueError):  # no columns
+        triplet.hard_mine_kernel(f[:, :0].contiguous(), labels)
     with pytest.raises(ValueError):  # float64
         triplet.hard_mine_kernel(f.double(), labels)
     with pytest.raises(ValueError):  # non-contiguous
@@ -323,13 +324,22 @@ def test_hard_mine_kernel_rejects_what_it_does_not_take(cuda):
         triplet.hard_mine_kernel(f, labels[:8])
 
 
-def _heads_batch(H, B, D, dev, seed=0, K=4, scale=0.5):
+def _heads_batch(H, B, D, dev, seed=0, K=4, scale=0.5, integer=False):
     """H heads over one P x K batch: identity centres plus noise, no tied
-    distances in a row, norms that do not grow with the label."""
+    distances in a row, norms that do not grow with the label. `integer`:
+    small integers (centres in [-1, 1] plus noise in [-3, 3]), whose Grams
+    every summation order gives exactly, so tied distances tie exactly and
+    go to the lowest index in the kernel and its plain twin alike (a long
+    batch of continuous features holds near-ties closer than fp32's
+    rounding of one order against another)."""
     rng = np.random.RandomState(seed)
     labels = np.repeat(np.arange(-(-B // K)), K)[:B]
-    heads = [(rng.randn(B, D) + rng.randn(labels[-1] + 1, D)[labels] * 0.3) * scale
-             for _ in range(H)]
+    if integer:
+        heads = [rng.randint(-3, 4, (B, D)) + rng.randint(-1, 2, (labels[-1] + 1, D))[labels]
+                 for _ in range(H)]
+    else:
+        heads = [(rng.randn(B, D) + rng.randn(labels[-1] + 1, D)[labels] * 0.3) * scale
+                 for _ in range(H)]
     return ([torch.from_numpy(h.astype(np.float32)).to(dev) for h in heads],
             torch.from_numpy(labels.astype(np.int64)).to(dev))
 
@@ -338,19 +348,21 @@ def _heads_batch(H, B, D, dev, seed=0, K=4, scale=0.5):
     (5, 16, 2048),   # the train step: one chunk per block
     (1, 15, 2048),   # ragged band
     (5, 64, 2048),   # 4 bands, a 3-chunk ring
-    (3, 256, 2048),  # the largest B: 16 bands, 10 chunks per block
+    (5, 96, 2048),   # the S-matrix backward's largest B
+    (5, 97, 260),    # the pick-based backward's smallest, D padded
+    (3, 256, 2048),  # the cluster schedule's largest B: 16 bands, 10 chunks a block
     (2, 16, 256),    # 8 columns per block
     (2, 20, 260),    # slices of 8 and 9 float4 columns
     (2, 16, 16),     # D < 32: blocks with no columns
-    (1, 16, 8192),   # the widest D: 2 chunks
-    (8, 16, 2048),   # the most heads
+    (1, 16, 8192),   # a wide D: 2 chunks
+    (8, 16, 2048),   # eight heads
 ])
-def test_hard_mine_heads_kernels_match_plain(cuda, H, B, D):
+def test_hard_mine_heads_kernels_match_plain(cuda, H, B, D, integer=False):
     """One forward launch for all heads: values atol 1e-4, picks equal
     (tie-free input); one backward launch: the gradients of random incoming
     g_ap, g_an against the plain S-matrix backward (atol 1e-5); both
     bit-equal across two calls."""
-    heads, labels = _heads_batch(H, B, D, cuda, seed=H * B + D)
+    heads, labels = _heads_batch(H, B, D, cuda, seed=H * B + D, integer=integer)
     before = (triplet.launches, triplet.backward_launches)
     got = triplet.hard_mine_heads_kernel(heads, labels)
     torch.cuda.synchronize()
@@ -376,6 +388,140 @@ def test_hard_mine_heads_kernels_match_plain(cuda, H, B, D):
     plain_ap = triplet.hard_mine_backward_reference(heads, *got, g_ap, None)
     for a, b in zip(only_ap, plain_ap):
         torch.testing.assert_close(a, b, atol=1e-5, rtol=0)
+
+
+# the long schedule (B > 256), many heads, wide and ragged D: chip_smoke.py
+# phases 8 and 25's shapes and their edges
+LONG_SHAPES = [
+    (1, 257, 64),      # the smallest long batch: 64-row tiles, one of them ragged
+    (3, 300, 1030),    # D padded to 1032 (zero columns), ragged 64-row tiles
+    (5, 320, 2048),    # VMGN at --train-batch 320
+    (5, 2048, 2048),   # 128-row tiles, a segment of 2048 anchors
+    (1, 4096, 2048),   # two segments of the backward's scan
+    (94, 16, 1536),    # msppgn at --num-split 16: the device head table
+    (2, 16, 10240),    # ganet at --num-gb 4: D past 8192
+    (2, 16, 1030),     # the cluster schedule with D padded
+]
+
+
+@pytest.mark.parametrize("H,B,D", LONG_SHAPES)
+def test_hard_mine_heads_long_and_wide_match_plain(cuda, H, B, D):
+    """K3 at any batch, head count and width: one call each way against
+    the plain twins (values atol 1e-4, picks equal, gradients atol 1e-5,
+    two calls bit-equal); integer features above B = 256."""
+    test_hard_mine_heads_kernels_match_plain(cuda, H, B, D, integer=B > 256)
+
+
+def test_hard_mine_long_self_distance_is_exact(cuda):
+    """The long schedule's norms are its Gram's own diagonal: 300 equal
+    rows of one label give d2 exactly 0 in every tile, so d_ap is the
+    clamp's floor with pick 0 and d_an is FLT_MAX, as the plain version."""
+    f = torch.randn(1, 512, device=cuda).repeat(300, 1) * 10
+    labels = torch.zeros(300, dtype=torch.int64, device=cuda)
+    d_ap, d_an, i_ap, _ = triplet.hard_mine_kernel(f, labels)
+    assert torch.all(d_ap == float(torch.sqrt(torch.tensor(1e-12))))
+    assert torch.all(d_an == torch.finfo(torch.float32).max)
+    assert torch.equal(i_ap, torch.zeros_like(i_ap))
+
+
+def test_hard_mine_long_backward_one_row_picked_by_all(cuda):
+    """Row 0 at the centre of a long batch is nearly every other anchor's
+    hardest negative: one band's list holds ~B entries. The gradient
+    against the plain S-matrix backward (atol 1e-5, and 1e-5 of max)."""
+    heads, labels = _heads_batch(2, 600, 256, cuda, seed=5)
+    for h in heads:
+        h[0] = h.mean(dim=0)
+    got = triplet.hard_mine_heads_kernel(heads, labels)
+    want = triplet.hard_mine_heads_reference(heads, labels)
+    assert torch.equal(got[3], want[3])
+    assert int((got[3] == 0).sum()) > 500
+    g = torch.rand(2, 600, device=cuda)
+    grads = triplet.hard_mine_heads_backward_kernel(heads, *got, g, g)
+    plain = triplet.hard_mine_backward_reference(heads, *got, g, g)
+    for a, b in zip(grads, plain):
+        torch.testing.assert_close(a, b, atol=1e-5, rtol=0)
+        assert float((a - b).abs().max()) <= 1e-5 * float(b.abs().max())
+
+
+@pytest.mark.parametrize("H", [65, 94])
+def test_hard_mine_device_table_equals_param_table(cuda, H):
+    """The two forms of the head table run one kernel: H heads in one call
+    (more than 64: the device table) give, bit for bit, the outputs and
+    gradients of their first 64 in one call (the parameter table) and the
+    rest in another, at B = 16 and at B = 320."""
+    for B in (16, 320):
+        heads, labels = _heads_batch(H, B, 256, cuda, seed=H + B)
+        g = torch.rand(H, B, device=cuda)
+        whole = triplet.hard_mine_heads_kernel(heads, labels)
+        parts = [triplet.hard_mine_heads_kernel(heads[s], labels)
+                 for s in (slice(64), slice(64, H))]
+        assert all(torch.equal(a, torch.cat([p[k] for p in parts]))
+                   for k, a in enumerate(whole))
+        grads = triplet.hard_mine_heads_backward_kernel(heads, *whole, g, g)
+        split = [triplet.hard_mine_heads_backward_kernel(heads[s], *(x[s] for x in whole),
+                                                         g[s], g[s])
+                 for s in (slice(64), slice(64, H))]
+        assert all(torch.equal(a, b) for a, b in zip(grads, split[0] + split[1]))
+
+
+def _near_tie_gap(heads, got, want, slots=(2, 3)):
+    """(picks that differ, the largest float64 gap of their squared
+    distances from the anchor over sq_i + sq_j): fp32 orders round the
+    quadratic form at the scale of sq_i + sq_j, so picks closer than that
+    may swap between the kernel and its twin."""
+    differ, gap = 0, 0.0
+    for k in slots:
+        for h, i in (got[k] != want[k]).nonzero().tolist():
+            f = heads[h].double()
+            a, b = int(got[k][h, i]), int(want[k][h, i])
+            d2 = ((f[[a, b]] - f[i]) ** 2).sum(dim=1)
+            sq = (f[[i, a, b]] ** 2).sum(dim=1)
+            differ += 1
+            gap = max(gap, float((d2[0] - d2[1]).abs() / (sq[0] + sq[1:].max())))
+    return differ, gap
+
+
+@pytest.mark.parametrize("H,B,D", [
+    (1, 257, 64),      # 64-row tiles
+    (3, 300, 1030),    # D padded
+    (5, 2048, 2048),   # 128-row tiles
+    (65, 320, 256),    # 128-row tiles, the device head table
+])
+def test_hard_mine_long_continuous_picks_are_near_ties(cuda, H, B, D):
+    """The long schedule on continuous features, whose Grams fp32 orders
+    round apart: values atol 1e-4 against the plain twin; a pick that
+    differs must be a near-tie within 1e-5 of sq_i + sq_j; the backward on
+    the kernel's picks against its twin (1e-5 of max); two calls
+    bit-equal."""
+    heads, labels = _heads_batch(H, B, D, cuda, seed=H * B + D)
+    got = triplet.hard_mine_heads_kernel(heads, labels)
+    want = triplet.hard_mine_heads_reference(heads, labels)
+    torch.testing.assert_close(got[0], want[0], atol=1e-4, rtol=0)
+    torch.testing.assert_close(got[1], want[1], atol=1e-4, rtol=0)
+    assert _near_tie_gap(heads, got, want)[1] <= 1e-5
+    again = triplet.hard_mine_heads_kernel(heads, labels)
+    assert all(torch.equal(a, b) for a, b in zip(got, again))
+    g = torch.rand(H, B, device=cuda) / B
+    grads = triplet.hard_mine_heads_backward_kernel(heads, *got, g, g)
+    for a, b in zip(grads, triplet.hard_mine_backward_reference(heads, *got, g, g)):
+        assert float((a - b).abs().max()) <= 1e-5 * float(b.abs().max())
+
+
+@pytest.mark.parametrize("H,B,D", [(1, 300, 512), (5, 2048, 2048)])
+def test_hard_mine_long_self_distance_of_distinct_rows_is_exact(cuda, H, B, D):
+    """Continuous, distinct rows, every anchor its own label: its one
+    positive is itself, so d_ap is exactly the clamp's floor at pick i only
+    if d2_ii is exactly 0 in the tile that holds the diagonal (64-row tiles
+    at (1, 300), 128-row ones at (5, 2048)); d_an as the plain twin's
+    (atol 1e-4, a differing pick a near-tie within 1e-5 of sq_i + sq_j)."""
+    heads, _ = _heads_batch(H, B, D, cuda, seed=B + D)
+    own = torch.arange(B, device=cuda)
+    got = triplet.hard_mine_heads_kernel(heads, own)
+    want = triplet.hard_mine_heads_reference(heads, own)
+    assert torch.all(got[0] == float(torch.sqrt(torch.tensor(1e-12))))
+    assert torch.equal(got[2], own.expand(H, B))
+    torch.testing.assert_close(got[1], want[1], atol=1e-4, rtol=0)
+    assert _near_tie_gap(heads, got, want, slots=(3,))[1] <= 1e-5
 
 
 @pytest.mark.parametrize("soft", [True, False])
@@ -872,8 +1018,9 @@ def test_single_scale_arch_on_the_card(cuda, arch):
                                    (64, 16, 64)])
 def test_hard_mine_heads_at_the_multi_scale_archs_shapes(cuda, H, B, D):
     """K3 at the train steps of msppn (H=22, D=512) and msppgn at --num-gb
-    2 (22, 1536), msppgn at --num-split 8 (46, 1536), and the limit, 64
-    heads: one launch each way, against the plain twins."""
+    2 (22, 1536), msppgn at --num-split 8 (46, 1536), and 64 heads, the
+    most the launch's parameter table holds: one launch each way, against
+    the plain twins."""
     test_hard_mine_heads_kernels_match_plain(cuda, H, B, D)
 
 

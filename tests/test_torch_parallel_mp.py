@@ -35,6 +35,7 @@ from jax.sharding import PartitionSpec as P
 from agrl_torch.core.checkpoint import save_checkpoint
 from agrl_torch.core.flax_msgpack import read_checkpoint
 from agrl_torch.core.optax_state import load_optax_state
+from agrl_torch.engine.export import FeatureExtractor
 from agrl_torch.engine.trainer import make_train_step
 from agrl_torch.models import build_model
 from agrl_torch.models.weight_convert import LSTM_GATES, from_jax_variables, torch_name_map
@@ -43,6 +44,7 @@ from agrl_torch.parallel import MIN_SHARD_SIZE, Mesh, param_shardings, place_sta
 from agrl_tpu.core.checkpoint import save_checkpoint as jax_save_checkpoint
 from agrl_tpu.engine import make_train_step as jax_make_train_step
 from agrl_tpu.engine.evaluator import Evaluator as JaxEvaluator
+from agrl_tpu.engine.export import FeatureExtractor as JaxFeatureExtractor
 from agrl_tpu.engine.train_state import TrainState
 from agrl_tpu.models import init_model as jax_init_model
 from agrl_tpu.models import init_params
@@ -199,10 +201,23 @@ def runs(tmp_path_factory):
     count = load_optax_state(resumed_opt, resumed, tree["opt_state"], OPTIM)
     msgpack_next = port_steps(resumed, resumed_opt, nxt, start=count)
 
+    # serving: 5 clips behind a batch of 4 (a ragged second chunk), through
+    # agrl_tpu's FeatureExtractor and the port's on the whole weights
+    rng = np.random.RandomState(9)
+    fx_imgs = rng.randint(0, 256, (5, S, H, W, 3)).astype(np.uint8)
+    fx_adjs = ((rng.rand(5, S * 7, S * 7) > 0.5) + np.eye(S * 7)).astype(np.float32)
+    jax_fx = np.asarray(JaxFeatureExtractor(jmodel, variables, batch_size=4, seq_len=S,
+                                            bf16=False)(fx_imgs, fx_adjs))
+    whole = build_model("vmgn_tiny", num_classes=NUM_CLASSES, consistent_loss=True)
+    whole.load_state_dict(init)
+    port_fx = FeatureExtractor(whole, batch_size=4, seq_len=S, bf16=False,
+                               device="cpu")(fx_imgs, fx_adjs)
+
     def inputs(parts):
         return dict(num_classes=NUM_CLASSES, optim=OPTIM, lr=LR, state=init, steps=steps,
                     next=nxt, min_size=MIN_SIZE, parts=parts, loaders=loaders,
-                    clip_batch=CLIP_BATCH, ckpt=str(tmp / "mp.pth.tar"), msgpack=msgpack)
+                    clip_batch=CLIP_BATCH, ckpt=str(tmp / "mp.pth.tar"), msgpack=msgpack,
+                    fx_imgs=fx_imgs, fx_adjs=fx_adjs, fx_batch=4)
 
     jobs = {"2x2": (4, 2, {"place", "eval", "ckpt"}), "1x2": (2, 2, set()), "1x1": (1, 1, set())}
     with ThreadPoolExecutor(len(jobs)) as pool:
@@ -214,7 +229,8 @@ def runs(tmp_path_factory):
         ranks = {layout: f.result() for layout, f in futures.items()}
     return dict(jax_history=jax_history, jax_params=dict(_flat(state.params)),
                 jax_stats=dict(_flat(state.batch_stats)), jax_variables=variables,
-                jax_eval=jax_eval, init=init, port_history=port_history,
+                jax_eval=jax_eval, jax_fx=jax_fx, port_fx=port_fx, init=init,
+                port_history=port_history,
                 port_state=port_state, port_next=port_next, no_mp_ckpt=no_mp_ckpt,
                 msgpack_next=msgpack_next, msgpack_state=_port_state(resumed), ranks=ranks,
                 tmp=tmp)
@@ -316,10 +332,8 @@ def test_res50rnn_input_kernel_shards_per_gate():
 
 def test_eval_forward_and_serving_refuse_blocks():
     """A graph layer holding a block of W refuses its eval forward before
-    K1 (the mesh Evaluator gathers W whole first), and FeatureExtractor
-    refuses a model holding blocks (serving takes the whole weights)."""
-    from agrl_torch.engine.export import FeatureExtractor
-
+    K1 (the mesh Evaluator and the FeatureExtractor gather W whole first;
+    serving a placed model is test_mp_ranks_serve_the_whole_weights)."""
     model = build_model("vmgn_tiny", num_classes=NUM_CLASSES)
     place_state(_mesh(2), model, min_size=MIN_SIZE)
     model.eval()
@@ -327,8 +341,27 @@ def test_eval_forward_and_serving_refuse_blocks():
     assert tuple(layer.linear.weight.shape) == (1024, 2048)
     with pytest.raises(RuntimeError, match="whole W"):
         layer(torch.zeros(1, 7, 2048), torch.ones(1, 7, 7))
-    with pytest.raises(ValueError, match="holds mp shards"):
-        FeatureExtractor(model, batch_size=2, seq_len=S, device="cpu")
+
+
+def test_mp_ranks_serve_the_whole_weights(runs):
+    """A FeatureExtractor built on each rank's placed model at dp 2 x mp 2
+    (both graph linears and both classifiers held as blocks) gathers the
+    blocks whole at construction: five clips behind a batch of 4 give the
+    whole-weights model's features (1e-6 of max: the ranks run one thread)
+    and agrl_tpu's FeatureExtractor's on the same variables (the eval
+    forward's bar, atol 5e-4, rtol 1e-4), the same on every rank; the
+    model keeps its blocks. The extractor serves a snapshot of the weights
+    without the trained model's gradients, which a later change of the
+    model's weights does not reach."""
+    for r in runs["ranks"]["2x2"]:
+        got = r["eval"]["fx"]
+        assert got.shape == runs["port_fx"].shape == runs["jax_fx"].shape
+        assert np.abs(got - runs["port_fx"]).max() <= 1e-6 * np.abs(runs["port_fx"]).max()
+        np.testing.assert_allclose(got, runs["jax_fx"], atol=5e-4, rtol=1e-4)
+        np.testing.assert_array_equal(got, runs["ranks"]["2x2"][0]["eval"]["fx"])
+        assert r["eval"]["fx_blocks_kept"]
+        assert r["eval"]["fx_model_has_grads"] and not r["eval"]["fx_snapshot_has_grads"]
+        np.testing.assert_array_equal(r["eval"]["fx_after_model_change"], got)
 
 
 # --- two train steps ---------------------------------------------------------

@@ -5,6 +5,7 @@ against agrl_tpu's Pallas kernel (interpret mode), its jnp twin and
 jax.value_and_grad of deep_supervision(batch_hard_triplet, ...), on the
 same numpy inputs."""
 
+import inspect
 from functools import partial
 
 import jax
@@ -189,9 +190,14 @@ def test_heads_refuse_other_devices():
 @pytest.mark.parametrize("case,match", [
     ("too_many_heads", "heads"),
     ("no_heads", "heads"),
-    ("batch_257", "B <= 256"),
-    ("dim_not_4", "D % 4"),
-    ("dim_8196", "D <= 8192"),
+    # a long batch, a width that is no multiple of 4 and one past 8192 are
+    # taken (the long schedule; zero columns padded): they stop at the
+    # device check on CPU tensors
+    ("batch_257", "CUDA tensors"),
+    ("dim_not_4", "CUDA tensors"),
+    ("dim_8196", "CUDA tensors"),
+    ("batch_above_grid", "B <= 1048560"),
+    ("no_columns", "D > 0"),
     ("shapes_differ", "share one"),
     ("dtypes_differ", "share one"),
     ("labels_length", "labels"),
@@ -199,21 +205,27 @@ def test_heads_refuse_other_devices():
 ])
 def test_kernel_wrappers_refuse_before_launching(case, match):
     """The wrappers check every limit before they build or launch
-    anything; on CPU tensors the kernels themselves refuse."""
+    anything (the grid's: 65535 heads, 65535 x 16 rows); on CPU tensors
+    the kernels themselves refuse."""
     f = torch.zeros(16, 64)
     y = torch.zeros(16, dtype=torch.int64)
+    big = triplet.MAX_BATCH + 1
     heads = {
         "too_many_heads": [f] * (triplet.MAX_HEADS + 1),
         "no_heads": [],
         "batch_257": [torch.zeros(257, 64)],
         "dim_not_4": [torch.zeros(16, 66)],
         "dim_8196": [torch.zeros(16, 8196)],
+        "batch_above_grid": [torch.zeros(big, 4)],
+        "no_columns": [torch.zeros(16, 0)],
         "shapes_differ": [f, torch.zeros(16, 128)],
         "dtypes_differ": [f, f.double()],
         "labels_length": [f],
         "cpu_tensors": [f, f],
     }[case]
-    labels = {"batch_257": torch.zeros(257, dtype=torch.int64), "labels_length": y[:8]}.get(case, y)
+    labels = {"batch_257": torch.zeros(257, dtype=torch.int64),
+              "batch_above_grid": torch.zeros(big, dtype=torch.int64),
+              "labels_length": y[:8]}.get(case, y)
     with pytest.raises(ValueError, match=match):
         triplet.hard_mine_heads_kernel(heads, labels)
     if heads:
@@ -223,19 +235,25 @@ def test_kernel_wrappers_refuse_before_launching(case, match):
             triplet.hard_mine_heads_backward_kernel(heads, dist, dist, ids, ids, dist, None)
 
 
-@pytest.mark.parametrize("H,match", [(64, "CUDA tensors"), (65, "1 to 64 heads")])
-def test_head_limit_is_64(H, match):
-    """K3 takes up to 64 heads in one launch (46 at msppgn's --num-split 8):
-    64 CPU heads pass the head check and stop at the device check, 65 stop
-    at the head check; the kernel source states the same limit, which
-    the wrapper compares with the built library's at first use."""
+@pytest.mark.parametrize("H", [64, 65, 94, 190])
+def test_head_limit_is_64(H):
+    """64 heads is what the launch's own parameter table holds; more go
+    through a device table of pointers, so 65, msppgn's 94 at --num-split
+    16 and its 190 at 32 pass the head check and stop at the device check
+    on CPU tensors, one call each way. The kernel source states the
+    table's size and the grid's head limit, which the wrapper compares
+    with the built library's at first use; the wrapper picks the table by
+    H alone (no caller chooses it)."""
     f = torch.zeros(16, 64)
-    with pytest.raises(ValueError, match=match):
+    with pytest.raises(ValueError, match="CUDA tensors"):
         triplet.hard_mine_heads_kernel([f] * H, torch.zeros(16, dtype=torch.int64))
     from agrl_torch.kernels.build import CSRC_DIR
 
-    assert "constexpr int kMaxHeads = 64;" in (CSRC_DIR / "triplet.cu").read_text()
-    assert triplet.MAX_HEADS == 64
+    src = (CSRC_DIR / "triplet.cu").read_text()
+    assert "constexpr int kParamHeads = 64;" in src and "constexpr int kMaxGrid = 65535;" in src
+    assert triplet.PARAM_HEADS == 64 and triplet.MAX_HEADS == 65535
+    sig = inspect.signature(triplet.hard_mine_heads_kernel).parameters
+    assert list(sig) == ["features", "labels"]
 
 
 def test_stamp_tool_finds_every_phase_of_the_kernels():
@@ -249,3 +267,19 @@ def test_stamp_tool_finds_every_phase_of_the_kernels():
         assert out.count(f"STAMP_F({k})") == 1
     for k in range(len(stamp_triplet.BACKWARD_PHASES)):
         assert out.count(f"STAMP_B({k})") == 1
+
+
+def test_forks_tool_finds_the_backward_fork():
+    """agrl_torch.kernels.triplet_forks builds copies of csrc/triplet.cu
+    with the backward's threshold (the largest B of the S-matrix kernel)
+    set to 0 and to 256: the one constant it edits is still where it looks
+    for it, and nothing else changes."""
+    from agrl_torch.kernels import triplet_forks
+
+    src = (triplet_forks.CSRC_DIR / "triplet.cu").read_text()
+    for t in (0, 256):
+        out = triplet_forks.backward_source(src, t)
+        assert out.count(f"constexpr int kShortBackwardBatch = {t};\n") == 1
+        assert triplet_forks.backward_source(out, int(triplet_forks._THRESHOLD.search(
+            src).group(1))) == src
+    assert "if (B <= kShortBackwardBatch) {" in src

@@ -10,14 +10,16 @@ IN is a torch.save'd dict of the global inputs (made by the test from a
 numpy seed); OUT receives this rank's results; MP (default 1) is the
 mesh's mp axis, dp = WORLD / MP. Modes:
   * ops: global-batch BatchNorm of each kind (with and without
-    frozen_running_stats) and the gathered batch-hard mining;
+    frozen_running_stats) and the gathered batch-hard mining (of a global
+    batch of 8 and of 320);
   * train: two data-parallel train steps of vmgn_tiny;
   * eval: the mesh Evaluator under evenly, dense and all on in-memory
     loaders, and the host-scored distance matrix;
   * mp: vmgn_tiny placed over the mp axis (parallel.place_state at the
     input's min_size): each optimizer's state placed, two train steps,
-    the gathered state, the mp Evaluator, a gathered checkpoint written
-    (sync and async) and resumed, an agrl_tpu .msgpack resumed.
+    the gathered state, the mp Evaluator and a FeatureExtractor on the
+    placed model, a gathered checkpoint written (sync and async) and
+    resumed, an agrl_tpu .msgpack resumed.
 """
 
 from __future__ import annotations
@@ -70,7 +72,17 @@ def run_ops(inp, mesh):
                 tracked=int(bn.num_batches_tracked))
 
     # the mining: each rank's heads (H, b, D) from its rows through a shared
-    # projection P, the loss on the gathered batch, P's gradient averaged
+    # projection P, the loss on the gathered batch, P's gradient averaged;
+    # and of a long global batch (K3's long schedule on the card)
+    def mined(feats, labels):
+        feats = _slice(feats.transpose(0, 1), mesh).transpose(0, 1)
+        heads = [f.clone().requires_grad_(True) for f in feats]
+        loss = batch_hard_triplet_heads(heads, _slice(labels, mesh), mesh=mesh)
+        loss.backward()
+        return loss.detach(), torch.stack([h.grad for h in heads])
+
+    out["mining_long"] = dict(zip(("loss", "grads"), mined(inp["feats_long"],
+                                                            inp["labels_long"])))
     feats, labels = _slice(inp["feats"].transpose(0, 1), mesh).transpose(0, 1), _slice(
         inp["labels"], mesh)
     heads = [f.clone().requires_grad_(True) for f in feats]
@@ -291,6 +303,27 @@ def run_mp_eval(inp, mesh):
     out["blocks_restored"] = sharded_weights(model).keys() == before.keys() and all(
         getattr(model.get_submodule(n.rpartition(".")[0]), n.rpartition(".")[2]) is t
         for n, t in before.items())
+    # serving: a FeatureExtractor on the placed model (every rank builds
+    # one: it gathers the blocks whole at construction), the model keeps
+    # its blocks
+    from agrl_torch.engine.export import FeatureExtractor
+
+    for p in model.parameters():  # gradients, as a model in training holds them
+        p.grad = torch.ones_like(p)
+    fx = FeatureExtractor(model, batch_size=inp["fx_batch"], seq_len=inp["fx_imgs"].shape[1],
+                          bf16=False, device="cpu")
+    out["fx"] = fx(inp["fx_imgs"], inp["fx_adjs"])
+    out["fx_blocks_kept"] = sharded_weights(model).keys() == before.keys() and all(
+        getattr(model.get_submodule(n.rpartition(".")[0]), n.rpartition(".")[2]) is t
+        for n, t in before.items())
+    # it serves a snapshot: weights only (the model's gradients stay with the
+    # model), and a later change of the model's weights does not reach it
+    out["fx_model_has_grads"] = any(p.grad is not None for p in model.parameters())
+    out["fx_snapshot_has_grads"] = any(p.grad is not None for p in fx.model.parameters())
+    with torch.no_grad():
+        for p in model.parameters():
+            p.mul_(2.0)
+    out["fx_after_model_change"] = fx(inp["fx_imgs"], inp["fx_adjs"])
     return out
 
 
