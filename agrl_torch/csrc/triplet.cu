@@ -85,57 +85,109 @@
 // read a dynamic index of such a parameter in place, without the copy to
 // local memory that a plain by-value struct takes); more heads, a device
 // array of pointers that the wrapper copies up before the launch. Both
-// are one template of each kernel (ParamTable, DeviceTable).
+// are one template of each kernel (ParamTable, DeviceTable). The long
+// forward keeps it: it brings its operand rows with cp.async from these
+// pointers, 16 bytes a thread (rows are 16-byte aligned: the wrapper pads
+// D to a multiple of 4), and needs no TMA tensor map. A map is 128 bytes,
+// so 64 of them do not fit in a launch's parameters, and maps in a device
+// array would take a fence and a host-side encode per head per call; the
+// threads split every chunk into hi and lo planes anyway, so a copy engine
+// would spare them little.
 //
 // Long schedule (B > 256). The cluster design cannot stretch past 256:
 // each cluster pushes a 16 x B partial Gram through distributed shared
 // memory, and the backward keeps a 16 x B band of S in shared memory.
-// Bound at (H, B, D) = (5, 2048, 2048): the Grams' 2 H B^2 D = 86 GFLOP
-// over the FP32 pipe's 67 TFLOP/s, 1.28 ms; the features are 84 MB (25
-// us of HBM time). The forward is operations-bound, the backward bytes-
-// bound (it reads the features and writes as many gradient bytes).
+// Bound at (H, B, D) = (5, 2048, 2048): the Grams' upper halves, H B (B +
+// 1) D = 43 GFLOP, in three tf32 passes at 495 TFLOP/s, 0.26 ms (on the
+// FP32 pipe the whole Grams, 86 GFLOP at 67 TFLOP/s, take 1.28 ms); the
+// features are 84 MB (25 us of HBM time). The forward is operations-bound,
+// the backward bytes-bound (it reads the features and writes as many
+// gradient bytes).
 //
-// Long forward: two kernels. hard_mine_long_tile_kernel, grid (column
-// tiles, anchor tiles, H), makes one BM x BM tile of a head's fp32 Gram
-// on the FP32 pipe (BM = 128, 8 x 8 per thread; BM = 64, 4 x 4, where
-// 128-row tiles would fill less than one wave of the card): k tiles of 8
-// through double-buffered shared memory, each output an fmaf chain in k
-// order. Plain TF32 is not used: the quadratic form cancels near zero
-// distance, where the hardest positive lies. The block's threads also
-// chain the norms of its rows and columns in that same k order, so sq_i
-// is the Gram's own diagonal value and d2_ii is exactly 0 in whichever
-// tile holds it. Each tile mines its rows over its columns (masks, clamp,
-// +-FLT_MAX, lowest index on ties) into (H, tiles, B) partials;
-// hard_mine_long_merge_kernel merges them in tile order. The max and min
-// with the lowest-index rule give the same answer in any order, so the
-// result does not depend on which tile ran first.
+// Long forward: three kernels. hard_mine_gram_kernel<T, DIAG> makes a T x
+// T tile of a head's Gram (T = 128 rows, two warpgroups; T = 64, one,
+// where 128-row upper tiles would fill less than one wave of the card) in
+// 3xTF32 on the tensor cores, as K1's long Gram (graph_conv.cu): each
+// operand splits as x = hi + lo, hi = tf32(x), lo = tf32(x - hi), and
+// wgmma m64nTk8 adds lo*hi + hi*lo + hi*hi into fp32 registers; each K
+// chunk of 32 is promoted into a second set of registers in fp32 adds,
+// because the tensor cores' own accumulation truncates. A single TF32 pass
+// is not enough: the quadratic form cancels near zero distance, where the
+// hardest positive lies. Operand rows come through a three-stage cp.async
+// ring (rows past B and columns past D land as zeros), are split by every
+// thread into double-buffered hi/lo planes in the 128-byte swizzle wgmma
+// reads, and the products of chunk k run while chunk k + 1 is split. The
+// first launch (DIAG) takes the diagonal tiles, grid (B / T, H): one
+// operand serves as both, and the tile's diagonal g_ii is written to
+// diag (H, B) as the norms sq_i, so d2_ii = g_ii + g_ii - 2 g_ii is
+// exactly 0. The second takes the tiles above it, grid (nt (nt - 1) / 2,
+// H), launched programmatically dependent on the first (its products run
+// while the diagonal tiles finish; it waits on them before it reads diag).
+// The Gram is symmetric, and d2_ij = sq_i + sq_j - 2 g_ij is the same
+// fp32 value either way round, so each upper tile mines its rows over its
+// columns and, mirrored, its columns over its rows; a diagonal tile uses
+// its upper triangle for both halves. Mining is the tile's epilogue: the
+// tile is staged in shared memory, turned into distances in place, and
+// reduced by rows and by columns (two threads a line, then combined); the
+// (B, B) distances never reach device memory. Each (row, tile) gets one
+// partial (masks, clamp, +-FLT_MAX, lowest index on ties) in (H, tiles,
+// B); hard_mine_long_merge_kernel merges them in tile order. The max and
+// min with the lowest-index rule give the same answer in any order, so
+// the result does not depend on which tile ran first. Where even 64-row
+// tiles fill under a wave (B of a few hundred over a few heads), a cluster
+// of 2 or 4 blocks splits each tile's K chunks and its rank 0 sums the
+// partial tiles in rank order from its peers' shared memory (no atomics,
+// nothing through device memory) before it mines. The Gram's values do
+// not depend on T (every entry is the same wgmma products over the same K
+// chunks, promoted in the same order) but do on the split, which (H, B,
+// D) decide: two calls give the same bits.
 //
 // Pick-based backward, B > 96: grad_r = sum over the picks that touch row
 // r of w (f_r - f_other), w = g / d: anchor r's own two picks, then every
 // anchor whose pick is r, in anchor order. O(B D) FMAs a head, where S @ f
-// costs B^2 D. It takes any B, but its list walk is a chain of dependent
-// loads, ~14 us at B = 16 against the S-matrix kernel's 3.0; the S-matrix
-// kernel grows as B^2 and loses from B = 128 (H = 5, D = 2048: 0.0163 vs
-// 0.0181 ms at B = 96, 0.0263 vs 0.0177 at 128; NVIDIA H100 80GB HBM3,
-// 700 W, agrl_torch/kernels/triplet_forks.py), hence kShortBackwardBatch.
-// hard_mine_long_backward_kernel, grid (columns / 1024, bands of 16 rows,
-// H): each block scans every anchor's two picks (in segments of 2048
-// anchors) and appends, in anchor order, the live ones that land in its
-// band to a list in shared memory (a block-wide ordered compaction:
-// ballots and warp counts, no atomics); then each thread, for its four
-// columns, walks the list in order and adds w * f_source into the band
-// row's accumulator in shared memory; thread 0 sums each row's weights in
-// the same order. The gradient is rowsum * f_r - acc, the S-matrix
-// backward's form. Fixed order, no atomics: two runs give the same bits.
+// costs B^2 D. It takes any B, but costs more than the S-matrix kernel at
+// small B; the S-matrix kernel grows as B^2. The fork, kShortBackwardBatch,
+// was set where an earlier form of this backward (each band scanning every
+// pick) crossed it: 0.0163 vs 0.0181 ms at B = 96, 0.0263 vs 0.0177 at 128
+// (H = 5, D = 2048; NVIDIA H100 80GB HBM3, 700 W;
+// agrl_torch/kernels/triplet_forks.py times both). Two launches read the
+// picks once.
+// hard_mine_pick_lists_kernel writes each row's terms (source row,
+// weight) in order by a stable counting sort on the target row, a cluster
+// of up to 8 blocks a head (enough walker warps for ~2 steps each): each
+// block counts its anchors' live picks per (walker, row) and per anchor
+// with shared-memory integer atomics and folds its walkers' counts into
+// offsets and a total per row; the blocks share the rows for an exclusive
+// scan over (row, own, block), reading the blocks' totals and setting each
+// block's base into the row through distributed shared memory (a few
+// remote accesses a row: reading every walker's count remotely was slower
+// than one block a head) and chaining their row ranges' totals in rank
+// order; then each walker warp fills its
+// contiguous run of anchors in order, 32 picks a step, each pick also into
+// its anchor's own slots at the head of the row. A step's equal targets
+// are ranked by a bitonic sort of (target, lane) over the warp's shuffles:
+// __match_any_sync iterates over the distinct targets, which a step's
+// picks mostly are. One block a head left its latency in plain sight (one
+// walker's steps in a row, every phase a chain of shared-memory rounds),
+// hence the cluster. No atomics touch a sum, and the order is fixed.
+// hard_mine_long_backward_kernel, grid (32-float4 column slices, bands of
+// 16 rows, H), launched dependent on it, stages its band's rows (sources
+// inside the band, the positive picks of a P x K batch, are read there)
+// and its band's entries in shared memory, and sums each row's terms with
+// float4 rows of f: rowsum * f_r - acc, the S-matrix backward's form. What
+// bounds it is latency: three dependent rounds of loads a block after the
+// staging. Fixed order, no atomics: two runs give the same bits.
 //
 // Limits: H <= 65535 heads and B <= 65535 x 16 (grid dimensions), of one
 // shape; any D (the wrapper pads D to a multiple of 4 with zero columns,
 // which change no distance, and slices the gradient back). The long
-// forward's partials take 16 H B ceil(B / 64) bytes of device memory.
+// forward's partials and norms take H B (16 ceil(B / 64) + 4) bytes of
+// device memory, the long backward's lists H (48 B + 4).
 
 #include <cooperative_groups.h>
 #include <cuda_runtime.h>
 #include <float.h>
+#include <limits.h>
 #include <math.h>
 #include <stddef.h>
 
@@ -160,12 +212,14 @@ constexpr int kBwColumns = kThreads / 2;  // columns per backward block, two thr
 // the k-split partials: kg x (16 x tiles + 1) floats, with kg x tiles <= kThreads
 constexpr int kRed = 17 * kThreads;
 // the long schedule
-constexpr int kTileK = 8;                       // Gram k tile
-constexpr int kMinTile = 64;                    // the smaller Gram tile (BM)
+constexpr int kMinTile = 64;                    // the smaller Gram tile (T)
+constexpr int kKC = 32;                         // Gram K chunk: one 128-byte row a staged row
+constexpr int kStages = 3;                      // the cp.async ring's chunks
 constexpr int kLongBand = 16;                   // backward rows a block
-constexpr int kLongSeg = 2048;                  // anchors scanned per list fill
-constexpr int kLongList = 2 * kLongSeg + 2 * kLongBand;  // list entries: picks of a segment, own picks
 constexpr int kMaxBatch = kMaxGrid * kLongBand;
+constexpr int kListThreads = 1024;              // the pick lists' block
+constexpr int kListWarps = kListThreads / 32;
+constexpr int kListSmem = 192 * 1024;           // the walkers' cursors, where they fit
 
 // The heads' pointers, indexed by head: in the launch's parameters (up to
 // kParamHeads) or in a device array.
@@ -200,9 +254,6 @@ __host__ inline size_t forward_smem(int B, int n4) {
 }
 // the most any call takes: the largest B with a two-stage ring (any D)
 __host__ inline size_t forward_smem_max() { return forward_smem(kShortBatch, kCluster << 20); }
-// the long backward's: the band's accumulators, then the list
-constexpr size_t kLongBackwardSmem =
-    (size_t)kLongBand * kThreads * 16 + (size_t)kLongList * 8;
 
 __device__ __forceinline__ unsigned smem_u32(const void* p) {
   return static_cast<unsigned>(__cvta_generic_to_shared(p));
@@ -502,141 +553,351 @@ hard_mine_heads_backward_kernel(const __grid_constant__ Heads heads,
 
 // ---- the long schedule (B > kShortBatch) ------------------------------------
 
-// One BM x BM tile of head h's Gram (anchor rows i0.., columns j0..), BM =
-// 16 TM, each thread TM x TM outputs: rows and columns g * 64 + (ty or tx)
-// * 4 + e. Then each anchor row's masked max and min over the tile's
-// columns into the partials (H, tiles, B): part_v (d_ap, d_an), part_k
-// (i_ap, i_an). D % 4 == 0.
-template <int TM, class Heads>
-__global__ void __launch_bounds__(kThreads)
-hard_mine_long_tile_kernel(const __grid_constant__ Heads heads, const long long* __restrict__ labels,
-                           int B, int D, float2* __restrict__ part_v, int2* __restrict__ part_k) {
-  constexpr int BM = 16 * TM;
-  constexpr int kG = TM / 4;           // float4 groups of a thread's rows (and columns)
-  constexpr int kLoads = BM / 64;      // float4s a thread stages per k tile
-  constexpr int LD = BM + 4;           // staged row length: float4-aligned
-  __shared__ __align__(16) float As[2][kTileK][LD];  // anchor rows, k-major
-  __shared__ __align__(16) float Bs[2][kTileK][LD];  // column rows, k-major
-  __shared__ float sq[2][BM];                        // their norms
-  __shared__ long long lab[2][BM];
+// 16 bytes from global to shared memory, asynchronously: n of them read
+// (16 or 0), the rest zero-filled
+__device__ __forceinline__ void cp_async16_fill(void* dst, const void* src, int n) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(smem_u32(dst)), "l"(src),
+               "r"(n)
+               : "memory");
+}
+// fp32 -> tf32 as cvt.rna.tf32.f32 rounds (to nearest, ties away from
+// zero), with integer operations: the low 13 mantissa bits become 0.
+__device__ __forceinline__ float round_tf32(float x) {
+  return __uint_as_float((__float_as_uint(x) + 0x1000u) & 0xffffe000u);
+}
+__device__ __forceinline__ void wgmma_fence() {
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void wgmma_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void wgmma_wait_all() {
+  asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
+}
+// Keeps the compiler from moving an accumulator while a wgmma may write it.
+__device__ __forceinline__ void pin(float& x) { asm volatile("" : "+f"(x)::"memory"); }
+// Orders this thread's shared-memory stores before later wgmma reads.
+__device__ __forceinline__ void fence_proxy_async() {
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+}
+
+// d (64 x N, fp32) = a (64 x 8) * b (8 x N) + (add ? d : 0), N = 2 x the
+// accumulators: one warpgroup, tf32 operands from shared memory
+// (descriptors), asynchronous until wgmma_wait_all. Accumulator e of a
+// thread: row 16 warp + lane / 4 (+ 8 for e % 4 >= 2), column 8 (e / 4) +
+// 2 (lane % 4) (+ 1 for odd e).
+__device__ __forceinline__ void wgmma_tf32(float (&d)[64], unsigned long long a,
+                                           unsigned long long b, int add) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k8.f32.tf32.tf32 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, "
+      "%40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, "
+      "%56, %57, %58, %59, %60, %61, %62, %63"
+      "}, %64, %65, p, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
+        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]),
+        "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]),
+        "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "l"(a), "l"(b), "r"(add));
+}
+__device__ __forceinline__ void wgmma_tf32(float (&d)[32], unsigned long long a,
+                                           unsigned long long b, int add) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k8.f32.tf32.tf32 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31"
+      "}, %32, %33, p, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "l"(a), "l"(b), "r"(add));
+}
+
+// A staged chunk and an operand plane share one layout: rows of kKC floats
+// (128 bytes), the 16-byte slot q of row r stored at slot q ^ (r % 8), the
+// 128-byte swizzle that wgmma reads as a K-major operand (8-row atoms of
+// 1024 bytes, which must start at 1024-byte boundaries).
+__device__ __forceinline__ int swz(int r, int q) { return r * kKC + 4 * (q ^ (r & 7)); }
+// Shared-memory matrix descriptor of a k8 step of a plane (p: the step's
+// first row, 32 bytes further per k8): start address, leading byte offset
+// 1 (unused for swizzled K-major operands), stride byte offset 1024
+// (between 8-row atoms), in 16-byte units; layout type 1 (128-byte
+// swizzle).
+__device__ __forceinline__ unsigned long long plane_desc(const float* p) {
+  return (unsigned long long)((smem_u32(p) & 0x3ffff) >> 4) | (1ull << 16) |
+         ((unsigned long long)(1024 >> 4) << 32) | (1ull << 62);
+}
+
+// A T x T Gram tile's shared memory, in floats from a 1024-byte boundary:
+// two buffers of four planes (A hi, A lo, B hi, B lo; T rows each), then
+// the ring of kStages raw chunks (T A rows, then T B rows). After the K
+// loop it holds the epilogue's staged tile, norms, labels and half-line
+// results.
+template <int T>
+struct GramSmem {
+  static constexpr int NT = 2 * T;  // threads: T / 64 warpgroups
+  static constexpr int PLANE = T * kKC;
+  static constexpr int PLANES = 2 * 4 * PLANE;
+  static constexpr int RAW = 2 * T * kKC;
+  static constexpr int FLOATS = PLANES + kStages * RAW;
+  static constexpr int TS = T + 1;  // staged row stride: a line's 32 threads hit distinct banks
+  static_assert(T * TS + 2 * T + 4 * T + 4 * T <= FLOATS, "the epilogue fits in the ring");
+  static constexpr size_t BYTES = sizeof(float) * FLOATS + 1024;  // + alignment slack
+};
+
+// Tile (ti, tj) of head h's Gram in 3xTF32 on the tensor cores, mined in
+// its epilogue into the partials (H, tiles, B): part_v (d_ap, d_an),
+// part_k (i_ap, i_an). DIAG: tile (t, t), one operand for both; its
+// diagonal goes to diag (H, B), and it mines its rows from its upper
+// triangle. Otherwise upper tile t (tj > ti, numbered row by row), mining
+// its rows over its columns and its columns over its rows, with the norms
+// the DIAG launch wrote. S > 1: a cluster of S blocks (blockIdx.x = S t +
+// rank) splits the K chunks, rank s the s-th run of them, and rank 0 sums
+// the partial tiles in rank order from its peers' shared memory and mines
+// alone. D % 4 == 0.
+template <int T, bool DIAG, class Heads>
+__global__ void __launch_bounds__(2 * T, 1)
+hard_mine_gram_kernel(const __grid_constant__ Heads heads, const long long* __restrict__ labels,
+                      int B, int D, int S, float* __restrict__ diag, float2* __restrict__ part_v,
+                      int2* __restrict__ part_k) {
+  using L = GramSmem<T>;
+  constexpr int NA = T / 2;                // accumulators a thread
+  constexpr int kRows = DIAG ? T : 2 * T;  // rows a chunk stages: A's, then B's
+  constexpr int kPer = kRows * 8 / L::NT;  // 16-byte slots a thread stages and splits a chunk
+  extern __shared__ unsigned char gram_raw_smem[];
+  float* const smem = reinterpret_cast<float*>(
+      (reinterpret_cast<size_t>(gram_raw_smem) + 1023) & ~(size_t)1023);
+  float* const raw = smem + L::PLANES;
   const int tid = threadIdx.x;
-  const int tx = tid % 16, ty = tid / 16;
-  const int h = blockIdx.z;
-  const int i0 = blockIdx.y * BM, j0 = blockIdx.x * BM;
-  const int n4 = D / 4;
-  const int nk = (n4 + 1) / 2;  // k tiles: two float4 columns each
-  const float4* f4 = reinterpret_cast<const float4*>(heads[h]);
-
-  // staging: float4 e = tid + s * kThreads of the 4 BM a k tile holds
-  // (operand, row, half); rows past B and columns past D stage zeros
-  const float4* src[kLoads];
-  float* dst[kLoads];
-  bool live[kLoads];
-  int half[kLoads];
-#pragma unroll
-  for (int s = 0; s < kLoads; ++s) {
-    const int e = tid + s * kThreads;
-    const int op = e / (2 * BM), idx = e % (2 * BM);
-    const int r = idx >> 1;
-    half[s] = idx & 1;
-    const int row = (op ? j0 : i0) + r;
-    live[s] = row < B;
-    src[s] = f4 + (size_t)min(row, B - 1) * n4 + half[s];
-    dst[s] = (op ? &Bs[0][0][0] : &As[0][0][0]) + 4 * half[s] * LD + r;
+  const int h = blockIdx.y;
+  const int nt = (B + T - 1) / T;
+  const int rank = blockIdx.x % S;
+  int ti = blockIdx.x / S, tj = ti;
+  if (DIAG) {
+    // the tiles above the diagonal may launch and run their products now
+    asm volatile("griddepcontrol.launch_dependents;\n" ::: "memory");
+  } else {
+    int t = blockIdx.x / S;  // row ti holds tiles ti + 1 .. nt - 1
+    ti = 0;
+    while (t >= nt - 1 - ti) t -= nt - 1 - ti++;
+    tj = ti + 1 + t;
   }
-  float4 v[kLoads];
-  auto fetch = [&](int kt) {
+  const int i0 = ti * T, j0 = tj * T;
+  const float* const rows = heads[h];
+
+  // chunk kt's rows into raw stage s: 8 threads a row, 16 bytes each, so
+  // a warp reads 4 whole 128-byte rows; rows past B and columns past D
+  // land as zeros
+  auto load = [&](int s, int kt) {
+    float* rs = raw + s * L::RAW;
 #pragma unroll
-    for (int s = 0; s < kLoads; ++s)
-      v[s] = live[s] && 2 * kt + half[s] < n4 ? src[s][2 * kt] : make_float4(0.f, 0.f, 0.f, 0.f);
+    for (int i = 0; i < kPer; ++i) {
+      const int idx = i * L::NT + tid;
+      const int r = idx / 8, q = idx % 8;
+      const int row = r < T ? i0 + r : j0 + r - T;
+      const int col = kt * kKC + 4 * q;
+      const bool in = row < B && col < D;
+      cp_async16_fill(rs + swz(r, q), in ? rows + (size_t)row * D + col : rows, in ? 16 : 0);
+    }
   };
-  auto stash = [&](int buf) {
+  // raw chunk -> hi/lo planes of buffer buf: x = hi + lo, hi = tf32(x),
+  // lo = tf32(x - hi) (x - hi is exact); consecutive threads take
+  // consecutive rows, so the swizzled reads and the writes are
+  // conflict-free
+  auto split = [&](int s, int buf) {
+    const float* rs = raw + s * L::RAW;
+    float* pl = smem + buf * 4 * L::PLANE;
 #pragma unroll
-    for (int s = 0; s < kLoads; ++s) {
-      float* d = dst[s] + buf * kTileK * LD;
-      d[0] = v[s].x;
-      d[LD] = v[s].y;
-      d[2 * LD] = v[s].z;
-      d[3 * LD] = v[s].w;
+    for (int i = 0; i < kPer; ++i) {
+      const int idx = i * L::NT + tid;
+      const int op = idx / (T * 8);  // 0: A, 1: B
+      const int r = idx % T, q = idx / T % 8;
+      const float4 x = *reinterpret_cast<const float4*>(rs + swz(op * T + r, q));
+      float4 hi, lo;
+      hi.x = round_tf32(x.x); lo.x = round_tf32(x.x - hi.x);
+      hi.y = round_tf32(x.y); lo.y = round_tf32(x.y - hi.y);
+      hi.z = round_tf32(x.z); lo.z = round_tf32(x.z - hi.z);
+      hi.w = round_tf32(x.w); lo.w = round_tf32(x.w - hi.w);
+      float* dst = pl + op * 2 * L::PLANE + swz(r, q);
+      *reinterpret_cast<float4*>(dst) = hi;
+      *reinterpret_cast<float4*>(dst + L::PLANE) = lo;
     }
   };
 
-  float acc[TM][TM];
+  // this rank's K chunks: [k0, k0 + nk)
+  const int nk_all = (D + kKC - 1) / kKC;
+  const int k0 = rank * nk_all / S, nk = (rank + 1) * nk_all / S - k0;
 #pragma unroll
-  for (int x = 0; x < TM; ++x)
+  for (int s = 0; s < kStages - 1; ++s) {
+    if (s < nk) load(s, k0 + s);
+    asm volatile("cp.async.commit_group;\n" ::: "memory");  // one group a chunk, empty or not
+  }
+  // warpgroup wg computes tile rows 64 wg .. 64 wg + 63 x all T columns.
+  // The tensor cores add into acc with truncation, so acc holds one
+  // chunk's 12 products (the chunk's first wgmma does not add acc) and is
+  // promoted into tot, in fp32 adds that round to nearest.
+  const int wg = tid / 128;
+  float acc[NA], tot[NA];
 #pragma unroll
-    for (int y = 0; y < TM; ++y) acc[x][y] = 0.f;
-  float nrm = 0.f;  // thread t < 2 BM: the norm of staged row t % BM of operand t / BM
-  const float* nsrc = tid < BM ? &As[0][0][tid] : &Bs[0][0][(tid - BM) % BM];
-  fetch(0);
-  stash(0);
-  __syncthreads();
+  for (int e = 0; e < NA; ++e) acc[e] = tot[e] = 0.f;
   for (int kt = 0; kt < nk; ++kt) {
-    const int buf = kt & 1;
-    if (kt + 1 < nk) fetch(kt + 1);
+    asm volatile("cp.async.wait_group %0;\n" ::"n"(kStages - 2) : "memory");  // mine of chunk kt
+    // every thread's copies of chunk kt have landed, every thread has split
+    // chunk kt - 1 (its stage is free), and every warpgroup has waited for
+    // chunk kt - 2's products (plane buffer kt % 2 is free)
+    __syncthreads();
+    if (kt + kStages - 1 < nk) load((kt + kStages - 1) % kStages, k0 + kt + kStages - 1);
+    asm volatile("cp.async.commit_group;\n" ::: "memory");
+    split(kt % kStages, kt % 2);  // overlaps chunk kt - 1's products
+    fence_proxy_async();
+    __syncthreads();
+
+    const float* pl = smem + (kt % 2) * 4 * L::PLANE;
+    const float* a_hi = pl + wg * 64 * kKC;             // A rows 64 wg ..
+    const float* b_hi = DIAG ? pl : pl + 2 * L::PLANE;  // B rows: the A rows on the diagonal
+    wgmma_wait_all();  // chunk kt - 1's products are done: promote them
 #pragma unroll
-    for (int k = 0; k < kTileK; ++k) {
-      float a[TM], b[TM];
+    for (int e = 0; e < NA; ++e) {
+      pin(acc[e]);
+      tot[e] += acc[e];
+      pin(acc[e]);
+    }
+    wgmma_fence();
 #pragma unroll
-      for (int g = 0; g < kG; ++g) {
-        const float4 x = *reinterpret_cast<const float4*>(&As[buf][k][g * 64 + ty * 4]);
-        const float4 y = *reinterpret_cast<const float4*>(&Bs[buf][k][g * 64 + tx * 4]);
-        a[4 * g] = x.x, a[4 * g + 1] = x.y, a[4 * g + 2] = x.z, a[4 * g + 3] = x.w;
-        b[4 * g] = y.x, b[4 * g + 1] = y.y, b[4 * g + 2] = y.z, b[4 * g + 3] = y.w;
+    for (int k8 = 0; k8 < kKC / 8; ++k8) {
+      const int at = k8 * 8;  // slots 2 k8, 2 k8 + 1 of every row
+      const unsigned long long ah = plane_desc(a_hi + at);
+      const unsigned long long al = plane_desc(a_hi + L::PLANE + at);
+      const unsigned long long bh = plane_desc(b_hi + at);
+      const unsigned long long bl = plane_desc(b_hi + L::PLANE + at);
+      wgmma_tf32(acc, al, bh, k8 > 0);  // small terms first; the chunk starts at 0
+      wgmma_tf32(acc, ah, bl, 1);
+      wgmma_tf32(acc, ah, bh, 1);
+    }
+    wgmma_commit();
+  }
+  wgmma_wait_all();
+#pragma unroll
+  for (int e = 0; e < NA; ++e) {
+    pin(acc[e]);
+    tot[e] += acc[e];
+  }
+
+  // the epilogue: the tile staged (a split's partial tiles summed in rank
+  // order), turned into distances, mined
+  __syncthreads();  // the ring is free
+  float* ts = smem;             // ts[r TS + c]: G[i0 + r, j0 + c], then its distance
+  float* sq = ts + T * L::TS;   // the rows' norms, then the columns'
+  long long* lab = reinterpret_cast<long long*>(sq + 2 * T);  // their labels
+  float* hv = reinterpret_cast<float*>(lab + 2 * T);  // a line's second half: d_ap, d_an
+  int* hk = reinterpret_cast<int*>(hv + 2 * T);       // i_ap, i_an
+  {
+    const int lane = tid % 32, w = tid / 32 % 4;
+#pragma unroll
+    for (int e = 0; e < NA; ++e)
+      ts[(wg * 64 + w * 16 + lane / 4 + (e & 2) * 4) * L::TS + e / 4 * 8 + lane % 4 * 2 + (e & 1)] =
+          tot[e];
+  }
+  if (S > 1) {
+    cg::cluster_group cluster = cg::this_cluster();
+    cluster.sync();  // every rank's partial tile is staged
+    if (rank == 0)
+      for (int s = 1; s < S; ++s) {
+        const float* peer = cluster.map_shared_rank(ts, s);
+        for (int idx = tid; idx < T * T; idx += L::NT) {
+          const int at = idx / T * L::TS + idx % T;
+          ts[at] += peer[at];
+        }
       }
-#pragma unroll
-      for (int x = 0; x < TM; ++x)
-#pragma unroll
-        for (int y = 0; y < TM; ++y) acc[x][y] = fmaf(a[x], b[y], acc[x][y]);
+    cluster.sync();  // no peer exits while rank 0 reads it
+    if (rank != 0) return;
+  }
+  if (!DIAG) asm volatile("griddepcontrol.wait;\n" ::: "memory");  // the norms are written
+  for (int t = tid; t < 2 * T; t += L::NT) {
+    const int row = (t < T ? i0 : j0 - T) + t;
+    lab[t] = row < B ? labels[row] : 0;
+    if (!DIAG) sq[t] = row < B ? diag[(size_t)h * B + row] : 0.f;
+  }
+  __syncthreads();
+  if (DIAG) {
+    for (int t = tid; t < T; t += L::NT) {
+      const float g = ts[t * L::TS + t];  // the Gram's own diagonal: d2_ii is exactly 0
+      sq[t] = sq[T + t] = g;
+      if (i0 + t < B) diag[(size_t)h * B + i0 + t] = g;
     }
-    // the norms in the products' k order: the diagonal's own value
-    if (tid < 2 * BM) {
-      const float* col = nsrc + buf * kTileK * LD;
-#pragma unroll
-      for (int k = 0; k < kTileK; ++k) nrm = fmaf(col[k * LD], col[k * LD], nrm);
-    }
-    if (kt + 1 < nk) stash(buf ^ 1);
     __syncthreads();
   }
-  if (tid < 2 * BM) {
-    const int op = tid / BM, r = tid % BM;
-    const int row = (op ? j0 : i0) + r;
-    sq[op][r] = nrm;
-    lab[op][r] = row < B ? labels[row] : 0;
+  // distances in place; a diagonal tile's upper triangle serves both halves
+  for (int idx = tid; idx < T * T; idx += L::NT) {
+    const int r = idx / T, c = idx % T;
+    if (DIAG && c < r) continue;
+    float& x = ts[r * L::TS + c];
+    x = sqrtf(fmaxf(sq[r] + sq[T + c] - 2.0f * x, 1e-12f));
   }
   __syncthreads();
 
-#pragma unroll
-  for (int x = 0; x < TM; ++x) {
-    const int r = (x / 4) * 64 + ty * 4 + x % 4;
-    const float sq_i = sq[0][r];
-    const long long li = lab[0][r];
-    // sentinels lose to every real entry, masked ones included
+  // Mines each line (a row over the tile's columns; by_col, a column over
+  // its rows) into its partial: two threads a line, each over every second
+  // entry, combined through shared memory. Sentinels lose to every real
+  // entry, masked ones included; ties go to the lowest index.
+  const int line = tid % T, half = tid / T;
+  auto mine = [&](bool by_col) {
+    const long long own = lab[(by_col ? T : 0) + line];
+    const int first = by_col ? i0 : j0;  // the index of the line's first entry
     float v_ap = -INFINITY, v_an = INFINITY;
     int k_ap = B, k_an = B;
-#pragma unroll
-    for (int y = 0; y < TM; ++y) {
-      const int c = (y / 4) * 64 + tx * 4 + y % 4;
-      const int j = j0 + c;
-      if (j < B) {
-        const float dist = sqrtf(fmaxf(sq_i + sq[1][c] - 2.0f * acc[x][y], 1e-12f));
-        const bool pos = lab[1][c] == li;
-        keep_max(v_ap, k_ap, pos ? dist : -FLT_MAX, j);
-        keep_min(v_an, k_an, pos ? FLT_MAX : dist, j);
-      }
+    for (int m = half; m < T && first + m < B; m += 2) {
+      const int r = by_col ? m : line, c = by_col ? line : m;
+      const float dist = DIAG && c < r ? ts[c * L::TS + r] : ts[r * L::TS + c];
+      const bool pos = lab[(by_col ? 0 : T) + m] == own;
+      keep_max(v_ap, k_ap, pos ? dist : -FLT_MAX, first + m);
+      keep_min(v_an, k_an, pos ? FLT_MAX : dist, first + m);
     }
-    for (int o = 8; o > 0; o >>= 1) {  // over the 16 threads of the row (one half warp)
-      keep_max(v_ap, k_ap, __shfl_xor_sync(0xffffffffu, v_ap, o),
-               __shfl_xor_sync(0xffffffffu, k_ap, o));
-      keep_min(v_an, k_an, __shfl_xor_sync(0xffffffffu, v_an, o),
-               __shfl_xor_sync(0xffffffffu, k_an, o));
+    if (half) {
+      hv[line] = v_ap;
+      hv[T + line] = v_an;
+      hk[line] = k_ap;
+      hk[T + line] = k_an;
     }
-    if (tx == 0 && i0 + r < B) {
-      const size_t out = ((size_t)h * gridDim.x + blockIdx.x) * B + i0 + r;
+    __syncthreads();
+    const int at = (by_col ? j0 : i0) + line;
+    if (!half && at < B) {
+      keep_max(v_ap, k_ap, hv[line], hk[line]);
+      keep_min(v_an, k_an, hv[T + line], hk[T + line]);
+      const size_t out = ((size_t)h * nt + (by_col ? ti : tj)) * B + at;
       part_v[out] = make_float2(v_ap, v_an);
       part_k[out] = make_int2(k_ap, k_an);
     }
-  }
+    __syncthreads();  // hv, hk are read through
+  };
+  mine(false);
+  if (!DIAG) mine(true);
 }
 
 // The tiles' partials of each (h, i), merged in tile order.
@@ -663,128 +924,360 @@ hard_mine_long_merge_kernel(const float2* __restrict__ part_v, const int2* __res
   i_an[at] = k_an;
 }
 
-// Appends each thread's entries (e0 before e1, thread order) to list[n..]
-// and returns the new length: a block-wide ordered compaction. Every
-// thread of the block calls it.
-__device__ __forceinline__ int append(int2* list, int n, int* warp_n, bool e0, int2 v0, bool e1,
-                                      int2 v1) {
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  const unsigned b0 = __ballot_sync(0xffffffffu, e0), b1 = __ballot_sync(0xffffffffu, e1);
-  const unsigned lt = (1u << lane) - 1u;
-  if (lane == 0) warp_n[warp] = __popc(b0) + __popc(b1);
-  __syncthreads();
-  int at = n, total = n;
-  for (int w = 0; w < kWarps; ++w) {
-    at += w < warp ? warp_n[w] : 0;
-    total += warp_n[w];
-  }
-  at += __popc(b0 & lt) + __popc(b1 & lt);
-  if (e0) list[at++] = v0;
-  if (e1) list[at] = v1;
-  __syncthreads();  // every thread has read warp_n
-  return total;
+// Pick p (0: i_ap, 1: i_an) of anchor `row` as M's entry: its column k and
+// its weight g / d, or 0 where the distance carries no gradient (row_picks'
+// rule, for one pick).
+__device__ __forceinline__ float pick_weight(size_t at, int row, int p, const float* d_ap,
+                                             const float* d_an, const long long* i_ap,
+                                             const long long* i_an, const float* g_ap,
+                                             const float* g_an, float dist_min, int& k) {
+  const float d = (p ? d_an : d_ap)[at];
+  k = (int)(p ? i_an : i_ap)[at];
+  const float* gp = p ? g_an : g_ap;
+  const float g = gp ? gp[at] : 0.f;
+  return d > dist_min && d < FLT_MAX && k != row ? g / d : 0.f;
 }
 
-// The gradient of the picked distances for bands of kLongBand rows (any B).
-// A list entry is (source row * kLongBand + band row, the weight's bits).
+// Whether the pick lists' arrays (B ints a walker, and two more rows: the
+// block's anchors' own picks, its rows' bases) fit in shared memory for at
+// least one walker; past that, one block of one walker with its arrays in
+// the scratch.
+inline bool lists_in_smem(int B) { return 12 * B <= kListSmem; }
+// Blocks a head's lists take (a cluster, up to the portable 8), and walker
+// warps a block: about two steps of 16 anchors a walker, within shared
+// memory. A block zeroes and folds W B counts whatever its share of the
+// anchors, so many blocks of a few walkers beat a few of many.
+inline int list_blocks(int B) {
+  return lists_in_smem(B) ? (B < 256 ? 1 : B / 256 < kCluster ? B / 256 : kCluster) : 1;
+}
+inline int list_walkers(int B, int C) {
+  if (!lists_in_smem(B)) return 1;
+  const int cap = kListSmem / (4 * B) - 2, want = (B + 32 * C - 1) / (32 * C);
+  const int w = want < cap ? want : cap;
+  return w < 1 ? 1 : w > kListWarps ? kListWarps : w;
+}
+
+// A warp's ranks among equal keys: rank, the lanes below this one with its
+// key; last, none above it has it. A bitonic sort of (key, lane) over the
+// warp (15 compare-exchange stages through shuffles), the runs of equal
+// keys found in sorted order, and each result sent back to its lane
+// through the warp's 32 ints of shared memory. Every lane calls it.
+__device__ __forceinline__ void step_ranks(int key, int lane, int* scratch, int& rank,
+                                           bool& last) {
+  unsigned long long v = (unsigned long long)(unsigned)(key ^ INT_MIN) << 32 | (unsigned)lane;
+#pragma unroll
+  for (int size = 2; size <= 32; size <<= 1)
+#pragma unroll
+    for (int stride = size / 2; stride > 0; stride >>= 1) {
+      const unsigned long long o = __shfl_xor_sync(0xffffffffu, v, stride);
+      const bool ascending = (lane & size) == 0;
+      const bool lower = (lane & stride) == 0;
+      v = lower == ascending ? (o < v ? o : v) : (o > v ? o : v);
+    }
+  // sorted position `lane` holds (key, its lane): the run of its key starts
+  // at the last position at or below it whose left neighbour differs
+  const unsigned kv = (unsigned)(v >> 32);
+  const unsigned left = __shfl_up_sync(0xffffffffu, kv, 1);
+  const unsigned right = __shfl_down_sync(0xffffffffu, kv, 1);
+  int first = lane == 0 || left != kv ? lane : 0;
+#pragma unroll
+  for (int o = 1; o < 32; o <<= 1) {
+    const int y = __shfl_up_sync(0xffffffffu, first, o);
+    if (lane >= o) first = max(first, y);
+  }
+  scratch[v & 31] = (lane - first) << 1 | (lane == 31 || right != kv ? 1 : 0);
+  __syncwarp();
+  const int r = scratch[lane];
+  __syncwarp();  // the slot may be written again
+  rank = r >> 1;
+  last = r & 1;
+}
+
+// Head blockIdx.x / C's pick lists: every term of each row's gradient, in
+// order: start (H, B + 1), the row's first entry, and list (H, 4 B),
+// entries (source row, weight bits): the row's own live picks (i_ap's,
+// then i_an's), then every live pick of another anchor that lands on it,
+// in (anchor, pick) order. A stable counting sort on the target row over
+// a cluster of C blocks, W walker warps each: walker g = W rank + w takes
+// the g-th run of anchors. Each block counts its anchors' live picks per
+// (walker, target row) and per anchor in its own shared memory, and folds
+// its walkers' counts into per-walker offsets and a total per row; the
+// blocks share the rows for an exclusive scan over (row, own, block),
+// reading the blocks' totals and setting each block's base into the row
+// through distributed shared memory, their row ranges' totals chained in
+// rank order; then each walker fills its run in order, 32 picks a step,
+// and every pick's own entry into its anchor's row. counts (H, 3 B): the
+// arrays of the one-block form where shared memory cannot hold them.
+template <bool kSharedCursors>
+__global__ void __launch_bounds__(kListThreads)
+hard_mine_pick_lists_kernel(int B, int C, int W, const float* __restrict__ d_ap,
+                            const float* __restrict__ d_an, const long long* __restrict__ i_ap,
+                            const long long* __restrict__ i_an, const float* __restrict__ g_ap,
+                            const float* __restrict__ g_an, float dist_min,
+                            int* __restrict__ counts, int* __restrict__ start,
+                            int2* __restrict__ list) {
+  extern __shared__ int cursor_smem[];
+  __shared__ int warp_sum[kListWarps];
+  __shared__ int ranks[kListWarps][32];  // each walker's step_ranks slots
+  __shared__ int range_total[kCluster];  // rank 0's: each block's row range's entries
+  // the gradient kernel may launch and stage its rows now
+  asm volatile("griddepcontrol.launch_dependents;\n" ::: "memory");
+  const int rank = blockIdx.x % C, h = blockIdx.x / C;
+  const int tid = threadIdx.x, lane = tid % 32, warp = tid / 32;
+  const int run = (B + C * W - 1) / (C * W);  // walker g: anchors [g run, (g + 1) run)
+  const int a_lo = min(B, rank * W * run), a_hi = min(B, (rank + 1) * W * run);
+  int* cur;  // (W, B): each walker's count into each row, then its offset among the block's
+  if constexpr (kSharedCursors)
+    cur = cursor_smem;
+  else
+    cur = counts + (size_t)h * 3 * B;
+  int* own = cur + W * B;    // (B,): its anchors' own live picks, then their rows' starts
+  int* base = own + B;       // (B,): its total into each row, then its first entry there
+  auto peer = [&](int* p, int b) {  // block b's copy of this block's array p
+    return C == 1 ? p : cg::this_cluster().map_shared_rank(p, b);
+  };
+  const size_t hb = (size_t)h * B;
+  int* st = start + (size_t)h * (B + 1);
+  int2* out = list + 4 * hb;
+  for (int e = tid; e < (W + 2) * B; e += kListThreads) cur[e] = 0;
+  __syncthreads();
+  // this block's anchors' live picks, per walker and target row and per
+  // anchor (integer counts: any order of the atomics gives the same);
+  // kAhead picks a thread loaded together
+  constexpr int kAhead = 8;
+  for (int e0 = 2 * a_lo; e0 < 2 * a_hi; e0 += kAhead * kListThreads) {
+    float wt[kAhead];
+    int k[kAhead];
+#pragma unroll
+    for (int u = 0; u < kAhead; ++u) {
+      const int e = e0 + u * kListThreads + tid, a = e / 2;
+      k[u] = 0;
+      wt[u] = e < 2 * a_hi ? pick_weight(hb + a, a, e % 2, d_ap, d_an, i_ap, i_an, g_ap, g_an,
+                                         dist_min, k[u])
+                           : 0.f;
+    }
+#pragma unroll
+    for (int u = 0; u < kAhead; ++u)
+      if (wt[u] != 0.f) {
+        const int a = (e0 + u * kListThreads + tid) / 2;
+        atomicAdd(cur + (a / run - rank * W) * B + k[u], 1);
+        atomicAdd(own + a, 1);
+      }
+  }
+  __syncthreads();
+  // each walker's offset among the block's entries into each row, and the
+  // block's total there
+  for (int r = tid; r < B; r += kListThreads) {
+    int t = 0;
+#pragma unroll 4
+    for (int w = 0; w < W; ++w) {
+      const int c = cur[w * B + r];
+      cur[w * B + r] = t;
+      t += c;
+    }
+    base[r] = t;
+  }
+  if (C > 1)
+    cg::this_cluster().sync();  // every block's totals are in
+  else
+    __syncthreads();
+  // this block's rows [r_lo, r_hi): each row's entries (its anchor's own
+  // live picks, then every block's)
+  const int r_lo = rank * B / C, r_hi = (rank + 1) * B / C;
+  const int span = W * run;  // anchors a block
+  auto row_entries = [&](int r) {
+    int n = peer(own, r / span)[r];
+    for (int b = 0; b < C; ++b) n += peer(base, b)[r];
+    return n;
+  };
+  // an exclusive scan of n over the block, in chunks of kListThreads rows;
+  // returns this row's prefix (and the chunk's total in `chunk`)
+  auto block_scan = [&](int n, int& chunk) {
+    int x = n;  // inclusive scan over the warp
+#pragma unroll
+    for (int o = 1; o < 32; o <<= 1) {
+      const int y = __shfl_up_sync(0xffffffffu, x, o);
+      if (lane >= o) x += y;
+    }
+    if (lane == 31) warp_sum[warp] = x;
+    __syncthreads();
+    int before = 0;
+    chunk = 0;
+    for (int w = 0; w < kListWarps; ++w) {
+      before += w < warp ? warp_sum[w] : 0;
+      chunk += warp_sum[w];
+    }
+    __syncthreads();  // warp_sum is read through
+    return before + x - n;
+  };
+  int carry = 0;  // the entries of the rows before this block's
+  if (C > 1) {
+    cg::cluster_group cluster = cg::this_cluster();
+    int total = 0;
+    for (int r0 = r_lo; r0 < r_hi; r0 += kListThreads) {
+      int chunk;
+      block_scan(r0 + tid < r_hi ? row_entries(r0 + tid) : 0, chunk);
+      total += chunk;
+    }
+    if (tid == 0) cluster.map_shared_rank(&range_total[0], 0)[rank] = total;
+    cluster.sync();
+    const int* totals = cluster.map_shared_rank(&range_total[0], 0);
+    for (int b = 0; b < rank; ++b) carry += totals[b];
+  }
+  for (int r0 = r_lo; r0 < r_hi; r0 += kListThreads) {
+    const int r = r0 + tid;
+    const int n = r < r_hi ? row_entries(r) : 0;
+    int chunk;
+    const int first = carry + block_scan(n, chunk);
+    if (r < r_hi) {
+      st[r] = first;
+      int* owner = peer(own, r / span);
+      int at = first + owner[r];
+      owner[r] = first;
+      for (int b = 0; b < C; ++b) {
+        int* bb = peer(base, b);
+        const int t = bb[r];
+        bb[r] = at;
+        at += t;
+      }
+    }
+    carry += chunk;
+  }
+  if (r_hi == B && tid == 0) st[B] = carry;
+  if (C > 1)
+    cg::this_cluster().sync();  // every start and base is set; no block reads a peer after
+  else
+    __syncthreads();
+  if (warp >= W) return;
+  // walker `warp`: lane 2 m + p takes pick p of anchor a0 + m, so lane
+  // order is (anchor, pick) order; a step's picks of one row take
+  // consecutive entries in lane order; kAhead steps' picks are loaded
+  // together
+  int* c = cur + warp * B;
+  const int a_end = min(B, (rank * W + warp + 1) * run);
+  for (int a0 = (rank * W + warp) * run; a0 < a_end; a0 += 16 * kAhead) {
+    float wt[kAhead];
+    int k[kAhead];
+#pragma unroll
+    for (int u = 0; u < kAhead; ++u) {
+      const int a = a0 + 16 * u + lane / 2;
+      k[u] = 0;
+      wt[u] = a < a_end ? pick_weight(hb + a, a, lane % 2, d_ap, d_an, i_ap, i_an, g_ap, g_an,
+                                      dist_min, k[u])
+                        : 0.f;
+    }
+#pragma unroll
+    for (int u = 0; u < kAhead; ++u) {
+      if (a0 + 16 * u >= a_end) break;  // the walker's run is done (warp-uniform)
+      const bool live = wt[u] != 0.f;
+      int rank_u;
+      bool last;
+      step_ranks(live ? k[u] : INT_MAX, lane, ranks[warp], rank_u, last);
+      const bool live0 = __shfl_sync(0xffffffffu, live, lane & ~1);  // the anchor's pick 0
+      const int at = live ? base[k[u]] + c[k[u]] + rank_u : 0;
+      __syncwarp();  // every lane has read its cursor
+      if (live) {
+        const int a = a0 + 16 * u + lane / 2;
+        out[at] = make_int2(a, __float_as_int(wt[u]));
+        out[own[a] + (lane % 2 && live0)] = make_int2(k[u], __float_as_int(wt[u]));
+        if (last) c[k[u]] += rank_u + 1;  // the group's size
+      }
+      __syncwarp();
+    }
+  }
+}
+
+// s += w x (float4), rs += w
+__device__ __forceinline__ void add_scaled(float4& s, float& rs, float w, float4 x) {
+  s.x = fmaf(w, x.x, s.x);
+  s.y = fmaf(w, x.y, s.y);
+  s.z = fmaf(w, x.z, s.z);
+  s.w = fmaf(w, x.w, s.w);
+  rs += w;
+}
+
+// The gradient of the picked distances for a band of kLongBand rows x 32
+// float4 columns (blockIdx = (columns, band, h)), any B: warp w takes band
+// rows w and w + 8, one float4 column a lane, and sums each row's entries
+// of the pick lists in order. The band's rows are staged in shared memory:
+// a source row inside the band is read there (a P x K batch keeps each
+// identity's rows together, so the positive picks' sources mostly are),
+// any other through L2. Launched dependent on the pick lists (the staging
+// runs before it waits for them); then the band's entries are staged too
+// (kBackEntries at a time), so a row's loads of f do not wait on loads of
+// its list, and up to four terms' loads fly together: three dependent
+// rounds of loads a block after the staging (starts, entries, rows).
+constexpr int kBackEntries = 512;  // list entries staged at once
 template <class Heads, class Grads>
 __global__ void __launch_bounds__(kThreads)
 hard_mine_long_backward_kernel(const __grid_constant__ Heads heads,
                                const __grid_constant__ Grads grads, int B, int D,
-                               const float* __restrict__ d_ap, const float* __restrict__ d_an,
-                               const long long* __restrict__ i_ap,
-                               const long long* __restrict__ i_an,
-                               const float* __restrict__ g_ap, const float* __restrict__ g_an,
-                               float dist_min) {
-  extern __shared__ __align__(16) unsigned char smem[];
-  float4* acc = reinterpret_cast<float4*>(smem);                  // (kLongBand, kThreads)
-  int2* list = reinterpret_cast<int2*>(acc + kLongBand * kThreads);  // (kLongList,)
-  __shared__ float rs[kLongBand];
-  __shared__ int warp_n[kWarps];
-  const int tid = threadIdx.x;
-  const int h = blockIdx.z;
-  const int i0 = blockIdx.y * kLongBand;
-  const int rows = min(kLongBand, B - i0);
-  const int n4 = D / 4;
-  const int c4 = blockIdx.x * kThreads + tid;  // this thread's float4 column
-  const bool col = c4 < n4;
-  const size_t base = (size_t)h * B;
+                               const int* __restrict__ start, const int2* __restrict__ list) {
+  constexpr int kRowsPerWarp = kLongBand / kWarps;
+  __shared__ float4 band[kLongBand][32];  // the band's rows, this block's columns
+  __shared__ int2 terms[kBackEntries];    // a chunk of the band's entries
+  __shared__ int row_start[kLongBand + 1];
+  const int tid = threadIdx.x, lane = tid % 32, warp = tid / 32;
+  const int h = blockIdx.z, n4 = D / 4, c4 = blockIdx.x * 32 + lane;
+  const int r0 = blockIdx.y * kLongBand, rows = min(kLongBand, B - r0);
   const float4* f4 = reinterpret_cast<const float4*>(heads[h]);
-#pragma unroll
-  for (int t = 0; t < kLongBand; ++t) acc[t * kThreads + tid] = make_float4(0.f, 0.f, 0.f, 0.f);
-  if (tid < kLongBand) rs[tid] = 0.f;
+  const float4 zero = make_float4(0.f, 0.f, 0.f, 0.f);
+  for (int e = tid; e < kLongBand * 32; e += kThreads) {
+    const int i = e / 32, c = blockIdx.x * 32 + e % 32;
+    band[i][e % 32] = i < rows && c < n4 ? f4[(size_t)(r0 + i) * n4 + c] : zero;
+  }
+  asm volatile("griddepcontrol.wait;\n" ::: "memory");  // the pick lists are written
+  if (tid <= rows) row_start[tid] = start[(size_t)h * (B + 1) + r0 + tid];
+  __syncthreads();
 
-  // the band rows' own picks first
-  int2 v[2] = {make_int2(0, 0), make_int2(0, 0)};
-  bool e[2] = {false, false};
-  if (tid < rows) {
-    float w[2];
-    int k[2];
-    row_picks(base + i0 + tid, i0 + tid, d_ap, d_an, i_ap, i_an, g_ap, g_an, dist_min, w, k);
+  float4 acc[kRowsPerWarp];
+  float rs[kRowsPerWarp];
 #pragma unroll
-    for (int p = 0; p < 2; ++p) {
-      e[p] = w[p] != 0.f;
-      v[p] = make_int2(k[p] * kLongBand + tid, __float_as_int(w[p]));
-    }
+  for (int j = 0; j < kRowsPerWarp; ++j) {
+    acc[j] = zero;
+    rs[j] = 0.f;
   }
-  int n = append(list, 0, warp_n, e[0], v[0], e[1], v[1]);
-  for (int s0 = 0; s0 < B; s0 += kLongSeg) {
-    // every anchor of the segment whose pick lands in the band, in anchor order
-    const int s1 = min(B, s0 + kLongSeg);
-    for (int a0 = s0; a0 < s1; a0 += kThreads) {
-      const int a = a0 + tid;
-      e[0] = e[1] = false;
-      if (a < s1) {
-        const long long kk[2] = {i_ap[base + a], i_an[base + a]};
+  const int e_lo = row_start[0], e_hi = row_start[rows];
+  const int2* ent = list + 4 * (size_t)h * B;
+  for (int q0 = e_lo; q0 < e_hi; q0 += kBackEntries) {
+    const int q1 = min(e_hi, q0 + kBackEntries);
+    if (q0 > e_lo) __syncthreads();  // the last chunk is read through
+    for (int e = q0 + tid; e < q1; e += kThreads) terms[e - q0] = ent[e];
+    __syncthreads();
 #pragma unroll
-        for (int p = 0; p < 2; ++p) {
-          const int k = (int)kk[p];
-          if (k >= i0 && k < i0 + rows && k != a) {
-            const float d = (p ? d_an : d_ap)[base + a];
-            const float* gp = p ? g_an : g_ap;
-            const float g = gp ? gp[base + a] : 0.f;
-            const float w = d > dist_min && d < FLT_MAX ? g / d : 0.f;
-            e[p] = w != 0.f;
-            v[p] = make_int2(a * kLongBand + k - i0, __float_as_int(w));
-          }
+    for (int j = 0; j < kRowsPerWarp; ++j) {
+      const int t = warp + kWarps * j;
+      const int lo = t < rows ? max(row_start[t], q0) : 0;
+      const int hi = t < rows ? min(row_start[t + 1], q1) : 0;
+      for (int q = lo; q < hi; q += 4) {  // f[src]'s column, from the band or L2
+        float4 x[4];
+        float w[4];
+#pragma unroll
+        for (int u = 0; u < 4; ++u) {
+          const int2 e = q + u < hi ? terms[q + u - q0] : make_int2(r0, 0);
+          w[u] = __int_as_float(e.y);
+          x[u] = (unsigned)(e.x - r0) < (unsigned)kLongBand ? band[e.x - r0][lane]
+                 : c4 < n4                                   ? f4[(size_t)e.x * n4 + c4]
+                                                             : zero;
         }
-      }
-      n = append(list, n, warp_n, e[0], v[0], e[1], v[1]);
-    }
-    // the list in order: acc[t] += w * f_source, rs[t] += w (thread 0)
-    for (int q = 0; q < n; q += 4) {
-      int2 en[4];
-      float4 x[4];
 #pragma unroll
-      for (int u = 0; u < 4; ++u) en[u] = q + u < n ? list[q + u] : make_int2(0, 0);
-#pragma unroll
-      for (int u = 0; u < 4; ++u)
-        x[u] = col ? f4[(size_t)(en[u].x / kLongBand) * n4 + c4] : make_float4(0.f, 0.f, 0.f, 0.f);
-#pragma unroll
-      for (int u = 0; u < 4; ++u) {
-        if (q + u < n) {
-          const int t = en[u].x % kLongBand;
-          const float w = __int_as_float(en[u].y);
-          float4& s = acc[t * kThreads + tid];
-          s.x = fmaf(w, x[u].x, s.x);
-          s.y = fmaf(w, x[u].y, s.y);
-          s.z = fmaf(w, x[u].z, s.z);
-          s.w = fmaf(w, x[u].w, s.w);
-          if (tid == 0) rs[t] += w;
-        }
+        for (int u = 0; u < 4; ++u)
+          if (q + u < hi) add_scaled(acc[j], rs[j], w[u], x[u]);
       }
     }
-    n = 0;
-    __syncthreads();  // the list is read through; rs is whole after the last segment
   }
-  if (!col) return;
+  if (c4 >= n4) return;
   float4* g4 = reinterpret_cast<float4*>(grads[h]);
-  for (int t = 0; t < rows; ++t) {
-    const size_t at = (size_t)(i0 + t) * n4 + c4;
-    const float4 x = f4[at];
-    const float4 s = acc[t * kThreads + tid];
-    const float r = rs[t];
-    g4[at] = make_float4(r * x.x - s.x, r * x.y - s.y, r * x.z - s.z, r * x.w - s.w);
+#pragma unroll
+  for (int j = 0; j < kRowsPerWarp; ++j) {
+    const int t = warp + kWarps * j;
+    if (t >= rows) continue;
+    const float4 x = band[t][lane];
+    const float4 a = acc[j];
+    const float r = rs[j];
+    // evict-first: the gradient is not read again, the heads' rows are
+    __stcs(g4 + (size_t)(r0 + t) * n4 + c4,
+           make_float4(r * x.x - a.x, r * x.y - a.y, r * x.z - a.z, r * x.w - a.w));
   }
 }
 
@@ -806,6 +1299,59 @@ int sm_count() {
 
 size_t long_tiles(int B) { return (B + kMinTile - 1) / kMinTile; }
 
+// The long forward's Gram launches at tile size T: the diagonal tiles,
+// then the tiles above them, programmatically dependent on the first
+// launch (their blocks start as SMs free up and wait for it only before
+// they read the norms).
+template <int T, class Heads>
+cudaError_t gram_launch(const Heads& hs, int H, const long long* labels, int B, int D,
+                        float* diag, float2* part_v, int2* part_k, cudaStream_t stream) {
+  using L = GramSmem<T>;
+  static const cudaError_t attr = [] {
+    const cudaError_t e = cudaFuncSetAttribute(hard_mine_gram_kernel<T, true, Heads>,
+                                               cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                               (int)L::BYTES);
+    return e != cudaSuccess ? e
+                            : cudaFuncSetAttribute(hard_mine_gram_kernel<T, false, Heads>,
+                                                   cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                                   (int)L::BYTES);
+  }();
+  if (attr != cudaSuccess) return attr;
+  const unsigned nt = (B + T - 1) / T;
+  // 64-row tiles fill under a wave: a K split, as many ranks (up to 4) as
+  // keep the blocks within two an SM and sixteen chunks a rank. The Gram's
+  // bits depend on the split, which depends on (H, B, D) alone.
+  const long long blocks = (long long)H * nt * (nt + 1) / 2;
+  int S = 1;
+  while (T == kMinTile && S < 4 && blocks * S * 2 <= 2ll * sm_count() &&
+         (D + kKC - 1) / kKC >= 16 * S * 2)
+    S *= 2;
+  cudaLaunchAttribute attrs[2];
+  attrs[0].id = cudaLaunchAttributeProgrammaticStreamSerialization;
+  attrs[0].val.programmaticStreamSerializationAllowed = 1;
+  attrs[1].id = cudaLaunchAttributeClusterDimension;
+  attrs[1].val.clusterDim.x = S;
+  attrs[1].val.clusterDim.y = 1;
+  attrs[1].val.clusterDim.z = 1;
+  const int cluster = S > 1 ? 1 : 0;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(nt * S, H);
+  cfg.blockDim = dim3(L::NT);
+  cfg.dynamicSmemBytes = L::BYTES;
+  cfg.stream = stream;
+  cfg.attrs = attrs + 1;  // the diagonal tiles: the split's clusters, if any
+  cfg.numAttrs = cluster;
+  const cudaError_t rc = cudaLaunchKernelEx(&cfg, hard_mine_gram_kernel<T, true, Heads>, hs,
+                                            labels, B, D, S, diag, part_v, part_k);
+  if (rc != cudaSuccess) return rc;
+  // the tiles above them, programmatically dependent on that launch
+  cfg.gridDim = dim3(nt * (nt - 1) / 2 * S, H);
+  cfg.attrs = attrs;
+  cfg.numAttrs = 1 + cluster;
+  return cudaLaunchKernelEx(&cfg, hard_mine_gram_kernel<T, false, Heads>, hs, labels, B, D, S,
+                            diag, part_v, part_k);
+}
+
 template <class Heads>
 cudaError_t forward_launch(const Heads& hs, int H, const long long* labels, int B, int D,
                            float* d_ap, float* d_an, long long* i_ap, long long* i_an,
@@ -821,22 +1367,19 @@ cudaError_t forward_launch(const Heads& hs, int H, const long long* labels, int 
     return cudaGetLastError();
   }
   if (scratch == nullptr) return cudaErrorInvalidValue;
-  // 128-row tiles where they fill a wave of the card, else 64-row ones
+  // 128-row tiles where their upper half fills a wave of the card, else
+  // 64-row ones (the Gram's values are the same either way)
   const long long t128 = (B + 127) / 128;
-  const bool wide = (long long)H * t128 * t128 >= sm_count();
+  const bool wide = (long long)H * t128 * (t128 + 1) / 2 >= sm_count();
   const int tiles = wide ? (int)t128 : (int)long_tiles(B);
-  float2* part_v = static_cast<float2*>(scratch);
-  int2* part_k = reinterpret_cast<int2*>(part_v + (size_t)H * long_tiles(B) * B);
-  const dim3 grid(tiles, tiles, H);
-  if (wide)
-    hard_mine_long_tile_kernel<8, Heads><<<grid, kThreads, 0, stream>>>(hs, labels, B, D,
-                                                                        part_v, part_k);
-  else
-    hard_mine_long_tile_kernel<4, Heads><<<grid, kThreads, 0, stream>>>(hs, labels, B, D,
-                                                                        part_v, part_k);
-  const cudaError_t rc = cudaGetLastError();
-  if (rc != cudaSuccess) return rc;
   const size_t n = (size_t)H * B;
+  float2* part_v = static_cast<float2*>(scratch);
+  int2* part_k = reinterpret_cast<int2*>(part_v + n * long_tiles(B));
+  float* diag = reinterpret_cast<float*>(part_k + n * long_tiles(B));
+  const cudaError_t rc =
+      wide ? gram_launch<128>(hs, H, labels, B, D, diag, part_v, part_k, stream)
+           : gram_launch<kMinTile>(hs, H, labels, B, D, diag, part_v, part_k, stream);
+  if (rc != cudaSuccess) return rc;
   hard_mine_long_merge_kernel<<<(unsigned)((n + kThreads - 1) / kThreads), kThreads, 0, stream>>>(
       part_v, part_k, H, B, tiles, d_ap, d_an, i_ap, i_an);
   return cudaGetLastError();
@@ -846,21 +1389,54 @@ template <class Heads, class Grads>
 cudaError_t backward_launch(const Heads& hs, const Grads& gs, int H, int B, int D,
                             const float* d_ap, const float* d_an, const long long* i_ap,
                             const long long* i_an, const float* g_ap, const float* g_an,
-                            float dist_min, cudaStream_t stream) {
+                            float dist_min, void* scratch, cudaStream_t stream) {
   if (B <= kShortBackwardBatch) {
     const dim3 grid((D + kBwColumns - 1) / kBwColumns, (B + kBand - 1) / kBand, H);
     hard_mine_heads_backward_kernel<Heads, Grads><<<grid, kThreads, 0, stream>>>(
         hs, gs, B, D, d_ap, d_an, i_ap, i_an, g_ap, g_an, dist_min);
     return cudaGetLastError();
   }
+  if (scratch == nullptr) return cudaErrorInvalidValue;
+  int2* list = static_cast<int2*>(scratch);                      // (H, 4 B)
+  int* start = reinterpret_cast<int*>(list + 4 * (size_t)H * B);  // (H, B + 1)
+  int* counts = start + (size_t)H * (B + 1);                     // (H, 3 B)
   static const cudaError_t attr = cudaFuncSetAttribute(
-      hard_mine_long_backward_kernel<Heads, Grads>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)kLongBackwardSmem);
+      hard_mine_pick_lists_kernel<true>, cudaFuncAttributeMaxDynamicSharedMemorySize, kListSmem);
   if (attr != cudaSuccess) return attr;
-  const dim3 grid((D / 4 + kThreads - 1) / kThreads, (B + kLongBand - 1) / kLongBand, H);
-  hard_mine_long_backward_kernel<Heads, Grads><<<grid, kThreads, kLongBackwardSmem, stream>>>(
-      hs, gs, B, D, d_ap, d_an, i_ap, i_an, g_ap, g_an, dist_min);
-  return cudaGetLastError();
+  const int C = list_blocks(B), W = list_walkers(B, C);
+  cudaLaunchAttribute cluster[1];
+  cluster[0].id = cudaLaunchAttributeClusterDimension;
+  cluster[0].val.clusterDim.x = C;
+  cluster[0].val.clusterDim.y = 1;
+  cluster[0].val.clusterDim.z = 1;
+  cudaLaunchConfig_t lists = {};
+  lists.gridDim = dim3(C * H);
+  lists.blockDim = dim3(kListThreads);
+  lists.dynamicSmemBytes = lists_in_smem(B) ? 4 * (W + 2) * B : 0;
+  lists.stream = stream;
+  lists.attrs = cluster;
+  lists.numAttrs = C > 1 ? 1 : 0;
+  const cudaError_t launched =
+      lists_in_smem(B)
+          ? cudaLaunchKernelEx(&lists, hard_mine_pick_lists_kernel<true>, B, C, W, d_ap, d_an,
+                               i_ap, i_an, g_ap, g_an, dist_min, counts, start, list)
+          : cudaLaunchKernelEx(&lists, hard_mine_pick_lists_kernel<false>, B, C, W, d_ap, d_an,
+                               i_ap, i_an, g_ap, g_an, dist_min, counts, start, list);
+  if (launched != cudaSuccess) return launched;
+  const cudaError_t rc = cudaGetLastError();
+  if (rc != cudaSuccess) return rc;
+  // the gradient kernel, programmatically dependent on the lists' launch
+  cudaLaunchAttribute dependent[1];
+  dependent[0].id = cudaLaunchAttributeProgrammaticStreamSerialization;
+  dependent[0].val.programmaticStreamSerializationAllowed = 1;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3((D / 4 + 31) / 32, (B + kLongBand - 1) / kLongBand, H);
+  cfg.blockDim = dim3(kThreads);
+  cfg.stream = stream;
+  cfg.attrs = dependent;
+  cfg.numAttrs = 1;
+  return cudaLaunchKernelEx(&cfg, hard_mine_long_backward_kernel<Heads, Grads>, hs, gs, B, D,
+                            start, list);
 }
 
 }  // namespace
@@ -876,9 +1452,17 @@ int hard_mine_short_max_batch() { return kShortBatch; }
 int hard_mine_param_heads() { return kParamHeads; }
 
 // Bytes of device scratch the forward takes at (H, B): the long
-// schedule's partials, 0 for the cluster schedule.
+// schedule's partials (a float2 and an int2 per head, 64-row tile and
+// anchor) and norms, 0 for the cluster schedule.
 long long hard_mine_scratch_bytes(int H, int B) {
-  return B <= kShortBatch ? 0 : (long long)H * long_tiles(B) * B * 16;
+  return B <= kShortBatch ? 0 : (long long)H * B * (16 * (long long)long_tiles(B) + 4);
+}
+
+// Bytes of device scratch the backward takes at (H, B): the pick lists
+// (4 B entries, B + 1 row starts, 3 B counts), 0 for the S-matrix
+// backward. Less than the forward's at every B > 256.
+long long hard_mine_backward_scratch_bytes(int H, int B) {
+  return B <= kShortBackwardBatch ? 0 : (long long)H * (48ll * B + 4);
 }
 
 // heads: H pointers (a host array) to (B, D) fp32 features, 16-byte
@@ -906,11 +1490,13 @@ int hard_mine_heads_forward(const void* const* heads, const void* table, int H,
 // (H, B) fp32, either of which may be null (no gradient). table: null
 // (H <= hard_mine_param_heads()), or a device array of the H head
 // pointers followed by the H gradient pointers. dist_min is the clamp's
-// floor sqrt(1e-12) in fp32. Returns 0 or the cudaError_t.
+// floor sqrt(1e-12) in fp32. scratch: hard_mine_backward_scratch_bytes(H,
+// B) bytes, 8-byte aligned (unused at B <= 96). Returns 0 or the
+// cudaError_t.
 int hard_mine_heads_backward(const void* const* heads, void* const* grads, const void* table,
                              int H, int B, int D, const float* d_ap, const float* d_an,
                              const long long* i_ap, const long long* i_an, const float* g_ap,
-                             const float* g_an, float dist_min, void* stream) {
+                             const float* g_an, float dist_min, void* scratch, void* stream) {
   if (!check_heads(H, B, D)) return (int)cudaErrorInvalidValue;
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (table != nullptr) {
@@ -918,7 +1504,7 @@ int hard_mine_heads_backward(const void* const* heads, void* const* grads, const
     return (int)backward_launch(
         DeviceTable<const float*>{reinterpret_cast<const float* const*>(t)},
         DeviceTable<float*>{reinterpret_cast<float* const*>(t + H)}, H, B, D, d_ap, d_an, i_ap,
-        i_an, g_ap, g_an, dist_min, st);
+        i_an, g_ap, g_an, dist_min, scratch, st);
   }
   if (H > kParamHeads) return (int)cudaErrorInvalidValue;
   ParamTable<const float*> hs{};
@@ -927,7 +1513,8 @@ int hard_mine_heads_backward(const void* const* heads, void* const* grads, const
     hs.p[h] = static_cast<const float*>(heads[h]);
     gs.p[h] = static_cast<float*>(grads[h]);
   }
-  return (int)backward_launch(hs, gs, H, B, D, d_ap, d_an, i_ap, i_an, g_ap, g_an, dist_min, st);
+  return (int)backward_launch(hs, gs, H, B, D, d_ap, d_an, i_ap, i_an, g_ap, g_an, dist_min,
+                              scratch, st);
 }
 
 // An empty kernel: the time of one launch on the stream, as a yardstick.

@@ -104,7 +104,7 @@ def build(source) -> ctypes.CDLL:
     dll = ctypes.CDLL(str(lib))
     p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
     dll.hard_mine_heads_forward.argtypes = [p, p, i, p, i, i, p, p, p, p, p, p]
-    dll.hard_mine_heads_backward.argtypes = [p, p, p, i, i, i, p, p, p, p, p, p, f, p]
+    dll.hard_mine_heads_backward.argtypes = [p, p, p, i, i, i, p, p, p, p, p, p, f, p, p]
     dll.hard_mine_empty_launch.argtypes = [p]
     dll.read_stamps.argtypes = [i, p, i]
     return dll
@@ -162,7 +162,8 @@ def main() -> int:
     def backward():
         check(dll.hard_mine_heads_backward(ptrs, gptrs, None, H, B, D,
                                            *(o.data_ptr() for o in outs),
-                                           g_ap.data_ptr(), g_an.data_ptr(), _DIST_MIN, stream))
+                                           g_ap.data_ptr(), g_an.data_ptr(), _DIST_MIN, None,
+                                           stream))
         torch.cuda.synchronize()
 
     def reader(backward_side):

@@ -60,7 +60,9 @@ def build_backward(threshold: int) -> ctypes.CDLL:
     lib = ctypes.CDLL(str(_compile([find_nvcc(), *NVCC_FLAGS], cu,
                                    _hashed_path(name, cu, NVCC_FLAGS))))
     p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-    lib.hard_mine_heads_backward.argtypes = [p, p, p, i, i, i, p, p, p, p, p, p, f, p]
+    lib.hard_mine_heads_backward.argtypes = [p, p, p, i, i, i, p, p, p, p, p, p, f, p, p]
+    lib.hard_mine_backward_scratch_bytes.argtypes = [i, i]
+    lib.hard_mine_backward_scratch_bytes.restype = ctypes.c_longlong
     return lib
 
 
@@ -123,6 +125,8 @@ def main() -> int:
     def backward(which, heads, mined, g_ap, g_an, table="param"):
         H, (B, D) = len(heads), heads[0].shape
         grads = [torch.empty_like(f) for f in heads]
+        nbytes = which.hard_mine_backward_scratch_bytes(H, B)
+        scratch = torch.empty(nbytes, dtype=torch.uint8, device=dev) if nbytes else None
 
         def run():
             dtab = tri._device_table(heads + grads, dev) if table == "device" else None
@@ -130,7 +134,7 @@ def main() -> int:
                 tri._pointers(heads), tri._pointers(grads),
                 None if dtab is None else dtab.data_ptr(), H, B, D,
                 *(x.data_ptr() for x in mined), g_ap.data_ptr(), g_an.data_ptr(),
-                tri._DIST_MIN, stream))
+                tri._DIST_MIN, None if scratch is None else scratch.data_ptr(), stream))
         return run, grads
 
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],

@@ -10,9 +10,11 @@ On the card this op IS the hand-written kernels (csrc/triplet.cu): one
 call mines the H heads of a train step (`hard_mine_heads_kernel`), one
 more gives their gradient (`hard_mine_heads_backward_kernel`), for any
 number of heads, batch and width: the forward's cluster schedule up to
-B = 256, its tiled long schedule above; the backward's S-matrix kernel
-up to B = 96, its pick-based one above (the kernel side picks each by B,
-and the head table by H; none is a setting). A width that is not a multiple of 4 is padded with
+B = 256, above it a long schedule whose Gram tiles run in 3xTF32 on the
+tensor cores and mine in their epilogue; the backward's S-matrix kernel
+up to B = 96, above it pick lists built once and walked row by row (the
+kernel side picks each by B, and the head table by H; none is a
+setting). A width that is not a multiple of 4 is padded with
 zero columns, which change no distance, and the gradient sliced back.
 The plain versions (`hard_mine_heads_reference`,
 `hard_mine_backward_reference`) serve CPU tensors and check the kernels.
@@ -46,10 +48,12 @@ SHORT_MAX_BATCH, PARAM_HEADS = 256, 64
 def hard_mine_scratch_bytes(H: int, B: int) -> int:
     """Device memory the forward takes at (H, B) beside its inputs and
     outputs: the long schedule's partials (a float2 and an int2 per head,
-    64-column tile and anchor, about B^2 / 4 bytes a head), none for the
-    cluster schedule. csrc/triplet.cu's function of the same name, which
-    the wrapper compares with this one at first use."""
-    return 0 if B <= SHORT_MAX_BATCH else H * -(-B // 64) * B * 16
+    64-row tile and anchor, about B^2 / 4 bytes a head) and its norms (a
+    float per head and anchor), none for the cluster schedule. The
+    backward's pick lists (48 B + 4 bytes a head past B = 96) take less.
+    csrc/triplet.cu's function of the same name, which the wrapper
+    compares with this one at first use."""
+    return 0 if B <= SHORT_MAX_BATCH else H * B * (16 * -(-B // 64) + 4)
 
 
 D2_MIN = 1e-12  # the clamp under the square root, as the JAX package has it
@@ -131,10 +135,11 @@ def _lib() -> ctypes.CDLL:
     p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
     lib.hard_mine_heads_forward.argtypes = [p, p, i, p, i, i, p, p, p, p, p, p]
     lib.hard_mine_heads_forward.restype = i
-    lib.hard_mine_heads_backward.argtypes = [p, p, p, i, i, i, p, p, p, p, p, p, f, p]
+    lib.hard_mine_heads_backward.argtypes = [p, p, p, i, i, i, p, p, p, p, p, p, f, p, p]
     lib.hard_mine_heads_backward.restype = i
-    lib.hard_mine_scratch_bytes.argtypes = [i, i]
-    lib.hard_mine_scratch_bytes.restype = ctypes.c_longlong
+    for fn in (lib.hard_mine_scratch_bytes, lib.hard_mine_backward_scratch_bytes):
+        fn.argtypes = [i, i]
+        fn.restype = ctypes.c_longlong
     lib.hard_mine_empty_launch.argtypes = [p]
     lib.hard_mine_empty_launch.restype = i
     lib.hard_mine_error_string.argtypes = [i]
@@ -253,6 +258,8 @@ def hard_mine_heads_backward_kernel(features, d_ap, d_an, i_ap, i_an, g_ap, g_an
     features = _padded(features, D)
     lib = _lib()
     grads = [torch.empty_like(f) for f in features]
+    nbytes = lib.hard_mine_backward_scratch_bytes(H, B)
+    scratch = torch.empty(nbytes, dtype=torch.uint8, device=dev) if nbytes else None
     with torch.cuda.device(dev):
         dtab = _device_table(features + grads, dev) if H > PARAM_HEADS else None
         rc = lib.hard_mine_heads_backward(
@@ -260,6 +267,7 @@ def hard_mine_heads_backward_kernel(features, d_ap, d_an, i_ap, i_an, g_ap, g_an
             H, B, features[0].shape[1], d_ap.data_ptr(), d_an.data_ptr(), i_ap.data_ptr(),
             i_an.data_ptr(), None if g_ap is None else g_ap.data_ptr(),
             None if g_an is None else g_an.data_ptr(), _DIST_MIN,
+            None if scratch is None else scratch.data_ptr(),
             torch.cuda.current_stream(dev).cuda_stream,
         )
     _check(rc, "hard_mine_heads_backward")

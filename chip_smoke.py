@@ -43,7 +43,9 @@ Phases (any failure exits non-zero before the result lines):
      integer features (exact Grams in any summation order: ties tie in
      both): the same bars, the backward against its twin on the same
      picks within 1e-5 of max, device ms of both kernels, their twins and
-     batched cdist, the bound; then each on continuous features: values
+     batched cdist, the bound (the Grams' upper halves in 3xTF32 on the
+     tensor cores, as the long schedule runs them, beside the whole Grams
+     on the FP32 pipe); then each on continuous features: values
      atol 1e-4, a pick that differs a near-tie (float64 squared distances
      within 1e-5 of sq_i + sq_j), the backward on the kernel's picks
      within 1e-5 of its twin, two calls bit-equal, and with every anchor
@@ -324,6 +326,12 @@ computes them, e.g. an unpacked earlier commit, and prints one JSON line.
 
 runs phase 17 alone with the agrl_torch package in ROOT (no serving-shape
 bit check) and prints one JSON line: two commits compared in one call.
+
+    python3 chip_smoke.py --k3-long-only ROOT
+
+runs phase 8's long shapes (K3_LONG_SHAPES) alone with the agrl_torch
+package in ROOT, with their bars, and prints one JSON line: two commits'
+K3 long schedules compared in one call.
 """
 
 from __future__ import annotations
@@ -444,16 +452,50 @@ def device_ms_per_call(torch, fn, n=20):
     return sum(r[1] for r in device_rows(prof, n))
 
 
-def device_ms_or_events(torch, fn, flush, tries=3, n=20):
+def device_span_ms(torch, fn, n=20, windows=3):
+    """Device time of one fn() call as the union of its device operations'
+    intervals over n back-to-back calls (torch.profiler), over n: operations
+    that overlap (a programmatically dependent launch starts before the
+    one it waits on ends) count once, where device_ms_per_call sums them.
+    The median of `windows` profiled windows (a window now and then loses
+    device events); 0.0 where none reported any."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    spans_ms = []
+    for _ in range(windows):
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            for _ in range(n):
+                fn()
+            torch.cuda.synchronize()
+        spans = sorted((e.time_range.start, e.time_range.end) for e in prof.events()
+                       if str(e.device_type).endswith("CUDA")
+                       and e.time_range.end > e.time_range.start)
+        total, lo, hi = 0.0, None, None
+        for a, b in spans:
+            if hi is None or a > hi:
+                total += 0.0 if hi is None else hi - lo
+                lo, hi = a, b
+            else:
+                hi = max(hi, b)
+        total += 0.0 if hi is None else hi - lo
+        if total > 0:
+            spans_ms.append(total / 1e3 / n)
+    return float(np.median(spans_ms)) if spans_ms else 0.0
+
+
+def device_ms_or_events(torch, fn, flush, tries=3, n=20, span=False):
     """(ms, how) of one fn() call: its device time from torch.profiler
-    (device_ms_per_call over n calls), tried again when the profiler
-    reported no device event (it drops a window's device events now and
-    then); after `tries` empty windows, CUDA events around one call with
-    the L2 flushed, host dispatch included."""
+    (device_ms_per_call over n calls; `span`: device_span_ms, overlapping
+    operations counted once), tried again when the profiler reported no
+    device event (it drops a window's device events now and then); after
+    `tries` empty windows, CUDA events around one call with the L2
+    flushed, host dispatch included."""
     for _ in range(tries):
-        ms = device_ms_per_call(torch, fn, n)
+        ms = (device_span_ms if span else device_ms_per_call)(torch, fn, n)
         if ms > 0:
-            return ms, "profiler"
+            return ms, "profiler span" if span else "profiler"
     return time_cuda(torch, fn, flush), "events"
 
 
@@ -692,6 +734,39 @@ def main_k1_long_only(root: Path) -> int:
     recs = phase_k1_long(torch, gc, device, L2Flusher(torch, device), None)
     print(json.dumps({"k1_long": dict(root=str(root), card=smi, shapes=[
         {k: v for k, v in r.items() if k != "kernels"} for r in recs])}))
+    return 0
+
+
+def main_k3_long_only(root: Path) -> int:
+    """`chip_smoke.py --k3-long-only ROOT`: phase 8's long shapes alone
+    (K3_LONG_SHAPES, their bars and times) with the agrl_torch package found
+    in ROOT (e.g. an unpacked earlier commit); prints the card and one JSON
+    line."""
+    if not (root / "agrl_torch" / "csrc" / "triplet.cu").exists():
+        print(f"chip_smoke.py: no agrl_torch package in {root}", file=sys.stderr)
+        return 2
+    import torch
+
+    if not torch.cuda.is_available():
+        print("chip_smoke.py: torch.cuda.is_available() is False", file=sys.stderr)
+        return 3
+    sys.path.insert(0, str(root))
+    from agrl_torch import losses as losses_mod
+    from agrl_torch.ops import triplet as tri
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    device = torch.device("cuda")
+    tri._lib()
+    from agrl_torch.kernels.build import library_path
+
+    smi = nvidia_smi_line()
+    log(f"[k3long] {root}: {smi}")
+    for line in ptxas_summary(library_path("triplet").with_suffix(".log").read_text()):
+        log(f"[k3long]   triplet: {line}")
+    recs = phase_k3_arch_shapes(torch, tri, losses_mod, device, L2Flusher(torch, device),
+                                K3_LONG_SHAPES, "k3long")
+    print(json.dumps({"k3_long": dict(root=str(root), card=smi, shapes=recs)}))
     return 0
 
 
@@ -1220,6 +1295,17 @@ def triplet_bound_ms(H, B, D, s_nnz=None):
         flops = 2.0 * (s_nnz + H * B) * D
         nbytes = H * 8.0 * B * D + H * (4 + 4 + 8 + 8 + 4 + 4) * B
     t_ops, t_mem = flops / PEAK_FP32_FLOPS, nbytes / PEAK_HBM_BYTES
+    return max(t_ops, t_mem) * 1e3, ("operations" if t_ops >= t_mem else "bytes")
+
+
+def triplet_tf32_bound_ms(H, B, D):
+    """Least time for one forward call of the long schedule (B > 256),
+    which runs its Grams on the tensor cores: each Gram's upper half with
+    its diagonal, H B (B + 1) D FLOPs, in three tf32 passes (3xTF32, the
+    least that keeps fp32 accuracy) over the tf32 peak, vs
+    triplet_bound_ms's bytes over the HBM rate. Returns (ms, bound_by)."""
+    t_ops = 3.0 * H * B * (B + 1) * D / PEAK_TF32_FLOPS
+    t_mem = (H * 4.0 * B * D + 8.0 * B + H * (4 + 4 + 8 + 8) * B) / PEAK_HBM_BYTES
     return max(t_ops, t_mem) * 1e3, ("operations" if t_ops >= t_mem else "bytes")
 
 
@@ -3716,6 +3802,22 @@ def phase_k1_flags(torch, gc, device, flush):
     return recs
 
 
+def k3_stage_ms(torch, fn, n=5):
+    """(kernel, device ms a call, launches a call) of each device operation
+    of fn() over n back-to-back calls (torch.profiler), largest first; the
+    names cut after the template's first two arguments."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(n):
+            fn()
+        torch.cuda.synchronize()
+    return [(re.sub(r"^(?:void )?(?:\(anonymous namespace\)::)?([^<(]*(?:<[^,>]*(?:, [^,>]*)?)?).*",
+                    r"\1", name), ms, count) for name, ms, count in device_rows(prof, n)]
+
+
 def phase_k3_arch_shapes(torch, tri, losses_mod, device, flush,
                          shapes=((2, 6144), (1, 1024)), tag="archs", reps=20, plain_reps=2):
     """K3 vs its twin at ganet's (H=2, D=6144) and sta's (H=1, D=1024) train
@@ -3731,7 +3833,10 @@ def phase_k3_arch_shapes(torch, tri, losses_mod, device, flush,
     256 (triplet_heads), where every order's Gram is exact and the picks
     must be equal; there the same shape also on continuous features
     (k3_continuous_check: picks that differ must be near-ties, and the
-    self-distance exact)."""
+    self-distance exact), the kernels' times are device spans
+    (device_span_ms: the long schedule's dependent launches overlap), the
+    bound is the 3xTF32 one beside the FP32 pipe's, and each kernel's
+    device ms is listed (`stages`)."""
     plain_loss = plain_triplet_heads(tri, losses_mod)
     recs = []
     for shape in shapes:
@@ -3774,19 +3879,35 @@ def phase_k3_arch_shapes(torch, tri, losses_mod, device, flush,
                              heads, *got, g_ap, g_an)),
                          ("library_ms", lambda: torch.cdist(stacked, stacked))):
             rec[name], rec["timing"][name] = device_ms_or_events(
-                torch, fn, flush, n=plain_reps if name.startswith("plain") else reps)
+                torch, fn, flush, n=plain_reps if name.startswith("plain") else reps,
+                span=B > tri.SHORT_MAX_BATCH and name in ("ms", "backward_ms"))
         rec["bound_ms"], rec["bound_by"] = triplet_bound_ms(H, B, D)
+        if B > tri.SHORT_MAX_BATCH:  # the long schedule's Grams run in 3xTF32
+            rec["fp32_bound_ms"], rec["fp32_bound_by"] = rec["bound_ms"], rec["bound_by"]
+            rec["bound_ms"], rec["bound_by"] = triplet_tf32_bound_ms(H, B, D)
         rec["backward_bound_ms"], rec["backward_bound_by"] = triplet_bound_ms(
             H, B, D, s_nnz=s_nonzeros(torch, tri, *got))
         rec["share_of_bound"] = rec["bound_ms"] / rec["ms"]
+        rec["backward_share_of_bound"] = rec["backward_bound_ms"] / rec["backward_ms"]
+        if B > tri.SHORT_MAX_BATCH:  # the long schedule's kernels, each call's device ms
+            rec["stages"] = {way: k3_stage_ms(torch, fn) for way, fn in (
+                ("forward", lambda: tri.hard_mine_heads_kernel(heads, labels)),
+                ("backward", lambda: tri.hard_mine_heads_backward_kernel(
+                    heads, *got, g_ap, g_an)))}
         rec["seconds"] = time.perf_counter() - t_shape
         log(f"[{tag}] K3 H={H} B={B} D={D}: max|kernel - plain| {err:.3e} (atol 1e-4), "
             f"picks equal {picks}, gradients {gerr:.3e} (atol 1e-5), backward vs its twin "
             f"{twin_err:.3e} of max (tol 1e-5), two calls bit-equal {same}; device ms forward {rec['ms']:.4f} (bound {rec['bound_ms']:.6f}, "
-            f"{rec['share_of_bound']:.1%} of it; plain {rec['plain_ms']:.4f}, cdist "
+            f"{rec['share_of_bound']:.1%} of it"
+            + (f"; FP32-pipe bound {rec['fp32_bound_ms']:.6f}" if "fp32_bound_ms" in rec else "")
+            + f"; plain {rec['plain_ms']:.4f}, cdist "
             f"{rec['library_ms']:.4f}), backward {rec['backward_ms']:.4f} (bound "
-            f"{rec['backward_bound_ms']:.6f}, plain {rec['plain_backward_ms']:.4f}); timed by "
+            f"{rec['backward_bound_ms']:.6f}, {rec['backward_share_of_bound']:.1%} of it; plain "
+            f"{rec['plain_backward_ms']:.4f}); timed by "
             f"{rec['timing']}; {rec['seconds']:.1f} s ({rec['check_seconds']:.1f} s of checks)")
+        for way, rows in rec.get("stages", {}).items():
+            log(f"[{tag}]   {way} kernels (device ms a call): " + ", ".join(
+                f"{name} {ms:.4f} x{count}" for name, ms, count in rows))
         cont = rec.get("continuous")
         if cont is not None:
             log(f"[{tag}] K3 H={H} B={B} D={D} on continuous features: max|kernel - plain| "
@@ -5358,9 +5479,12 @@ if __name__ == "__main__":
         sys.exit(main_term_only(Path(sys.argv[2]).resolve()))
     if sys.argv[1:2] == ["--k1-long-only"] and len(sys.argv) == 3:
         sys.exit(main_k1_long_only(Path(sys.argv[2]).resolve()))
+    if sys.argv[1:2] == ["--k3-long-only"] and len(sys.argv) == 3:
+        sys.exit(main_k3_long_only(Path(sys.argv[2]).resolve()))
     if sys.argv[1:2] == ["--mp-worker"] and len(sys.argv) == 5:
         sys.exit(mp_worker(int(sys.argv[2]), int(sys.argv[3]), sys.argv[4]))
     if len(sys.argv) > 1:
-        print("usage: chip_smoke.py [--term-only ROOT | --k1-long-only ROOT]", file=sys.stderr)
+        print("usage: chip_smoke.py [--term-only ROOT | --k1-long-only ROOT | --k3-long-only ROOT]",
+              file=sys.stderr)
         sys.exit(2)
     sys.exit(main())

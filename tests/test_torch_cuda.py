@@ -443,6 +443,56 @@ def test_hard_mine_long_backward_one_row_picked_by_all(cuda):
         assert float((a - b).abs().max()) <= 1e-5 * float(b.abs().max())
 
 
+@pytest.mark.parametrize("D", [2048, 64])
+def test_hard_mine_long_small_tiles_are_bit_stable(cuda, D):
+    """B = 320 over 5 heads fills less than a wave of the card with
+    128-row upper tiles, so the long forward takes 64-row ones (at D = 2048
+    with K split over a cluster): against the plain twins on integer
+    features (values atol 1e-4, picks equal, gradients atol 1e-5); on
+    continuous ones two calls bit-equal each way; and on integer features,
+    whose Grams are exact in any order and split, the same heads mined
+    among 65 (128-row tiles, no split, the device table) give the same
+    bits."""
+    H, B = 5, 320
+    test_hard_mine_heads_kernels_match_plain(cuda, H, B, D, integer=True)
+    heads, labels = _heads_batch(H, B, D, cuda, seed=B + D)
+    got = triplet.hard_mine_heads_kernel(heads, labels)
+    again = triplet.hard_mine_heads_kernel(heads, labels)
+    assert all(torch.equal(a, b) for a, b in zip(got, again))
+    g = torch.rand(H, B, device=cuda)
+    grads = triplet.hard_mine_heads_backward_kernel(heads, *got, g, g)
+    grads_again = triplet.hard_mine_heads_backward_kernel(heads, *got, g, g)
+    assert all(torch.equal(a, b) for a, b in zip(grads, grads_again))
+    exact, labels = _heads_batch(H, B, D, cuda, seed=B + D, integer=True)
+    few = triplet.hard_mine_heads_kernel(exact, labels)
+    many = triplet.hard_mine_heads_kernel(exact * 13, labels)
+    assert all(torch.equal(a, m[:H]) for a, m in zip(few, many))
+
+
+def test_hard_mine_long_batch_past_the_parameter_table(cuda):
+    """A long batch at 65 heads (the device table) on integer features:
+    one call each way against the plain twins, two calls bit-equal."""
+    test_hard_mine_heads_kernels_match_plain(cuda, 65, 300, 64, integer=True)
+
+
+def test_hard_mine_long_backward_lists_past_shared_memory(cuda):
+    """B = 16,400: the pick lists' counts no longer fit in shared memory,
+    so one block a head keeps them in the scratch. Integer features: the
+    picks against the plain twin's, the gradient against the twin's on the
+    same picks (1e-5 of max), two calls bit-equal."""
+    H, B, D = 1, 16400, 8
+    heads, labels = _heads_batch(H, B, D, cuda, seed=B, integer=True)
+    got = triplet.hard_mine_heads_kernel(heads, labels)
+    want = triplet.hard_mine_heads_reference(heads, labels)
+    assert torch.equal(got[2], want[2]) and torch.equal(got[3], want[3])
+    g = torch.rand(H, B, device=cuda) / B
+    grads = triplet.hard_mine_heads_backward_kernel(heads, *got, g, g)
+    again = triplet.hard_mine_heads_backward_kernel(heads, *got, g, g)
+    assert all(torch.equal(a, b) for a, b in zip(grads, again))
+    for a, b in zip(grads, triplet.hard_mine_backward_reference(heads, *got, g, g)):
+        assert float((a - b).abs().max()) <= 1e-5 * float(b.abs().max())
+
+
 @pytest.mark.parametrize("H", [65, 94])
 def test_hard_mine_device_table_equals_param_table(cuda, H):
     """The two forms of the head table run one kernel: H heads in one call

@@ -13,6 +13,13 @@ and the smallest long batch at a width that is no multiple of 4 (1, 257,
 value_and_grad of one head's batch_hard_triplet serves every head of a
 shape, the loss the heads' mean in deep_supervision's order and each
 gradient its head's over H.
+
+Beside them, torch models of csrc/triplet.cu's long schedule as it
+orders its work (tile by tile, the norms from the diagonal tiles, upper
+tiles mined by rows and mirrored columns, partials merged in tile order;
+the backward's pick lists by a stable counting sort, walked row by row),
+held against the Pallas kernel, the plain twins and jax's gradient: the
+card runs the same steps, so a fault in the schedule shows here.
 """
 
 from functools import partial
@@ -166,19 +173,203 @@ def test_zero_columns_change_no_distance(D):
 
 
 @pytest.mark.parametrize("H,B,want", [
-    (5, 16, 0),                           # the paper step: the cluster schedule
-    (3, 256, 0),                          # its largest batch
-    (1, 257, 5 * 257 * 16),               # the smallest long batch: 5 tiles of 64
-    (5, 2048, 5 * 32 * 2048 * 16),        # 5.2 MB
-    (1, 600000, 9375 * 600000 * 16),      # 90 GB: past an 80 GB card
+    (5, 16, 0),                                # the paper step: the cluster schedule
+    (3, 256, 0),                               # its largest batch
+    (1, 257, 257 * (5 * 16 + 4)),              # the smallest long batch: 5 tiles of 64
+    (5, 2048, 5 * 2048 * (32 * 16 + 4)),       # 5.3 MB
+    (1, 600000, 600000 * (9375 * 16 + 4)),     # 90 GB: past an 80 GB card
 ])
 def test_scratch_bytes_are_the_long_partials(H, B, want):
-    """The long forward's partials (a float2 and an int2 per head, 64-column
-    tile and anchor) are what the pre-flight holds against the card's
-    memory; csrc/triplet.cu states the same formula."""
+    """The long forward's partials (a float2 and an int2 per head, 64-row
+    tile and anchor) and its norms (a float per head and anchor) are what
+    the pre-flight holds against the card's memory; csrc/triplet.cu states
+    the same formula, and its backward's pick lists take less."""
     assert triplet.hard_mine_scratch_bytes(H, B) == want
     from agrl_torch.kernels.build import CSRC_DIR
 
     src = (CSRC_DIR / "triplet.cu").read_text()
-    assert "return B <= kShortBatch ? 0 : (long long)H * long_tiles(B) * B * 16;" in src
+    assert ("return B <= kShortBatch ? 0 : (long long)H * B * (16 * (long long)long_tiles(B) + 4);"
+            in src)
+    assert "return B <= kShortBackwardBatch ? 0 : (long long)H * (48ll * B + 4);" in src
     assert "constexpr int kMinTile = 64;" in src
+    assert B <= 256 or H * (48 * B + 4) < want
+
+
+# ---- models of csrc/triplet.cu's long schedule --------------------------------
+
+def _keep(v, k, v2, k2, larger):
+    """keep_max (larger) or keep_min of csrc/triplet.cu, elementwise: the
+    better value, the lower index on a tie."""
+    take = ((v2 > v) if larger else (v2 < v)) | ((v2 == v) & (k2 < k))
+    return torch.where(take, v2, v), torch.where(take, k2, k)
+
+
+def _long_forward_model(f, y, T):
+    """The long forward on one head (B, D) fp32 with T-row tiles, in the
+    kernels' steps: the diagonal tiles' Grams give the norms (their own
+    diagonal), each upper tile (ti <= tj) turns its Gram into distances
+    with them and mines its rows over its columns into slot tj and, above
+    the diagonal, its columns over its rows into slot ti (a diagonal tile
+    from its upper triangle, mirrored), each partial a masked max and min
+    with the lowest index on ties; then the partials merge in tile order
+    from the sentinels (-inf / +inf at index B)."""
+    B = f.shape[0]
+    nt = -(-B // T)
+    tiles = [torch.arange(t * T, min(B, (t + 1) * T)) for t in range(nt)]
+    sq = torch.cat([(f[t] @ f[t].T).diagonal() for t in tiles])
+    big = triplet._BIG
+    pv = torch.empty(2, nt, B)
+    pk = torch.empty(2, nt, B, dtype=torch.int64)
+    for ti in range(nt):
+        for tj in range(ti, nt):
+            r, c = tiles[ti], tiles[tj]
+            g = f[r] @ f[c].T
+            if ti == tj:
+                g = torch.triu(g) + torch.triu(g, 1).T
+            dist = torch.sqrt(torch.clamp(sq[r][:, None] + sq[c][None, :] - 2.0 * g, min=1e-12))
+            for d, own, other, slot in [(dist, r, c, tj)] + ([(dist.T, c, r, ti)] if tj > ti else []):
+                pos = y[own][:, None] == y[other][None, :]
+                ap, an = torch.where(pos, d, -big), torch.where(pos, big, d)
+                pv[0, slot, own], pk[0, slot, own] = ap.amax(1), other[ap.argmax(1)]
+                pv[1, slot, own], pk[1, slot, own] = an.amin(1), other[an.argmin(1)]
+    v_ap, v_an = torch.full((B,), -float("inf")), torch.full((B,), float("inf"))
+    k_ap = k_an = torch.full((B,), B, dtype=torch.int64)
+    for t in range(nt):
+        v_ap, k_ap = _keep(v_ap, k_ap, pv[0, t], pk[0, t], larger=True)
+        v_an, k_an = _keep(v_an, k_an, pv[1, t], pk[1, t], larger=False)
+    return v_ap, v_an, k_ap, k_an
+
+
+def _tied_heads(H, B, D, seed):
+    """Integer features (exact Grams in any order) over P x 4 labels, a
+    fifth of the rows copies of earlier rows of their own label or of
+    another's: equal distances, whose picks must go to the lowest index."""
+    rng = np.random.RandomState(seed)
+    labels = np.repeat(np.arange(-(-B // 4)), 4)[:B]
+    heads = []
+    for _ in range(H):
+        f = rng.randint(-2, 3, (B, D)).astype(np.float32)
+        for i in rng.choice(np.arange(1, B), B // 5, replace=False):
+            f[i] = f[rng.randint(i)]
+        heads.append(f)
+    return heads, labels
+
+
+@pytest.mark.parametrize("H,B,D", [(3, 300, 64), (1, 257, 8)])
+def test_long_forward_model_matches_pallas(H, B, D):
+    """The long forward's schedule on tied integer features, at both tile
+    sizes: values equal to agrl_tpu's Pallas kernel (interpret mode; atol
+    1e-5), picks the lowest-index ones of the plain twin, each pick's
+    distance the value, and both tile sizes the same outputs."""
+    heads, labels = _tied_heads(H, B, D, seed=B + D)
+    y = torch.from_numpy(labels)
+    ties = 0
+    for f in heads:
+        x = torch.from_numpy(f)
+        got64, got128 = (_long_forward_model(x, y, T) for T in (64, 128))
+        assert all(torch.equal(a, b) for a, b in zip(got64, got128))
+        pal_ap, pal_an = hard_mine_pallas(jnp.asarray(f), jnp.asarray(labels), interpret=True)
+        np.testing.assert_allclose(got64[0].numpy(), np.asarray(pal_ap), atol=1e-5, rtol=0)
+        np.testing.assert_allclose(got64[1].numpy(), np.asarray(pal_an), atol=1e-5, rtol=0)
+        want = triplet.hard_mine_reference(x, y)
+        assert torch.equal(got64[2], want[2]) and torch.equal(got64[3], want[3])
+        dist = triplet.pairwise_euclidean(x)
+        rows = torch.arange(B)
+        assert torch.equal(dist[rows, got64[2]], got64[0])
+        assert torch.equal(dist[rows, got64[3]], got64[1])
+        pos = y[:, None] == y[None, :]
+        ties += int(((torch.where(pos, dist, -1.0) == got64[0][:, None]).sum(1) > 1).sum())
+        ties += int(((torch.where(pos, 1e30, dist) == got64[1][:, None]).sum(1) > 1).sum())
+    assert ties > 0  # the lowest-index rule was exercised
+
+
+def _pick_lists_model(B, w, k):
+    """The backward's pick lists for one head: w, k (2, B), the weight and
+    the target row of each anchor's pick p (0 where it carries no
+    gradient). Each row's entries are its gradient's terms (source row,
+    weight): its own live picks first (pick 0, then 1), then every live
+    pick landing on it, in (anchor, pick) order. A stable counting sort on
+    the target: each row's own and incoming live picks counted, an
+    exclusive scan into each row's start, then a fill in (anchor, pick)
+    order. Returns (start (B + 1,), entries [(source, w)])."""
+    live = [(a, p) for a in range(B) for p in (0, 1) if w[p, a] != 0]
+    own, incoming = np.zeros(B, np.int64), np.zeros(B, np.int64)
+    for a, p in live:
+        own[a] += 1
+        incoming[k[p, a]] += 1
+    start = np.concatenate([[0], np.cumsum(own + incoming)])
+    cursor, entries = start[:-1] + own, [None] * (2 * len(live))
+    for a, p in live:
+        entries[start[a] + (p == 1 and w[0, a] != 0)] = (int(k[p, a]), w[p, a])
+        entries[cursor[k[p, a]]] = (a, w[p, a])
+        cursor[k[p, a]] += 1
+    return start, entries
+
+
+def _long_backward_model(f, d, i, g):
+    """The long backward on one head, row by row: its entries of the pick
+    lists in order, acc += w f_src, rs += w; grad_r = rs f_r - acc. d, i,
+    g: (2, B) of the forward's distances and picks and the incoming
+    gradients (a row of g None: zero)."""
+    B = f.shape[0]
+    rows = torch.arange(B)
+    w = torch.zeros(2, B, dtype=f.dtype)
+    for p in (0, 1):
+        if g[p] is not None:
+            live = (d[p] > triplet._DIST_MIN) & (d[p] < triplet._BIG) & (i[p] != rows)
+            w[p] = torch.where(live, g[p] / d[p], torch.zeros_like(d[p]))
+    start, entries = _pick_lists_model(B, w.numpy(), i.numpy())
+    grad = torch.empty_like(f)
+    for r in range(B):
+        acc, rs = torch.zeros_like(f[r]), 0.0
+        for src, wt in entries[start[r]:start[r + 1]]:
+            acc = acc + float(wt) * f[src]
+            rs += float(wt)
+        grad[r] = rs * f[r] - acc
+    return grad, start, entries
+
+
+@pytest.mark.parametrize("B,D,hub", [(300, 64, False), (257, 8, False), (300, 64, True)])
+def test_long_backward_model_matches_the_twin_and_jax(B, D, hub):
+    """The one-pass backward on continuous features (float64): each row's
+    entries are its own picks, then the picks landing on it in anchor
+    order, each live pick in two rows' lists; the gradient equals hard_mine_backward_reference (rtol 1e-6), with g_an
+    None too, and agrl_tpu's gradient of g_ap . d_ap + g_an . d_an
+    (jax.grad through pairwise_euclidean and hard_mine; atol 1e-5). `hub`:
+    row 0 at the batch's centre, most anchors' hardest negative, so one
+    row's list holds most entries."""
+    heads, labels = _heads(1, B, D, seed=B + D, scale=0.5)
+    f = heads[0].astype(np.float64)
+    if hub:
+        f[0] = f.mean(axis=0)
+    x, y = torch.from_numpy(f), torch.from_numpy(labels).long()
+    d_ap, d_an, i_ap, i_an = triplet.hard_mine_reference(x, y)
+    rng = np.random.RandomState(B)
+    g_ap, g_an = (torch.from_numpy(rng.rand(B)) for _ in range(2))
+    d, i = torch.stack([d_ap, d_an]), torch.stack([i_ap, i_an])
+    grad, start, entries = _long_backward_model(x, d, i, (g_ap, g_an))
+    rows = torch.arange(B)
+    live = ((d > triplet._DIST_MIN) & (d < triplet._BIG) & (i != rows)).numpy()
+    assert len(entries) == 2 * live.sum()
+    for r in range(B):
+        mine = [int(i[p, r]) for p in (0, 1) if live[p, r]]
+        srcs = [a for a, _ in entries[start[r] + len(mine):start[r + 1]]]
+        assert [s for s, _ in entries[start[r]:start[r] + len(mine)]] == mine
+        assert srcs == sorted(srcs) and all(r in (int(i_ap[a]), int(i_an[a])) for a in srcs)
+    if hub:
+        assert start[1] - start[0] > B // 2
+    want = triplet.hard_mine_backward_reference([x], d_ap[None], d_an[None], i_ap[None],
+                                                i_an[None], g_ap[None], g_an[None])[0]
+    torch.testing.assert_close(grad, want, rtol=1e-6, atol=0)
+    only_ap = _long_backward_model(x, d, i, (g_ap, None))[0]
+    torch.testing.assert_close(only_ap, triplet.hard_mine_backward_reference(
+        [x], d_ap[None], d_an[None], i_ap[None], i_an[None], g_ap[None], None)[0],
+        rtol=1e-6, atol=0)
+
+    def loss(v):
+        ap, an = jl.hard_mine(jl.pairwise_euclidean(v), jnp.asarray(labels))
+        return jnp.sum(jnp.asarray(g_ap.numpy(), jnp.float32) * ap
+                       + jnp.asarray(g_an.numpy(), jnp.float32) * an)
+
+    jax_grad = np.asarray(jax.grad(loss)(jnp.asarray(f, jnp.float32)))
+    np.testing.assert_allclose(grad.numpy(), jax_grad, atol=1e-5, rtol=0)
