@@ -1,5 +1,8 @@
 """Clip dataset + batched loader (counterpart of agrl_tpu/data/loader.py).
 
+`ImageDataset` holds image re-id records, items (H, W, 3) uint8, pid,
+camid, with no adjacency.
+
 Item contract (parity with dataset_loader.py:83-215): imgs (S, H, W, 3)
 uint8, pid, camid, adj (V, V) float32; enable_pose=False -> all-ones
 adjacency. All seven clip strategies of agrl_tpu: `evenly`, `dense`,
@@ -36,6 +39,29 @@ from agrl_torch.data.transforms import effective_decoder, host_decode_resize
 # strategies that draw nothing from the item's rng: their items (and the
 # loader's collated batches) are the same every epoch
 DETERMINISTIC_SAMPLES = ("evenly", "all", "dense", "skipdense")
+
+
+class ImageDataset:
+    """Image re-id items (agrl_tpu/data/loader.py:32-49; the reference's
+    dataset_loader.py:39-55): (img (H, W, 3) uint8, pid, camid) a record,
+    decoded and resized on the host. They carry no adjacency, so a
+    ClipLoader over them collates an all-ones (B, 1, 1) one. `decode` as
+    VideoClipDataset's."""
+
+    def __init__(self, dataset: list, height: int = 256, width: int = 128,
+                 decode: str = "pil"):
+        self.dataset = dataset
+        self.height = height
+        self.width = width
+        self.decode = decode
+
+    def __len__(self):
+        return len(self.dataset)
+
+    def get_item(self, index: int, rng=None):
+        img_path, pid, camid = self.dataset[index]
+        imgs, _ = host_decode_resize([img_path], self.height, self.width, decode=self.decode)
+        return imgs[0], pid, camid
 
 
 class VideoClipDataset:
@@ -304,7 +330,10 @@ class ClipLoader:
         imgs = np.stack([it[0] for it in items])
         pids = np.asarray([it[1] for it in items], dtype=np.int32)
         camids = np.asarray([it[2] for it in items], dtype=np.int32)
-        adjs = np.stack([it[3] for it in items]).astype(np.float32)
+        if len(items[0]) < 4:  # ImageDataset items carry no adjacency
+            adjs = np.ones((len(items), 1, 1), dtype=np.float32)
+        else:
+            adjs = np.stack([it[3] for it in items]).astype(np.float32)
         return imgs, pids, camids, adjs
 
 

@@ -30,7 +30,8 @@ Phases (any failure exits non-zero before the result lines):
      1e-6;
   8. the batch-hard mining kernels (K3: one forward launch for H heads,
      one backward launch) vs their plain versions, TF32 off: H=5 B=16
-     D=2048 (the train step), H=1 B=15, H=5 B=64, H=3 B=256; values atol
+     D=2048 (the train step), H=2 B=8 (phase 30's), H=1 B=15, H=5 B=64,
+     H=3 B=256; values atol
      1e-4, picks equal, the multi-head loss's gradients vs the plain
      path's autograd atol 1e-5, two calls bit-equal; at the train shape,
      device time per call (profiler) and CUDA-event call times (L2
@@ -209,8 +210,8 @@ Phases (any failure exits non-zero before the result lines):
      (64, 56) and long (1, 2128), gamma 0.3 and 0.0 (1e-5 of max; at 0 the
      output is f), timed as phase 17; K3 vs its twin at (H=2, D=6144) and
      (H=1, D=1024); one CLI epoch each of -a gsta, -a ganet and -a sta on
-     phase 16's layout, then --evaluate under evenly and all for gsta and
-     ganet (K1 2 per eval batch); gsta and ganet as init_model builds
+     phase 16's layout (evaluated at evenly), then --evaluate under all
+     for gsta and ganet (K1 2 per eval batch); gsta and ganet as init_model builds
      them (dtype None) behind the FeatureExtractor's bf16 default: K1 and
      K2 launches per 16-clip request (gsta 2 and 0; ganet 1 and 1, its
      bf16 stripe means take K2's entry, the first layer's float32 output
@@ -231,8 +232,8 @@ Phases (any failure exits non-zero before the result lines):
      heads at --num-split 16 (94, 16, 1536: the device head table),
      ganet's 10240-d heads at --num-gb 4 (2, 16, 10240) and a long batch
      of a ragged width (3, 300, 1030: D padded to 1032); one CLI epoch of
-     -a msppgn --num-scale 3 on phase 16's layout, then --evaluate under
-     evenly and all (all pads the adjacency through msppgn's
+     -a msppgn --num-scale 3 on phase 16's layout (evaluated at evenly),
+     then --evaluate under all (all pads the adjacency through msppgn's
      pad_eval_adjacency; K1 0);
  26. (run after phase 25; its kernel check after phase 8) the legacy video
      archs at the paper's widths (ResNet-50 (3,4,6,3) with layer4 at
@@ -246,8 +247,8 @@ Phases (any failure exits non-zero before the result lines):
      GB, finite losses, K3 1 + 1 launches a step; card vs CPU at depth
      (1,1,1,1) (resnet3d at depth 10), 64x32 (1e-3); K3 vs its twin at
      (H=1, D=512) and (1, 2048); one CLI epoch each of -a res50rnn and -a
-     resnet3d50 on phase 16's layout, then --evaluate under evenly and all
-     (whole tracklets, unpadded); for each image arch (resnet50,
+     resnet3d50 on phase 16's layout (evaluated at evenly), then
+     --evaluate under all (whole tracklets, unpadded); for each image arch (resnet50,
      resnet101, resnet50m, resnet50b) a batch of 32 images at 256x128: the
      eval forward's CUDA-event ms, and the train forward card vs CPU at
      depth (1,1,1,1), 64x32 (1e-3);
@@ -307,11 +308,27 @@ Phases (any failure exits non-zero before the result lines):
      float64 squared distances within 1e-5 of sq_i + sq_j), the whole
      gradient's difference reported; msppgn at --num-split 16 --learn-graph
      (94 heads) and ganet at --num-gb 4 (two 10240-d heads), one step each;
+ 30. agrl_tpu's convergence check: the discriminative MARS-layout recipe of
+     agrl_torch/cli/measure_convergence_band.py (vmgn_tiny, 64x32, seq_len
+     4, 6 train and 16 test ids, 10 steps of 8 clips, Adam lr 1e-3) at
+     seed 0 and with the injected bug no_htri (lambda_htri = 0), trained
+     and scored on the card (evenly, dense and all; no_htri evenly), seed
+     0 trained once more on the card, and trained and scored under evenly
+     on the CPU in this process; card vs CPU step 1's xent and htri
+     within 1e-4 relative, evenly mAP within 0.05 and rank-1 within 1/16,
+     seed 0 inside the committed band's golden +- 0.05 (agrl_torch/cli/
+     convergence_band.json, measured on the card by that tool), no_htri
+     below its floor, dense and all within the band's per-path deltas +
+     0.05 of evenly, the card's two seed-0 runs' losses bit-equal; the
+     evenly and all query features of K1's kernel path vs its plain path
+     (1e-5 of max); K3 10 + 10 launches a run, K1 one launch per eval
+     device batch (K3 at the recipe's shape is held in phase 8);
 then one {"serving": ...} line (with "bf16" and "artifact"), one {"training": ...} line (with "bf16"),
 one {"reranking": ...} line, one {"cli": ...} line (with "bf16"), one {"evaluation": ...}
 line, one {"input": ...} line, one {"train_surface": ...} line, one {"archs": ...} line, one
 {"graphnets": ...} line, one {"legacy": ...} line, one {"parallel": ...} line, one
-{"mp": ...} line, one {"k3_paths": ...} line, one {"kernels": [...]} line (each kernel's `slower_than_plain`
+{"mp": ...} line, one {"k3_paths": ...} line, one {"convergence": ...} line, one
+{"kernels": [...]} line (each kernel's `slower_than_plain`
 lists the shapes where this run timed it above its plain version), the
 card's name and power limit, and
 {"ok": true, "device": {...}} as the last line.
@@ -1326,7 +1343,8 @@ def phase_triplet(torch, tri, losses_mod, device, flush):
     """K3 vs its plain versions on the card; returns the train-shape record."""
     plain_loss = plain_triplet_heads(tri, losses_mod)
     rec = {}
-    for H, B in ((TRAIN_HEADS, BATCH), (1, 15), (TRAIN_HEADS, 64), (3, 256)):
+    # (2, 8): phase 30's band recipe (vmgn_tiny's two heads, 8 clips)
+    for H, B in ((TRAIN_HEADS, BATCH), (2, 8), (1, 15), (TRAIN_HEADS, 64), (3, 256)):
         heads, labels = triplet_heads(torch, H, B, FEATURE_DIM, device, seed=B)
         got = tri.hard_mine_heads_kernel(heads, labels)
         again = tri.hard_mine_heads_kernel(heads, labels)
@@ -3929,8 +3947,8 @@ def phase_k3_arch_shapes(torch, tri, losses_mod, device, flush,
 def phase_cli_archs(torch, tri, gc, runs=(("gsta", ()), ("ganet", ()), ("sta", ()))):
     """One CLI epoch of each (arch, extra flags) of `runs` with the paper
     preset on phase 16's MARS layout (in process, wrappers counted), each
-    evaluated at evenly; then --evaluate --resume best_model under evenly
-    and all for gsta and ganet (phase 24), msppgn (phase 25, whose `all`
+    evaluated at evenly; then --evaluate --resume best_model under all for
+    gsta and ganet (phase 24), msppgn (phase 25, whose `all`
     pads its adjacency through pad_eval_adjacency) and the legacy archs
     (phase 26: `all` runs each tracklet whole, one batch a tracklet). K1:
     2 per eval batch for gsta and ganet, 0 for the others."""
@@ -3974,23 +3992,23 @@ def phase_cli_archs(torch, tri, gc, runs=(("gsta", ()), ("ganet", ()), ("sta", (
                 f"ms; hard_mine {fwd}+{bwd}, K1 {k1} for {evenly_batches} eval batches; CMC "
                 f"(rank-1, mAP) {rec['evals']}; {secs:.1f} s")
             if arch in GRAPH_ARCHS + GRAPHNETS + LEGACY:
+                # the training run's eval above is evenly's (K1 counted);
+                # the checkpoint is resumed under all
                 best = f"{tmp}/{arch}/best_model.pth.tar"
-                for sample in ("evenly", "all"):
-                    eval_argv = (without_flag(argv, "--test-sample")
-                                 + ["--test-sample", sample, "--evaluate", "--resume", best])
-                    gc.launches = 0  # this evaluation starts here
-                    t0 = time.perf_counter()
-                    result, text = run_cli_in_process(cli, eval_argv)
-                    batches = (evenly_batches if sample == "evenly"
-                               else len(ds.query) + len(ds.gallery) if arch in LEGACY
-                               else expected_eval_batches(ds, "all"))
-                    rec[f"evaluate_{sample}"] = dict(
-                        rank1_mAP=[float(v) for v in result], k1=gc.launches,
-                        eval_batches=batches, seconds=time.perf_counter() - t0)
-                    log(f"[{tag}] cli -a {arch} --evaluate --test-sample {sample}: (rank-1, "
-                        f"mAP) {rec[f'evaluate_{sample}']['rank1_mAP']}, K1 {gc.launches} for "
-                        f"{batches} eval batches")
-                    ok = ok and gc.launches == want_k1 * batches
+                eval_argv = (without_flag(argv, "--test-sample")
+                             + ["--test-sample", "all", "--evaluate", "--resume", best])
+                gc.launches = 0  # this evaluation starts here
+                t0 = time.perf_counter()
+                result, text = run_cli_in_process(cli, eval_argv)
+                batches = (len(ds.query) + len(ds.gallery) if arch in LEGACY
+                           else expected_eval_batches(ds, "all"))
+                rec["evaluate_all"] = dict(
+                    rank1_mAP=[float(v) for v in result], k1=gc.launches,
+                    eval_batches=batches, seconds=time.perf_counter() - t0)
+                log(f"[{tag}] cli -a {arch} --evaluate --test-sample all: (rank-1, mAP) "
+                    f"{rec['evaluate_all']['rank1_mAP']}, K1 {gc.launches} for {batches} eval "
+                    f"batches")
+                ok = ok and gc.launches == want_k1 * batches
             out[arch] = rec
             if not ok:
                 raise AssertionError(f"CLI -a {arch}: {rec}")
@@ -4998,6 +5016,147 @@ def phase_k3_paths(torch, tri, losses_mod, device):
     return out
 
 
+# ---- phase 30: agrl_tpu's convergence check --------------------------------
+
+
+def band_scores(torch, layers_mod, gc, model, ds, band_tool, device, samples, held=()):
+    """The recipe's scoring (band_tool.score: cosine, mars protocol,
+    clip_batch 8) of `model` under each of `samples` on `device`, with K1's
+    launches against the Evaluator's device batches; under each of `held`
+    also the query features of the kernel path against the plain path
+    (graph_propagate_reference in K1's place), as phase 18 holds them."""
+    from agrl_torch.engine.evaluator import Evaluator
+
+    out = {}
+    for sample in samples:
+        q, g = band_tool.eval_loaders(ds, sample)
+        ev = Evaluator(model, test_sample=sample, clip_batch=8, device=device)
+        n = count_device_batches(ev)
+        gc.launches = 0  # the path starts here
+        r1, mAP = ev.evaluate(q, g, dist_metric="cosine", metric_protocol="mars")
+        rec = dict(rank1=r1, mAP=mAP, k1_launches=gc.launches,
+                   device_batches=n["batches"])  # the path ends here
+        if sample in held:
+            feats = {}
+            for path, fn in (("kernel", gc.graph_propagate),
+                             ("plain", gc.graph_propagate_reference)):
+                layers_mod.graph_propagate = fn
+                try:
+                    feats[path] = ev.extract(band_tool.eval_loaders(ds, sample)[0], "query")[0]
+                finally:
+                    layers_mod.graph_propagate = gc.graph_propagate
+            qf, plain = feats["kernel"], feats["plain"]
+            rec["query_finite"] = bool(torch.isfinite(qf).all())
+            rec["kernel_vs_plain_rel_err"] = float((qf - plain).abs().max() / plain.abs().max())
+        out[sample] = rec
+    return out
+
+
+def phase_convergence(torch, tri, gc, layers_mod, device):
+    """agrl_tpu's convergence check (phase 30): the discriminative MARS-layout
+    recipe of agrl_torch/cli/measure_convergence_band.py at seed 0 and with
+    the injected bug no_htri (lambda_htri = 0), trained and scored on the
+    card (evenly, dense and all for seed 0, evenly for no_htri), seed 0
+    trained once more on the card (its losses bit for bit), and seed 0
+    trained and scored under evenly on the CPU in this process; held card
+    vs CPU (step 1's xent and htri within 1e-4 relative, mAP within the
+    band's margin, rank-1 within one of 16 queries), against the committed
+    band (agrl_torch/cli/convergence_band.json: seed 0 inside golden +-
+    margin, no_htri below the floor, dense and all within the band's
+    per-path deltas + margin of evenly), K1's kernel path against its plain
+    path on the evenly and all query features (1e-5 of max), and on the
+    kernels' counts (K3: one forward and one backward launch a step; K1: one
+    launch per device batch of the eval, vmgn_tiny having one graph layer).
+    K3 at the recipe's shape (H=2 B=8 D=2048) is held against its plain
+    versions in phase 8."""
+    from agrl_torch.cli import measure_convergence_band as band_tool
+
+    t_phase = time.perf_counter()
+    with open(band_tool.BAND_PATH) as f:
+        band = json.load(f)
+    golden, floor, ceil = band_tool.band_limits(band)
+    margin = band_tool.SUBSTRATE_MARGIN
+    build_dir = REPO / "agrl_torch" / "_build"
+    build_dir.mkdir(parents=True, exist_ok=True)
+    out = {"band": dict(golden=golden, floor=floor, ceiling=ceil,
+                        measured_on=band["device"].get("nvidia_smi"))}
+    with tempfile.TemporaryDirectory(dir=build_dir) as root:
+        ds = band_tool.build_fixture(os.path.join(root, "d"))
+        for variant, lambda_htri, samples in (("seed0", 1.0, band_tool.SAMPLES),
+                                              ("no_htri", 0.0, ("evenly",))):
+            tri.launches = tri.backward_launches = 0  # the path starts here
+            t0 = time.perf_counter()
+            model, history = band_tool.train_once(ds, 0, lambda_htri, device=device)
+            torch.cuda.synchronize()
+            rec = dict(train_s=time.perf_counter() - t0,
+                       k3_launches=[tri.launches, tri.backward_launches],  # the path ends
+                       xent=[h["xent_loss"] for h in history],
+                       htri=[h["htri_loss"] for h in history])
+            t0 = time.perf_counter()
+            rec.update(band_scores(torch, layers_mod, gc, model, ds, band_tool, device, samples,
+                                   held=("evenly", "all") if variant == "seed0" else ()))
+            rec["score_s"] = time.perf_counter() - t0
+            out[variant] = rec
+            log(f"[convergence] {variant} on the card: trained in {rec['train_s']:.1f} s, K3 "
+                f"launches {rec['k3_launches']}; " + "; ".join(
+                    f"{s} rank-1 {rec[s]['rank1']:.4f} mAP {rec[s]['mAP']:.4f} (K1 "
+                    f"{rec[s]['k1_launches']} in {rec[s]['device_batches']} batches)"
+                    for s in samples) + f"; scored in {rec['score_s']:.1f} s")
+            del model
+            if variant == "seed0":
+                seed0 = history
+        # the tool's card runs repeat their bits (its deterministic algorithms)
+        _, again = band_tool.train_once(ds, 0, device=device)
+        out["repeat_bit_equal"] = again == seed0
+        t0 = time.perf_counter()
+        model, history = band_tool.train_once(ds, 0, device="cpu")
+        r1, mAP = band_tool.score(model, ds, "evenly", device="cpu")
+        out["cpu"] = dict(evenly=dict(rank1=r1, mAP=mAP), xent=[h["xent_loss"] for h in history],
+                          htri=[h["htri_loss"] for h in history],
+                          seconds=time.perf_counter() - t0, threads=torch.get_num_threads())
+    card, bug, cpu = out["seed0"], out["no_htri"], out["cpu"]
+    out["card_vs_cpu_step1_rel"] = {k: abs(card[k][0] - cpu[k][0]) / abs(cpu[k][0])
+                                    for k in ("xent", "htri")}
+    out["card_vs_cpu_mAP"] = abs(card["evenly"]["mAP"] - mAP)
+    out["card_vs_cpu_rank1"] = abs(card["evenly"]["rank1"] - r1)
+    tol = {s: band["summary"][f"{s}_vs_evenly_max_delta"] + margin for s in ("dense", "all")}
+    delta = {s: abs(card[s]["mAP"] - card["evenly"]["mAP"]) for s in ("dense", "all")}
+    k1_plain = {s: card[s]["kernel_vs_plain_rel_err"] for s in ("evenly", "all")}
+    log(f"[convergence] seed 0 again on the card: losses bit-equal {out['repeat_bit_equal']}; "
+        f"seed 0 on the CPU ({cpu['threads']} threads): rank-1 {r1:.4f} mAP {mAP:.4f} in "
+        f"{cpu['seconds']:.1f} s; card vs CPU: step 1 xent "
+        f"{out['card_vs_cpu_step1_rel']['xent']:.3e}, htri "
+        f"{out['card_vs_cpu_step1_rel']['htri']:.3e} relative (tol 1e-4), mAP "
+        f"{out['card_vs_cpu_mAP']:.4f} (tol {margin}), rank-1 {out['card_vs_cpu_rank1']:.4f} "
+        f"(tol 1/16); band: golden {golden:.4f}, floor {floor:.4f}, ceiling {ceil:.4f} "
+        f"(measured on {out['band']['measured_on']}); no_htri {bug['evenly']['mAP']:.4f}; "
+        f"|dense - evenly| {delta['dense']:.4f} (tol {tol['dense']:.4f}), |all - evenly| "
+        f"{delta['all']:.4f} (tol {tol['all']:.4f}); query features, K1's kernel path vs "
+        f"plain path: evenly {k1_plain['evenly']:.3e}, all {k1_plain['all']:.3e} of max "
+        f"(tol 1e-5)")
+    failed = [what for what, ok in (
+        ("card vs CPU step 1", all(v <= 1e-4 for v in out["card_vs_cpu_step1_rel"].values())),
+        ("card vs CPU mAP", out["card_vs_cpu_mAP"] < margin),
+        ("card vs CPU rank-1", out["card_vs_cpu_rank1"] <= 1 / 16 + 1e-9),
+        ("seed 0 inside the band", floor < card["evenly"]["mAP"] < ceil),
+        ("no_htri below the floor", bug["evenly"]["mAP"] < floor),
+        ("dense vs evenly", delta["dense"] < tol["dense"]),
+        ("all vs evenly", delta["all"] < tol["all"]),
+        ("K1 kernel path vs plain path", all(v <= 1e-5 for v in k1_plain.values())
+         and all(card[s]["query_finite"] for s in k1_plain)),
+        ("K3 launches", all(r["k3_launches"] == [band_tool.EPOCHS] * 2 for r in (card, bug))),
+        ("K1 launches", all(r[s]["k1_launches"] == r[s]["device_batches"] > 0
+                            for r in (card, bug) for s in band_tool.SAMPLES if s in r)),
+        ("finite", all(math.isfinite(v) for r in (card, bug) for v in r["xent"] + r["htri"])),
+        ("seed 0 repeated bit for bit", out["repeat_bit_equal"]),
+    ) if not ok]
+    if failed:
+        raise AssertionError(f"convergence: {', '.join(failed)} failed")
+    out["phase_seconds"] = time.perf_counter() - t_phase
+    log(f"[convergence] phase_seconds {out['phase_seconds']:.1f}")
+    return out
+
+
 def main() -> int:
     if not all((REPO / "agrl_torch" / "csrc" / f"{n}.cu").exists() for n in LIBS):
         print("chip_smoke.py: the agrl_torch package is not beside this script", file=sys.stderr)
@@ -5187,7 +5346,7 @@ def main() -> int:
     archs = phase_archs(torch, tri, gc, layers_mod, device)
     archs.update(arch_kernels)
     # 25. msppn and msppgn: serving, training over 22 heads, card vs CPU, the
-    # CLI's msppgn epoch and its evenly and all evaluations
+    # CLI's msppgn epoch (evaluated at evenly) and its all evaluation
     graphnets = phase_graphnets(torch, tri, gc, layers_mod, device)
     graphnets.update(graphnet_kernels)
     # 26. the legacy video archs: serving, training over one head, card vs
@@ -5207,6 +5366,10 @@ def main() -> int:
     # steps: VMGN at --train-batch 320, msppgn at --num-split 16, ganet at
     # --num-gb 4
     k3_paths = phase_k3_paths(torch, tri, losses_mod, device)
+    torch.cuda.empty_cache()
+    # 30. agrl_tpu's convergence check: the discriminative recipe trained on
+    # the card and the CPU, held against each other and the committed band
+    convergence = phase_convergence(torch, tri, gc, layers_mod, device)
 
     print(json.dumps({"serving": serving}))
     print(json.dumps({"training": training}))
@@ -5223,6 +5386,7 @@ def main() -> int:
     print(json.dumps({"parallel": parallel}))
     print(json.dumps({"mp": mp}))
     print(json.dumps({"k3_paths": k3_paths}))
+    print(json.dumps({"convergence": convergence}))
     kernel = {
         "name": "graph_propagate",
         "route": "cuda",
@@ -5276,17 +5440,21 @@ def main() -> int:
                                              for a, r in archs["cli"].items()},
         "graphnet_launches_per_forward": {a: r["serving"]["k1_launches_per_forward"]
                                           for a, r in graphnets["archs"].items()},
-        "graphnet_cli_launches": {a: [r["k1_per_eval_batch"]] + [
-            r[f"evaluate_{s}"]["k1"] for s in ("evenly", "all")]
-            for a, r in graphnets["cli"].items()},
+        "graphnet_cli_launches": {a: [r["k1_per_eval_batch"], r["evaluate_all"]["k1"]]
+                                  for a, r in graphnets["cli"].items()},
         "legacy_launches_per_forward": {a: r["serving"]["k1_launches_per_forward"]
                                         for a, r in legacy["archs"].items()},
         "parallel_serving_launches": parallel["serving"]["k1_launches"],
         "parallel_cli_launches": {k: parallel["cli"][k]["k1_launches"]
                                   for k in ("grouped", "plain")},
-        "legacy_cli_launches": {a: [r["k1_per_eval_batch"]] + [
-            r[f"evaluate_{s}"]["k1"] for s in ("evenly", "all")]
-            for a, r in legacy["cli"].items()},
+        "convergence_launches": {f"{v}_{s}": [convergence[v][s]["k1_launches"],
+                                               convergence[v][s]["device_batches"]]
+                                 for v in ("seed0", "no_htri") for s in ("evenly", "dense", "all")
+                                 if s in convergence[v]},
+        "convergence_note": "phase 30: [K1 launches, eval device batches] per scoring of the "
+                            "band recipe's vmgn_tiny (one graph layer; `all` up to V = 84)",
+        "legacy_cli_launches": {a: [r["k1_per_eval_batch"], r["evaluate_all"]["k1"]]
+                                for a, r in legacy["cli"].items()},
         "graphnet_note": "phase 25: msppn has no graph; msppgn's GraphBlocks are torch ops "
                          "(agrl_tpu runs them as XLA ops, outside any Pallas kernel), so "
                          "K1 launches 0 times on both",
@@ -5354,6 +5522,9 @@ def main() -> int:
         "parallel_note": "phase 27: the data-parallel step in an NCCL group of world 1 mines "
                          "the gathered global batch, one forward and one backward launch a "
                          "step",
+        "convergence_launches": {v: convergence[v]["k3_launches"] for v in ("seed0", "no_htri")},
+        "convergence_note": "phase 30: [forward, backward] over each 10-step run of the band "
+                            "recipe (H=2 B=8 D=2048)",
         "legacy_shapes": legacy["k3_shapes"],
         "long_shapes": trec["long_shapes"],
         "wide_shapes": graphnets["k3_wide_shapes"],
